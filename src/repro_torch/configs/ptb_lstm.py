@@ -1,0 +1,28 @@
+"""The paper's own models: 2-layer LSTM language models (PTB-Small/Large).
+
+PTB-Small: hidden/embedding 200; PTB-Large: 1500. Vocab 10k (PTB).
+[Marcus et al. 1993; paper §4]
+"""
+from repro_torch.configs.base import ModelConfig
+
+PTB_SMALL = ModelConfig(
+    name="ptb-small-lstm",
+    family="lstm",
+    num_layers=2,
+    d_model=200,
+    vocab_size=10_000,
+    tie_embeddings=False,
+    source="L2S paper §4 (PTB-Small, 2-layer LSTM h=200)",
+    dtype="float32",
+)
+
+PTB_LARGE = ModelConfig(
+    name="ptb-large-lstm",
+    family="lstm",
+    num_layers=2,
+    d_model=1500,
+    vocab_size=10_000,
+    tie_embeddings=False,
+    source="L2S paper §4 (PTB-Large, 2-layer LSTM h=1500)",
+    dtype="float32",
+)

@@ -1,0 +1,82 @@
+// Device routines shared by the L2S kernels (route.cu, screen.cu, fused_topk.cu).
+//
+// One summation order for every dot product: screen.cu and fused_topk.cu both
+// compute a tile's logits through l2s_tile_logits, so the unfused and fused
+// decode paths give bit-identical logits, ids and values on the card, as the
+// two Pallas kernels do on the TPU.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define L2S_V_BLK 128          // rows of one packed softmax tile (ops.pack_head_blocks)
+#define L2S_NEG_INF (-1e30f)   // kernels/ref.py NEG_INF: sentinel slots and padded rows
+#define L2S_THREADS 512        // 16 warps: enough loads in flight per SM
+
+// Dot product of one d-float row in global memory with h staged in shared
+// memory, by one warp. Lane l accumulates (with fmaf, in ascending order) the
+// float4 chunks l, l+32, l+64, ... of the row when d % 4 == 0, else the single
+// floats l, l+32, ...; lanes past the ragged end of d add nothing. An xor
+// butterfly then leaves the same sum in every lane (float addition commutes,
+// so each pair of partners adds the same two numbers).
+__device__ __forceinline__ float l2s_warp_dot(const float* __restrict__ row,
+                                              const float* __restrict__ h_s,
+                                              int d, int lane) {
+  float acc = 0.f;
+  if ((d & 3) == 0) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    const float4* h4 = reinterpret_cast<const float4*>(h_s);
+    const int d4 = d >> 2;
+#pragma unroll 4
+    for (int c = lane; c < d4; c += 32) {
+      const float4 w = __ldg(row4 + c);
+      const float4 x = h4[c];
+      acc = fmaf(w.x, x.x, acc);
+      acc = fmaf(w.y, x.y, acc);
+      acc = fmaf(w.z, x.z, acc);
+      acc = fmaf(w.w, x.w, acc);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < d; c += 32) acc = fmaf(__ldg(row + c), h_s[c], acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+// The L2S_V_BLK logits of one gathered weight tile:
+//   out[row] = W_tile[row] . h + b_tile[row]
+// one warp per row, rows dealt round robin over the block's warps. The tile
+// (L2S_V_BLK x d floats, 256,000 bytes at d = 500) is streamed from global memory row
+// by row and never staged whole: it does not fit in one block's shared memory.
+__device__ __forceinline__ void l2s_tile_logits(const float* __restrict__ w_tile,
+                                                const float* __restrict__ b_tile,
+                                                const float* __restrict__ h_s,
+                                                int d, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int row = threadIdx.x >> 5; row < L2S_V_BLK; row += nwarps) {
+    const float dot = l2s_warp_dot(w_tile + (size_t)row * d, h_s, d, lane);
+    if (lane == 0) out[row] = dot + __ldg(b_tile + row);
+  }
+}
+
+// Copy n floats from global to shared memory with the whole block.
+__device__ __forceinline__ void l2s_stage(const float* __restrict__ src,
+                                          float* __restrict__ dst, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// Raise a kernel's dynamic shared-memory limit when it needs more than the
+// default 48 KB.
+template <typename Kernel>
+static cudaError_t l2s_allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+extern "C" const char* l2s_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,145 @@
+"""The ``SoftmaxHead`` protocol — the one seam every decode head plugs into.
+
+Twin of ``repro/heads/base.py``. A head owns the softmax layer (W (L, d),
+b (L,)) plus whatever its approximation needs (a learned screen, a packed
+copy of W, ...) and answers four queries over context vectors h (B, d):
+
+  topk(h, k)          → (ids (B, k) int32, scores (B, k))   raw logits
+  topk_logprobs(h, k) → (ids (B, k) int32, logprobs (B, k)) paper §4.2
+                        convention: log-softmax over the head's OWN
+                        candidate space, probability 0 elsewhere
+  next(h)             → (B,) int32 greedy argmax
+  sample(h, temperature, top_p, generator=None, gumbel=None) → (B,) int32
+
+Sampling draws its Gumbel noise from ``generator`` (a ``torch.Generator`` on
+the head's device), or takes it ready-made as ``gumbel``: the same noise
+handed to two heads gives the same draw.
+
+``prepare()`` performs any one-time packing and returns the head; it is
+idempotent and is called by the registry and the serving engine.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ops import gumbel_noise
+
+NEG_INF = -1e30
+
+
+class MissingScreenError(ValueError):
+    """A screening head was requested without a fitted ``ScreenParams``."""
+
+
+def require_screen(screen, head_name: str):
+    if screen is None:
+        raise MissingScreenError(
+            f"{head_name} needs a fitted ScreenParams — pass screen= to the "
+            f"engine or heads.get (interop.screen_from_numpy converts one "
+            f"fitted by the reference's fit_l2s)")
+    return screen
+
+
+def screened_flops_per_query(screen, d: int) -> float:
+    """Shared L2S cost model O((r + L̄)·d): routing plus the mean candidate
+    matmul, with L̄ the uniform-over-clusters mean candidate words."""
+    lbar = float(screen.cand_len.float().mean()) * screen.block
+    return float((screen.r + lbar) * d)
+
+
+def screened_bytes_per_query(screen, d: int, writeback_floats: float = 0.0,
+                             itemsize: int = 4) -> float:
+    """Shared L2S device-memory traffic model for one decode step: the
+    router and the mean candidate weight tiles stream once, O((r + L̄)·d),
+    plus ``writeback_floats`` intermediates written back and re-read
+    (counted twice)."""
+    lbar = float(screen.cand_len.float().mean()) * screen.block
+    return float(((screen.r + lbar) * d + 2.0 * writeback_floats) * itemsize)
+
+
+def exact_flops_per_query(L: int, d: int) -> float:
+    """Full-vocabulary softmax: one multiply-accumulate per weight."""
+    return float(L * d)
+
+
+def exact_bytes_per_query(L: int, d: int, itemsize: int = 4) -> float:
+    """Streams the full (L, d) weight matrix and writes back the L-wide
+    logit row for top-k."""
+    return float((L * d + 2 * L) * itemsize)
+
+
+class SoftmaxHead:
+    """Base class / protocol for decode heads. Subclasses implement
+    ``topk``, ``topk_logprobs`` and ``sample``; ``next`` defaults to
+    top-1."""
+
+    name: str = "abstract"
+
+    def prepare(self) -> "SoftmaxHead":
+        """One-time packing. Idempotent."""
+        return self
+
+    def topk(self, h, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def topk_logprobs(self, h, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def next(self, h) -> torch.Tensor:
+        ids, _ = self.topk(h, 1)
+        return ids[:, 0].to(torch.int32)
+
+    def sample(self, h, temperature: float = 1.0, top_p: float = 1.0,
+               generator: Optional[torch.Generator] = None,
+               gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def flops_per_query(self) -> float:
+        """Analytic MACs per query (paper's hardware-independent cost)."""
+        return float("nan")
+
+    @property
+    def bytes_per_query(self) -> float:
+        """Estimated device-memory bytes one decode-step query moves."""
+        return float("nan")
+
+
+def adjust_logits(logits: torch.Tensor, temperature: float, top_p: float
+                  ) -> torch.Tensor:
+    """The temperature / nucleus transform ``sample_from_logits`` draws
+    through. Entries already masked to NEG_INF stay exactly NEG_INF.
+    Requires temperature > 0."""
+    masked = logits <= NEG_INF / 2
+    logits = torch.where(masked, NEG_INF, logits / temperature)
+    if top_p < 1.0:
+        # Mask by sorted RANK, not by value: a `logits >= cutoff` test keeps
+        # every position tied with the cutoff logit, which can exceed the
+        # nucleus when duplicates exist. A stable descending order breaks
+        # ties by lowest index (the top-k convention); rank < k_keep keeps
+        # exactly the smallest prefix.
+        order = torch.argsort(-logits, dim=-1, stable=True)
+        probs = torch.softmax(torch.gather(logits, -1, order), dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        k_keep = (cum < top_p).sum(dim=-1) + 1       # smallest prefix ≥ top_p
+        rank = torch.argsort(order, dim=-1)
+        logits = torch.where(rank < k_keep[:, None], logits, NEG_INF)
+    return logits
+
+
+def sample_from_logits(logits: torch.Tensor, temperature: float, top_p: float,
+                       generator: Optional[torch.Generator] = None,
+                       gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Temperature + nucleus sampling over a (B, C) logit matrix, as a
+    Gumbel-max draw: argmax(G + adjusted logits), the form of
+    ``jax.random.categorical``. temperature ≤ 0 degenerates to argmax."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = adjust_logits(logits, temperature, top_p)
+    if gumbel is None:
+        gumbel = gumbel_noise(logits.shape, generator, logits.device)
+    return torch.argmax(gumbel.reshape(logits.shape) + logits,
+                        dim=-1).to(torch.int32)
+

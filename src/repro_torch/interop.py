@@ -1,0 +1,36 @@
+"""Weights from the reference's layout to the port's, through numpy only.
+
+The reference (``src/repro``) keeps LSTM params as a pytree
+``{"embed": {embedding, lm_head, lm_bias}, "lstm": {"layers": [{wx, wh, b}]}}``
+and a screen as ``ScreenParams(v, cand_idx, cand_len, vocab_size, block)``.
+The caller converts those arrays to numpy (``np.asarray``) on its side, so
+this package never imports JAX. The layouts are the same: the LSTM keeps
+the fused-gate (d, 4d) matrices in i, f, g, o order.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.screening import ScreenParams
+
+
+def _tensor(a, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
+
+
+def params_from_numpy(tree) -> dict:
+    """The reference's LSTM params pytree, as numpy arrays → the port's
+    params (CPU tensors; ``DecodeEngine`` moves them to its device)."""
+    return {"embed": {k: _tensor(v) for k, v in tree["embed"].items()},
+            "lstm": {"layers": [{k: _tensor(v) for k, v in layer.items()}
+                                for layer in tree["lstm"]["layers"]]}}
+
+
+def screen_from_numpy(v, cand_idx, cand_len, vocab_size: int,
+                      block: int = 1) -> ScreenParams:
+    """A screen's arrays (numpy) → ``ScreenParams`` of CPU tensors."""
+    return ScreenParams(v=_tensor(v, np.float32),
+                        cand_idx=_tensor(cand_idx, np.int32),
+                        cand_len=_tensor(cand_len, np.int32),
+                        vocab_size=int(vocab_size), block=int(block))

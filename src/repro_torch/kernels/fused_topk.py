@@ -1,0 +1,81 @@
+"""fused_screened_topk: subset softmax + top-k over screened candidates in
+one pass.
+
+Twin of ``repro/kernels/fused_topk.py``. Per query row it gathers the K
+candidate tiles, computes their logits, masks sentinel slots to NEG_INF,
+keeps a running top-k with ties at the lowest flattened (slot-major,
+lane-minor) position — ``jax.lax.top_k``'s order over the unfused row — and
+an online log Z over the valid slots. With ``noise`` (B, K, V_BLK) the noise
+is added to the valid logits after log Z (Gumbel-max sampling).
+
+On a CUDA tensor ``fused_screened_topk`` launches ``csrc/fused_topk.cu``
+(one block per row loops over the K slots); on a CPU tensor it runs
+``fused_screened_topk_plain``. Both need 1 ≤ k ≤ K·V_BLK: the unfused
+reference's ``top_k`` refuses a larger k, and for one the Pallas kernel pads
+with −inf values whose ids repeat real candidates.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ref import NEG_INF, topk_desc
+from repro_torch.kernels.screen import check_head_inputs, screened_logits_plain
+
+
+def fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k: int,
+                              noise: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version: the unfused row, masked, then a stable top-k
+    and a logsumexp over the valid slots."""
+    n_blk, v_blk, _ = W_blocks.shape
+    B = h.shape[0]
+    valid = ((block_ids >= 0) & (block_ids < n_blk))[..., None]
+    raw = screened_logits_plain(W_blocks, b_blocks, h, block_ids)
+    logz = torch.logsumexp(torch.where(valid, raw, -torch.inf).reshape(B, -1),
+                           dim=-1)
+    tile = torch.where(valid, raw, NEG_INF)
+    if noise is not None:
+        tile = torch.where(valid, tile + noise, NEG_INF)
+    lane = torch.arange(v_blk, dtype=block_ids.dtype, device=h.device)
+    word = torch.where(valid, block_ids[..., None] * v_blk + lane,
+                       n_blk * v_blk).reshape(B, -1)
+    vals, pos = topk_desc(tile.reshape(B, -1), k)
+    return torch.gather(word, 1, pos).to(torch.int32), vals, logz
+
+
+def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
+                        noise: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """W_blocks (n_blk, V_BLK, d) f32; b_blocks (n_blk, V_BLK) f32;
+    h (B, d) f32; block_ids (B, K) int32, sentinel ≥ n_blk; optional noise
+    (B, K, V_BLK) f32. → (ids (B, k) int32, vals (B, k) f32, logZ (B,) f32):
+    ids/vals bit-identical to masking + stable top-k over the unfused
+    (B, K·V_BLK) row; logZ is −∞ (not NaN) for all-sentinel rows."""
+    from repro_torch.kernels import ops
+    check_head_inputs(W_blocks, b_blocks, h, block_ids)
+    dev = h.device
+    n_blk, v_blk, d = W_blocks.shape
+    B, K = block_ids.shape
+    if not 1 <= k <= K * v_blk:
+        raise ValueError(f"k={k} must lie in [1, K·{v_blk} = {K * v_blk}]")
+    if noise is not None:
+        ops.check_tensor(noise, "noise", torch.float32, 3, dev)
+        if tuple(noise.shape) != (B, K, v_blk):
+            raise ValueError(f"noise must be {(B, K, v_blk)}, got "
+                             f"{tuple(noise.shape)}")
+    if dev.type == "cpu":
+        return fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k,
+                                         noise)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    logz = torch.empty((B,), dtype=torch.float32, device=dev)
+    ops.launch("fused_screened_topk", "fused_topk", "l2s_fused_screened_topk",
+               dev, W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
+               block_ids.data_ptr(),
+               None if noise is None else noise.data_ptr(),
+               ids.data_ptr(), vals.data_ptr(), logz.data_ptr(),
+               B, K, n_blk, d, k)
+    return ids, vals, logz

@@ -1,0 +1,58 @@
+"""screened_logits: the gather-matmul over routed candidate blocks.
+
+Twin of ``repro/kernels/screen.py``. For each (row i, slot j) it computes the
+raw ``W_blocks[block_ids[i, j]] · h[i] + b_blocks[block_ids[i, j]]``. A
+sentinel id (outside [0, n_blk)) reads tile 0 and is left unmasked, as the
+Pallas kernel leaves it: ``kernels/ops.py`` applies the NEG_INF mask. On a
+CUDA tensor ``screened_logits`` launches ``csrc/screen.cu``; on a CPU tensor
+it runs ``screened_logits_plain``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import V_BLK
+
+
+def screened_logits_plain(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
+    """Plain PyTorch version → raw logits (B, K, V_BLK) f32."""
+    n_blk = W_blocks.shape[0]
+    valid = (block_ids >= 0) & (block_ids < n_blk)
+    safe = torch.where(valid, block_ids, 0).long()
+    return torch.einsum("bkvd,bd->bkv", W_blocks[safe], h) + b_blocks[safe]
+
+
+def check_head_inputs(W_blocks, b_blocks, h, block_ids) -> None:
+    """The checks the screened and fused wrappers share."""
+    from repro_torch.kernels import ops
+    dev = h.device
+    ops.check_tensor(W_blocks, "W_blocks", torch.float32, 3, dev)
+    ops.check_tensor(b_blocks, "b_blocks", torch.float32, 2, dev)
+    ops.check_tensor(h, "h", torch.float32, 2, dev)
+    ops.check_tensor(block_ids, "block_ids", torch.int32, 2, dev)
+    n_blk, v_blk, d = W_blocks.shape
+    if v_blk != V_BLK or tuple(b_blocks.shape) != (n_blk, v_blk):
+        raise ValueError(f"packed head must be (n_blk, {V_BLK}, d) + "
+                         f"(n_blk, {V_BLK}); got {tuple(W_blocks.shape)} + "
+                         f"{tuple(b_blocks.shape)}")
+    if h.shape[1] != d or block_ids.shape[0] != h.shape[0]:
+        raise ValueError(f"h {tuple(h.shape)} / block_ids "
+                         f"{tuple(block_ids.shape)} do not match d={d}")
+
+
+def screened_logits(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
+    """W_blocks (n_blk, V_BLK, d) f32; b_blocks (n_blk, V_BLK) f32;
+    h (B, d) f32; block_ids (B, K) int32 (sentinel ≥ n_blk)
+    → raw logits (B, K, V_BLK) f32, sentinel tiles NOT masked."""
+    from repro_torch.kernels import ops
+    check_head_inputs(W_blocks, b_blocks, h, block_ids)
+    dev = h.device
+    if dev.type == "cpu":
+        return screened_logits_plain(W_blocks, b_blocks, h, block_ids)
+    n_blk, v_blk, d = W_blocks.shape
+    B, K = block_ids.shape
+    out = torch.empty((B, K, v_blk), dtype=torch.float32, device=dev)
+    ops.launch("screened_logits", "screen", "l2s_screened_logits", dev,
+               W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
+               block_ids.data_ptr(), out.data_ptr(), B, K, n_blk, d)
+    return out

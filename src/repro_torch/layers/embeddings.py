@@ -1,0 +1,33 @@
+"""Token embedding + LM head (optionally tied). Twin of
+``repro/layers/embeddings.py``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.layers.initializers import dense_init
+
+
+def embed_init(generator: torch.Generator, cfg: ModelConfig,
+               dtype=torch.float32):
+    p = {"embedding": dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                                 dtype, scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                                  dtype, scale=0.02)
+    p["lm_bias"] = torch.zeros((cfg.vocab_size,), dtype=dtype)
+    return p
+
+
+def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens.long()]
+
+
+def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    """The softmax weight matrix W (vocab, d) the paper screens."""
+    return params["embedding"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def lm_logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full (unscreened) softmax logits: x = W·h + b. h: (..., d)."""
+    return h @ head_matrix(params, cfg).T + params["lm_bias"]
