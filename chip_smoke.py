@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port (``src/repro_torch``) of the L2S screened
-decode path on one NVIDIA GPU, and check it.
+"""Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU, and
+check it: the L2S screened decode of the paper's LSTM (nmt-deen-lstm) and the
+Mamba2/Zamba2 decode path (zamba2-2.7b).
 
     python3 chip_smoke.py
 
@@ -31,7 +32,29 @@ Phases, one line (or a few) each:
               tokens must equal the exact head's except after a step whose
               exact top-2 gap is below 1e-4. Launch counters are reset just
               before and read just after: every kernel must have launched;
-  6. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  6. ssm      the SSD intra-chunk kernel against its plain version at
+              zamba2-2.7b's prefill chunk (B = 4, nc = 2, Q = 256, H = 80,
+              P = N = 64, G = 1), mamba2-1.3b's (H = 64, N = 128) and a
+              short odd one (Q = 7, G = 2): max |kernel - plain| / max |plain|
+              of y and of S, each <= 1e-5; the KV-cache slot update against
+              its plain version, bit for bit, float32 and bfloat16, slots
+              0, 127, S/2, S-1, S+5 and per-row slots; both kernels timed
+              like phase 4 (the cache update beside the one PyTorch call
+              cache[rows, slot] = upd);
+  7. hybrid   full-width zamba2-2.7b in float32 (2.3 B parameters drawn on
+              the card from a seeded CUDA generator) on DecodeEngine(
+              device="cuda", max_len=640): greedy 4 prompts x 512 tokens
+              (2 SSD chunks), 32 new, through exact and screened-cuda (fused
+              and unfused; r = 100, K = 16 over 250 blocks), beam search
+              (beam 4), and a full-cover screen whose tokens must equal
+              exact's except after a step whose exact top-2 gap is below
+              1e-4. Counters are reset just before and read just after:
+              ssd_intra must launch 54 times per prefill and the cache
+              update more than 0. Then a self-check: the hidden states of
+              prefill over 512 tokens and 4 decode steps equal one prefill
+              over 516 (max relative error <= 1e-3), and a profile of one
+              greedy screened-cuda decode;
+  8. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -54,6 +77,17 @@ D, V, R, K = 500, 25_000, 100, 16
 V_BLK = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
 GAP = 1e-4
+L2S_KERNELS = ("cluster_route", "screened_logits", "fused_screened_topk")
+# SSD chunk shapes (B, nc, Q, H, P, G, N): zamba2-2.7b's prefill of 4 x 512
+# tokens, mamba2-1.3b's, and a short odd chunk
+SSD_SHAPES = {"zamba2": (4, 2, 256, 80, 64, 1, 64),
+              "mamba2": (4, 2, 256, 64, 64, 1, 128),
+              "short": (4, 1, 7, 80, 64, 2, 64)}
+SSD_REL_TOL = 1e-5
+# zamba2-2.7b's decode cache: B = 4 rows of max_len = 640 slots, 32 KV heads
+# of 80 channels; hybrid decode 4 prompts x 512 tokens, 32 new
+CACHE_SHAPE = (4, 640, 32, 80)
+ZB, ZT, ZNEW, ZMAX = 4, 512, 32, 640
 
 
 def log(*a):
@@ -406,7 +440,7 @@ def phase_e2e(torch, np):
                   f"full cover: row {i} differs at step {t} with exact top-2 "
                   f"gap {gaps[i, t]:.3g} >= {GAP}")
             near.append((i, t, float(gaps[i, t])))
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[k] > 0 for k in L2S_KERNELS),
           f"a kernel never launched on the main path: {launches}")
     # where the device time of the same greedy screened-cuda decode goes
     from torch.profiler import ProfilerActivity, profile
@@ -436,7 +470,260 @@ def phase_e2e(torch, np):
         f"greedy tokens; rows that diverge after a near-tie step "
         f"(row, step, gap): {near}; steps with exact gap < {GAP}: "
         f"{int((gaps < GAP).sum())} of {gaps.size}")
-    log(f"[e2e] launches on the main path: {json.dumps(launches)}")
+    log(f"[e2e] launches on the main path: "
+        f"{json.dumps({k: launches[k] for k in L2S_KERNELS})}")
+    return launches
+
+
+def ssd_inputs(torch, shape, seed):
+    """Seeded SSD inputs on the card: xw, B, C normal; l a cumulative sum of
+    negative log decays, as softplus(dt)·A gives them."""
+    B, nc, Q, H, P, G, N = shape
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn((B, nc, Q, H, P), generator=g)
+    Bm = torch.randn((B, nc, Q, G, N), generator=g)
+    Cm = torch.randn((B, nc, Q, G, N), generator=g)
+    l = -torch.cumsum(torch.rand((B, nc, Q, H), generator=g) * 0.05, dim=2)
+    return [a.cuda() for a in (xw, Bm, Cm, l)]
+
+
+def ssd_bound(shape):
+    """(bytes, flops) the SSD intra-chunk function needs: inputs read and
+    outputs written once; C·B and M·x over the causal half (s <= t) and the
+    chunk state, two flops per multiply-add."""
+    B, nc, Q, H, P, G, N = shape
+    nbytes = 4 * (2 * B * nc * Q * H * P + 2 * B * nc * Q * G * N +
+                  B * nc * Q * H + B * nc * H * N * P)
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * H * (2 * pairs * (N + P) + 2 * Q * N * P)
+    return nbytes, flops
+
+
+def phase_ssm_kernels(torch):
+    """SSD and cache-update kernels vs their plain versions on the card,
+    then timed. → ({kernel: max abs err}, {kernel: timing dict})."""
+    from repro_torch.kernels.cache_update import (cache_slot_update,
+                                                  cache_slot_update_plain)
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    err = {"ssd_intra": 0.0, "cache_slot_update": 0.0}
+    for i, (label, shape) in enumerate(SSD_SHAPES.items()):
+        args = ssd_inputs(torch, shape, 10 + i)
+        (y, S), (py, pS) = ssd_intra(*args), ssd_intra_plain(*args)
+        torch.cuda.synchronize()
+        rel = {}
+        for name, got, want in (("y", y, py), ("S", S, pS)):
+            diff = float((got - want).abs().max())
+            rel[name] = diff / float(want.abs().max())
+            err["ssd_intra"] = max(err["ssd_intra"], diff)
+            check(rel[name] <= SSD_REL_TOL,
+                  f"ssd_intra {label}: {name} relative error {rel[name]:.3g}")
+        log(f"[ssm] ssd_intra {label} (B, nc, Q, H, P, G, N) = {shape}: "
+            f"max |kernel - plain| / max |plain|: y {rel['y']:.3g}, S "
+            f"{rel['S']:.3g} (<= {SSD_REL_TOL})")
+    B, S_, KV, hd = CACHE_SHAPE
+    g = torch.Generator().manual_seed(20)
+    slots = (0, 127, S_ // 2, S_ - 1, S_ + 5,
+             torch.tensor([0, 127, S_ + 5, -1], dtype=torch.int32).cuda())
+    for dtype in (torch.float32, torch.bfloat16):
+        cache = torch.randn(CACHE_SHAPE, generator=g).to("cuda", dtype)
+        upd = torch.randn((B, KV, hd), generator=g).to("cuda", dtype)
+        for slot in slots:
+            got = cache_slot_update(cache.clone(), upd, slot)
+            want = cache_slot_update_plain(cache.clone(), upd, slot)
+            check(torch.equal(got, want),
+                  f"cache_slot_update {dtype} slot {slot}: not bit-identical")
+    log(f"[ssm] cache_slot_update (B, S, KV, hd) = {CACHE_SHAPE}: bit-identical "
+        f"to its plain version, float32 and bfloat16, slots 0, 127, S/2, S-1, "
+        f"S+5 and per-row [0, 127, S+5, -1]")
+
+    timer = Timer(torch)
+    out = {}
+    for label in ("zamba2", "mamba2"):
+        shape = SSD_SHAPES[label]
+        args = ssd_inputs(torch, shape, 30)
+        t = dict(ms=timer(lambda: ssd_intra(*args)),
+                 plain_ms=timer(lambda: ssd_intra_plain(*args)),
+                 library_ms=None, bound=bound_ms(*ssd_bound(shape)))
+        log(f"[timing] ssd_intra {label} {shape}: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library null, bound {t['bound'][0]:.5f} "
+            f"ms ({t['bound'][1]}; bytes {ssd_bound(shape)[0]}, flops "
+            f"{ssd_bound(shape)[1]})")
+        if label == "zamba2":
+            out["ssd_intra"] = t
+    cache = torch.randn(CACHE_SHAPE, generator=g).cuda()
+    upd = torch.randn((B, KV, hd), generator=g).cuda()
+    rows = torch.arange(B, device="cuda")
+    slot = ZT + 5
+
+    def library():
+        cache[rows, slot] = upd
+
+    t = dict(ms=timer(lambda: cache_slot_update(cache, upd, slot)),
+             plain_ms=timer(lambda: cache_slot_update_plain(cache, upd, slot)),
+             library_ms=timer(library),
+             bound=bound_ms(2 * B * KV * hd * 4, 0))
+    log(f"[timing] cache_slot_update {CACHE_SHAPE} f32: {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, library (cache[rows, slot] = upd) "
+        f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.7f} ms "
+        f"({t['bound'][1]})")
+    out["cache_slot_update"] = t
+    return err, out
+
+
+def phase_e2e_hybrid(torch, np):
+    """Full-width zamba2-2.7b on DecodeEngine(device="cuda"). → launches."""
+    from repro_torch import heads
+    from repro_torch.configs import get_config
+    from repro_torch.core.screening import candidates_to_padded
+    from repro_torch.interop import screen_from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("zamba2-2.7b")
+    d, vocab = cfg.d_model, cfg.vocab_size
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[hybrid] zamba2-2.7b: {n_params} float32 parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    rng = np.random.default_rng(1)
+    n_blk = -(-vocab // V_BLK)
+    v = rng.standard_normal((R, d)).astype(np.float32)
+    cand = make_screen_blocks(np, 8, n_blk)
+    screen = screen_from_numpy(v, cand, (cand < n_blk).sum(1), vocab, V_BLK)
+    full_idx, full_len = candidates_to_padded(np.ones((R, n_blk), bool), vocab,
+                                              block=V_BLK)
+    full = screen_from_numpy(v, full_idx, full_len, vocab, V_BLK)
+    prompts = rng.integers(0, vocab, (ZB, ZT))
+    eng = DecodeEngine(model, params, screen=screen, max_len=ZMAX,
+                       device="cuda")
+    eng_full = DecodeEngine(model, params, screen=full, max_len=ZMAX,
+                            device="cuda")
+    unfused = heads.get("screened-cuda", W=eng.W, b=eng.b, screen=eng.screen,
+                        fused=False)
+    for e in (eng, eng_full):                      # warm-up: loads, caches
+        e.generate(prompts[:, :16], 2, head="screened-cuda")
+        e.generate(prompts[:, :16], 2, head="exact")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    with torch.inference_mode():                   # prefill alone, host clock
+        cache = model.init_cache(ZB, ZMAX, device="cuda")
+        tokens = torch.as_tensor(prompts, device="cuda")
+        _, t_prefill = timed(lambda: model.prefill(eng.params,
+                                                   {"tokens": tokens}, cache))
+    del cache
+
+    ops.reset_launches()
+    exact, t_exact = timed(lambda: eng.generate(prompts, ZNEW, head="exact"))
+    scr, t_scr = timed(lambda: eng.generate(prompts, ZNEW,
+                                            head="screened-cuda"))
+    scr_u = eng.generate(prompts, ZNEW, head=unfused)
+    beam, t_beam = timed(lambda: eng.beam_search(prompts[0], 4, ZNEW,
+                                                 head="screened-cuda"))
+    f_exact = eng_full.generate(prompts, ZNEW, head="exact")
+    f_scr = eng_full.generate(prompts, ZNEW, head="screened-cuda")
+    launches = dict(ops.LAUNCHES)
+    prefills = 6
+
+    for name, r in (("exact", exact), ("screened-cuda", scr),
+                    ("unfused", scr_u)):
+        check(r.tokens.shape == (ZB, ZNEW) and r.tokens.min() >= 0 and
+              r.tokens.max() < vocab, f"hybrid {name}: tokens out of range")
+    check(np.array_equal(scr.tokens, scr_u.tokens),
+          "hybrid: screened-cuda fused and unfused greedy tokens differ")
+    check(beam.tokens.shape == (1, ZNEW) and np.isfinite(beam.scores).all()
+          and beam.tokens.max() < vocab, "hybrid beam search: bad result")
+    check(launches["ssd_intra"] == cfg.num_layers * prefills,
+          f"ssd_intra launched {launches['ssd_intra']} times, expected "
+          f"{cfg.num_layers} x {prefills} prefills")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel never launched on the hybrid path: {launches}")
+
+    # full cover: screened == exact up to the first near-tie step per row
+    seq = torch.as_tensor(np.concatenate([prompts, f_exact.tokens[:, :-1]], 1),
+                          device="cuda")
+    with torch.inference_mode():
+        h, _ = model.forward(eng.params, {"tokens": seq})
+        logits = model.logits(eng.params, h[:, ZT - 1:])
+    top2 = logits.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    near = []
+    for i in range(ZB):
+        bad = np.nonzero(f_scr.tokens[i] != f_exact.tokens[i])[0]
+        if bad.size:
+            t = int(bad[0])
+            check(gaps[i, t] < GAP,
+                  f"hybrid full cover: row {i} differs at step {t} with exact "
+                  f"top-2 gap {gaps[i, t]:.3g} >= {GAP}")
+            near.append((i, t, float(gaps[i, t])))
+    del h, logits
+
+    # self-check: prefill over T tokens + n decode steps == prefill over T + n
+    n = 4
+    seq = torch.as_tensor(rng.integers(0, vocab, (ZB, ZT + n)), device="cuda")
+    with torch.inference_mode():
+        cache = model.init_cache(ZB, ZMAX, device="cuda")
+        _, cache = model.prefill(eng.params, {"tokens": seq[:, :ZT]}, cache)
+        steps = []
+        for i in range(n):
+            h1, cache = model.decode_step(eng.params, seq[:, ZT + i], cache,
+                                          ZT + i)
+            steps.append(h1)
+        one, _ = model.forward(eng.params, {"tokens": seq})
+        want = one[:, ZT:]
+        rel = float((torch.stack(steps, 1) - want).abs().max() /
+                    want.abs().max())
+    del cache, one
+    check(rel <= 1e-3, f"prefill + decode != prefill: relative error {rel:.3g}")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(prompts, ZNEW, head="screened-cuda")
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    if busy_ms > 0:
+        log(f"[hybrid] profile, greedy {ZB}x{ZT}+{ZNEW} screened-cuda: device "
+            f"busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall "
+            f"(idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
+            f"{sum(e.count for e in kern)} device kernels; top kernels: " +
+            "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
+                      f" x{e.count}" for e in top))
+    else:
+        log("[hybrid] profile: the profiler saw no device time (not measured)")
+    tok = ZB * ZNEW
+    log(f"[hybrid] zamba2-2.7b d={d} V={vocab} on DecodeEngine(device='cuda', "
+        f"max_len={ZMAX}): greedy {ZB}x{ZT}+{ZNEW} exact {t_exact:.3f} s "
+        f"({tok / t_exact:.1f} tok/s), screened-cuda {t_scr:.3f} s "
+        f"({tok / t_scr:.1f} tok/s), beam(4) {t_beam:.3f} s; prefill alone "
+        f"{t_prefill:.3f} s, so a screened-cuda decode step takes about "
+        f"{(t_scr - t_prefill) / (ZNEW - 1) * 1e3:.1f} ms (host clock, "
+        f"information only); fused == unfused tokens; beam score "
+        f"{float(beam.scores[0]):.4f}")
+    log(f"[hybrid] full-cover screen (K={full.c_max}): screened-cuda == exact "
+        f"greedy tokens; rows that diverge after a near-tie step (row, step, "
+        f"gap): {near}; steps with exact gap < {GAP}: "
+        f"{int((gaps < GAP).sum())} of {gaps.size}")
+    log(f"[hybrid] self-check: prefill {ZT} + {n} decode steps vs prefill "
+        f"{ZT + n}: max relative error of the hidden states {rel:.3g} "
+        f"(<= 1e-3)")
+    log(f"[hybrid] launches on the hybrid path ({prefills} prefills): "
+        f"{json.dumps(launches)}")
     return launches
 
 
@@ -456,13 +743,23 @@ def main() -> int:
     err = phase_parity(torch, np, K)
     times = phase_timing(torch, np)
     launches = phase_e2e(torch, np)
+    ssm_err, ssm_times = phase_ssm_kernels(torch)
+    err.update(ssm_err)
+    times.update(ssm_times)
+    hybrid = phase_e2e_hybrid(torch, np)
+    # each kernel's launches on the path it was ported for
+    launches.update({k: hybrid[k] for k in ssm_err})
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),
                 "screened_logits": ("src/repro_torch/csrc/screen.cu",
                                     "src/repro/kernels/screen.py:68"),
                 "fused_screened_topk": ("src/repro_torch/csrc/fused_topk.cu",
-                                        "src/repro/kernels/fused_topk.py:193")}
+                                        "src/repro/kernels/fused_topk.py:193"),
+                "ssd_intra": ("src/repro_torch/csrc/ssd.cu",
+                              "src/repro/kernels/ssd.py:70"),
+                "cache_slot_update": ("src/repro_torch/csrc/cache_update.cu",
+                                      "src/repro/kernels/cache_update.py:69")}
     kernels = []
     for name, (source, rep) in replaces.items():
         t = times[name]

@@ -1,12 +1,16 @@
-"""Config registry: ``get_config("<arch-id>")`` over the paper's LSTMs."""
+"""Config registry: ``get_config("<arch-id>")`` over the ported families
+(the paper's LSTMs, mamba2-1.3b and zamba2-2.7b)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import V_BLK, ModelConfig
+from repro_torch.configs.base import V_BLK, ModelConfig, SSMConfig
+from repro_torch.configs.mamba2_1p3b import CONFIG as _mamba2_1p3b
 from repro_torch.configs.nmt_deen import CONFIG as _nmt_deen
 from repro_torch.configs.ptb_lstm import PTB_LARGE as _ptb_large
 from repro_torch.configs.ptb_lstm import PTB_SMALL as _ptb_small
+from repro_torch.configs.zamba2_2p7b import CONFIG as _zamba2_2p7b
 
-REGISTRY = {c.name: c for c in (_ptb_small, _ptb_large, _nmt_deen)}
+REGISTRY = {c.name: c for c in (_ptb_small, _ptb_large, _nmt_deen,
+                                _mamba2_1p3b, _zamba2_2p7b)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -15,4 +19,4 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ModelConfig", "REGISTRY", "V_BLK", "get_config"]
+__all__ = ["ModelConfig", "REGISTRY", "SSMConfig", "V_BLK", "get_config"]

@@ -1,31 +1,91 @@
-"""Model configuration: the LSTM fields of the reference ``ModelConfig``.
+"""Model configuration: the reference ``ModelConfig`` fields that the ported
+families (``lstm``, ``ssm``, ``hybrid``) read, and ``SSMConfig``.
 
-The port carries only the paper's own family (``lstm``) so far; the fields
-the attention, MoE and SSM families use come with their slice (ROADMAP.md,
-Queue 1). ``reduced()`` gives the same small CPU variant as the reference.
+The MoE, vision and audio fields come with their families (ROADMAP.md,
+Queue 1). ``reduced()`` gives the same small CPU variant as the reference,
+field for field (``tests/test_torch_ssm.py`` asserts it).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
 # Vocab block size of the block-candidate screens and of the packed softmax
 # head (one CUDA tile of 128 rows).
 V_BLK = 128
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "lstm")
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD settings."""
+    state_dim: int = 128          # N: per-channel SSM state size
+    head_dim: int = 64            # P: channels per SSD head
+    expand: int = 2               # inner dim = expand * d_model
+    chunk: int = 256              # SSD chunk length (intra-chunk dual form)
+    conv_width: int = 4           # causal depthwise conv width
+    n_groups: int = 1             # B/C groups (GVA-style)
+
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio | lstm
     num_layers: int
     d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
     vocab_size: int
+    head_dim: Optional[int] = None          # default d_model // num_heads
+    mlp_activation: str = "swiglu"          # geglu | swiglu | gelu | relu
+    positional: str = "rope"                # rope | mrope | learned | none
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
     tie_embeddings: bool = True
+    norm: str = "rmsnorm"                   # rmsnorm | layernorm
+    sliding_window: Optional[int] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one shared attention block applied every k mamba layers
+    hybrid_shared_period: int = 6
     source: str = ""
-    dtype: str = "float32"
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // max(self.num_heads, 1))
+        if self.family not in FAMILIES:
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
+        if self.num_heads and self.num_heads % max(self.num_kv_heads, 1):
+            raise ValueError(f"{self.name}: heads {self.num_heads} not "
+                             f"divisible by kv {self.num_kv_heads}")
 
     def reduced(self) -> "ModelConfig":
-        """Same family, tiny: 2 layers, d_model ≤ 128, vocab ≤ 512."""
-        return replace(self, name=self.name + "-reduced", num_layers=2,
-                       d_model=min(self.d_model, 128),
-                       vocab_size=min(self.vocab_size, 512), dtype="float32")
+        """Same family, tiny: 2 layers, d_model ≤ 128, vocab ≤ 512 (the
+        reference's ``ModelConfig.reduced``)."""
+        d = min(self.d_model, 128)
+        heads = min(self.num_heads, 4)
+        kv = max(1, min(self.num_kv_heads, heads))
+        while heads and heads % kv:
+            kv -= 1
+        kw = dict(
+            name=self.name + "-reduced",
+            num_layers=2,
+            d_model=d,
+            num_heads=heads,
+            num_kv_heads=kv if heads else 0,
+            head_dim=(d // heads) if heads else 16,
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else None),
+            dtype="float32",
+        )
+        if self.ssm is not None:
+            kw["ssm"] = replace(self.ssm, state_dim=min(self.ssm.state_dim, 16),
+                                head_dim=16, chunk=16, expand=2)
+        if self.family == "hybrid":
+            kw["hybrid_shared_period"] = 1
+        return replace(self, **kw)

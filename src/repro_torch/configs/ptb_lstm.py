@@ -10,8 +10,14 @@ PTB_SMALL = ModelConfig(
     family="lstm",
     num_layers=2,
     d_model=200,
+    num_heads=0,
+    num_kv_heads=0,
+    head_dim=1,
+    d_ff=0,
     vocab_size=10_000,
+    positional="none",
     tie_embeddings=False,
+    norm="layernorm",
     source="L2S paper §4 (PTB-Small, 2-layer LSTM h=200)",
     dtype="float32",
 )
@@ -21,8 +27,14 @@ PTB_LARGE = ModelConfig(
     family="lstm",
     num_layers=2,
     d_model=1500,
+    num_heads=0,
+    num_kv_heads=0,
+    head_dim=1,
+    d_ff=0,
     vocab_size=10_000,
+    positional="none",
     tie_embeddings=False,
+    norm="layernorm",
     source="L2S paper §4 (PTB-Large, 2-layer LSTM h=1500)",
     dtype="float32",
 )

@@ -1,11 +1,13 @@
 """Weights from the reference's layout to the port's, through numpy only.
 
-The reference (``src/repro``) keeps LSTM params as a pytree
-``{"embed": {embedding, lm_head, lm_bias}, "lstm": {"layers": [{wx, wh, b}]}}``
-and a screen as ``ScreenParams(v, cand_idx, cand_len, vocab_size, block)``.
-The caller converts those arrays to numpy (``np.asarray``) on its side, so
-this package never imports JAX. The layouts are the same: the LSTM keeps
-the fused-gate (d, 4d) matrices in i, f, g, o order.
+The reference (``src/repro``) keeps params as a pytree of nested dicts and
+lists — LSTM ``{"embed": {embedding, lm_head, lm_bias}, "lstm": {"layers":
+[{wx, wh, b}]}}``, SSM/hybrid ``{"embed", "stack": {"blocks" (stacked on a
+leading L axis), "final_norm", "shared"}}`` — and a screen as
+``ScreenParams(v, cand_idx, cand_len, vocab_size, block)``. The caller
+converts those arrays to numpy (``np.asarray``) on its side, so this package
+never imports JAX. The layouts are the same: the LSTM keeps the fused-gate
+(d, 4d) matrices in i, f, g, o order, attention its (d, H, hd) projections.
 """
 from __future__ import annotations
 
@@ -13,18 +15,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.screening import ScreenParams
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
 
 
-def params_from_numpy(tree) -> dict:
-    """The reference's LSTM params pytree, as numpy arrays → the port's
-    params (CPU tensors; ``DecodeEngine`` moves them to its device)."""
-    return {"embed": {k: _tensor(v) for k, v in tree["embed"].items()},
-            "lstm": {"layers": [{k: _tensor(v) for k, v in layer.items()}
-                                for layer in tree["lstm"]["layers"]]}}
+def params_from_numpy(tree):
+    """The reference's params pytree, its leaves numpy arrays (any nesting
+    of dicts and lists) → the same tree of CPU tensors (``DecodeEngine``
+    moves them to its device)."""
+    return tree_map(_tensor, tree)
 
 
 def screen_from_numpy(v, cand_idx, cand_len, vocab_size: int,

@@ -1,6 +1,12 @@
 """Public compositions over the kernels, their build and loader, and the
 per-kernel launch counters.
 
+Two further kernels sit on the SSM / hybrid path and need no composition:
+``kernels/ssd.py::ssd_intra`` (``csrc/ssd.cu``, the SSD intra-chunk dual
+form inside ``layers/ssm.py::ssd_chunked``) and
+``kernels/cache_update.py::cache_slot_update`` (``csrc/cache_update.cu``, the
+KV-cache write of ``layers/attention.py::attn_decode``).
+
 Two decode hot paths, twins of ``repro/kernels/ops.py``:
 
 ``screened_topk`` — the UNFUSED pipeline: route (``cluster_route``) →
@@ -13,8 +19,8 @@ Two decode hot paths, twins of ``repro/kernels/ops.py``:
   the unfused path. ``screened_fused_sample`` rides the same kernel with
   temperature-scaled Gumbel noise (Gumbel-max ≡ categorical sampling).
 
-Kernels. ``csrc/route.cu``, ``csrc/screen.cu`` and ``csrc/fused_topk.cu``
-each expose a plain ``extern "C"`` launcher. ``build_kernels`` compiles each
+Kernels. Each ``csrc/*.cu`` (route, screen, fused_topk, ssd, cache_update)
+exposes a plain ``extern "C"`` launcher. ``build_kernels`` compiles each
 with its own ``nvcc`` process (all started together) into a shared library
 under ``build/repro_torch/`` at the repository root, named by a hash of its
 sources and flags, and loads it with ``ctypes``. This happens at the first
@@ -56,10 +62,13 @@ _SIGNATURES = {
                ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
     "fused_topk": {"l2s_fused_screened_topk":
                    ([_P] * 8 + [_I] * 5 + [_P], _I)},
+    "ssd": {"l2s_ssd_intra": ([_P] * 6 + [_I] * 6 + [_P], _I)},
+    "cache_update": {"l2s_cache_slot_update": ([_P] * 3 + [_I] * 4 + [_P], _I)},
 }
 
 LAUNCHES: Dict[str, int] = {"cluster_route": 0, "screened_logits": 0,
-                            "fused_screened_topk": 0}
+                            "fused_screened_topk": 0, "ssd_intra": 0,
+                            "cache_slot_update": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

@@ -15,7 +15,8 @@ def embed_init(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, (cfg.vocab_size, cfg.d_model),
                                   dtype, scale=0.02)
-    p["lm_bias"] = torch.zeros((cfg.vocab_size,), dtype=dtype)
+    p["lm_bias"] = torch.zeros((cfg.vocab_size,), dtype=dtype,
+                              device=generator.device)
     return p
 
 

@@ -13,6 +13,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.layers.initializers import dense_init
 
 
@@ -38,10 +39,13 @@ def _cell(p, x, h, c):
 
 
 def lstm_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                    device="cpu") -> List[dict]:
+                    device="cuda") -> List[dict]:
+    """Zero (h, c) per layer on ``device`` (default the card; raises
+    without a GPU unless ``device="cpu"``)."""
+    dev = resolve_device(device)
     d = cfg.d_model
-    return [{"h": torch.zeros((batch, d), dtype=dtype, device=device),
-             "c": torch.zeros((batch, d), dtype=dtype, device=device)}
+    return [{"h": torch.zeros((batch, d), dtype=dtype, device=dev),
+             "c": torch.zeros((batch, d), dtype=dtype, device=dev)}
             for _ in range(cfg.num_layers)]
 
 

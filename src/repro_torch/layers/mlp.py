@@ -1,0 +1,33 @@
+"""MLP blocks: SwiGLU / GeGLU (gated) and GELU / ReLU (plain 2-matmul).
+Twin of ``repro/layers/mlp.py``; the products are ``torch.matmul``."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.layers.initializers import dense_init
+
+GATED = ("swiglu", "geglu")
+
+
+def mlp_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_activation in GATED:
+        return {"w_gate": dense_init(generator, (d, ff), dtype),
+                "w_up": dense_init(generator, (d, ff), dtype),
+                "w_down": dense_init(generator, (ff, d), dtype)}
+    return {"w_up": dense_init(generator, (d, ff), dtype),
+            "w_down": dense_init(generator, (ff, d), dtype)}
+
+
+def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = cfg.mlp_activation
+    if act in GATED:
+        g = x @ params["w_gate"]
+        u = x @ params["w_up"]
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        return (g * u) @ params["w_down"]
+    u = x @ params["w_up"]
+    u = F.gelu(u, approximate="tanh") if act == "gelu" else F.relu(u)
+    return u @ params["w_down"]

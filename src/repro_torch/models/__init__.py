@@ -1,2 +1,3 @@
-"""Model interface (LSTM family): ``Model(cfg).init(generator, device=...)``."""
+"""Model interface (lstm, ssm and hybrid families):
+``Model(cfg).init(generator, device=...)``."""
 from repro_torch.models.model import Model

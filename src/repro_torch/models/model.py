@@ -1,12 +1,14 @@
-"""Model wrapper, LSTM family. Twin of ``repro/models/model.py``.
+"""Model wrapper over the ported families: ``lstm``, ``ssm`` (mamba2) and
+``hybrid`` (zamba2). Twin of ``repro/models/model.py``.
 
-Params are plain dicts of tensors with the reference's layout:
-``{"embed": {embedding, lm_head, lm_bias}, "lstm": {"layers": [{wx, wh, b}]}}``
-(``repro_torch.interop.params_from_numpy`` converts the reference's).
+Params are plain dicts of tensors with the reference's layout (LSTM:
+``{"embed", "lstm": {"layers": [...]}}``; SSM/hybrid: ``{"embed", "stack":
+{"blocks" (stacked, leading L axis), "final_norm", "shared"}}``);
+``repro_torch.interop.params_from_numpy`` converts the reference's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -16,34 +18,46 @@ from repro_torch.layers.embeddings import (embed_init, embed_tokens,
                                           head_matrix, lm_logits)
 from repro_torch.layers.lstm import (lstm_decode_step, lstm_forward,
                                      lstm_init, lstm_init_state)
+from repro_torch.layers.transformer import (SSM_FAMILIES, stack_decode,
+                                            stack_forward, stack_init,
+                                            stack_init_cache, stack_prefill)
+from repro_torch.tree import tree_map
+
+FAMILIES = ("lstm",) + SSM_FAMILIES
 
 
 class Model:
     """Functional model wrapper (params are plain dicts of tensors)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "lstm":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: repro_torch ports only the lstm family so far "
-                f"(got {cfg.family!r}; see ROADMAP.md, Queue 1)")
+                f"{cfg.name}: repro_torch ports the {', '.join(FAMILIES)} "
+                f"families so far (got {cfg.family!r}; see ROADMAP.md, Queue 1)")
         self.cfg = cfg
 
-    def init(self, generator: torch.Generator,
-             device="cuda") -> Dict[str, Any]:
-        """Random weights drawn from ``generator`` (a CPU generator) in
-        ``cfg.dtype`` and placed on ``device``: the same weights on any
-        device."""
+    def init(self, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+        """Random float32 weights drawn from ``generator`` and placed on
+        ``device``. A CPU generator gives the same weights on any device; a
+        CUDA generator draws them on the card (the fast way to a full-width
+        model). Weights are float32 whatever ``cfg.dtype`` says: bf16
+        weights are not ported yet (ROADMAP.md, Queue 1)."""
         dev = resolve_device(device)
-        dtype = getattr(torch, self.cfg.dtype)
-        params = {"embed": embed_init(generator, self.cfg, dtype),
-                  "lstm": lstm_init(generator, self.cfg, dtype)}
+        dtype = torch.float32
+        params = {"embed": embed_init(generator, self.cfg, dtype)}
+        if self.cfg.family == "lstm":
+            params["lstm"] = lstm_init(generator, self.cfg, dtype)
+        else:
+            params["stack"] = stack_init(generator, self.cfg, dtype)
         return to_device(params, dev)
 
     def forward(self, params, batch: Dict[str, torch.Tensor]):
         """→ (h (B, T, d), aux loss 0.0)."""
         x = embed_tokens(params["embed"], batch["tokens"])
-        h, _ = lstm_forward(params["lstm"], x, self.cfg)
-        return h, 0.0
+        if self.cfg.family == "lstm":
+            h, _ = lstm_forward(params["lstm"], x, self.cfg)
+            return h, 0.0
+        return stack_forward(params["stack"], x, self.cfg)
 
     def logits(self, params, h) -> torch.Tensor:
         return lm_logits(params["embed"], h, self.cfg)
@@ -52,38 +66,52 @@ class Model:
         """(W (V, d), b (V,)) — the matrix/bias the paper's screening targets."""
         return head_matrix(params["embed"], self.cfg), params["embed"]["lm_bias"]
 
-    def init_cache(self, batch: int, dtype=torch.float32, device="cpu"):
-        """Recurrent state only: an LSTM's cache does not grow with the
-        sequence."""
-        return {"lstm": lstm_init_state(self.cfg, batch, dtype, device)}
+    def init_cache(self, batch: int, max_len: Optional[int] = None,
+                   dtype=torch.float32, device="cuda"):
+        """Decode cache for ``batch`` rows on ``device`` (default the card;
+        raises without a GPU unless ``device="cpu"``). LSTM: the recurrent
+        state, which does not grow with the sequence (``max_len`` unused).
+        SSM/hybrid: stacked float32 conv tails and SSM states, plus the
+        shared block's K/V caches of ``max_len`` slots in ``dtype``."""
+        dev = resolve_device(device)
+        if self.cfg.family == "lstm":
+            return {"lstm": lstm_init_state(self.cfg, batch, dtype, dev)}
+        if max_len is None and self.cfg.family == "hybrid":
+            raise ValueError(f"{self.cfg.name}: init_cache needs max_len")
+        return stack_init_cache(self.cfg, batch, max_len or 0, dtype, dev)
 
     def prefill(self, params, batch, cache, resume: bool = False):
         """Forward over the prompt AND prime the decode cache.
 
-        ``resume=True`` continues from ``cache``'s recurrent state instead
-        of zeros: the same cell sequence, so resumed prefill over a suffix
-        equals one-shot prefill over the full prompt. → (h (B, T, d), cache)."""
+        ``resume=True`` (LSTM only) continues from ``cache``'s recurrent
+        state instead of zeros: the same cell sequence, so resumed prefill
+        over a suffix equals one-shot prefill over the full prompt. SSM and
+        hybrid caches are filled in place, the prompt at slots [0, T).
+        → (h (B, T, d), cache)."""
         x = embed_tokens(params["embed"], batch["tokens"])
-        h, state = lstm_forward(params["lstm"], x, self.cfg,
-                                state=cache["lstm"] if resume else None)
-        return h, {"lstm": state}
+        if self.cfg.family == "lstm":
+            h, state = lstm_forward(params["lstm"], x, self.cfg,
+                                    state=cache["lstm"] if resume else None)
+            return h, {"lstm": state}
+        if resume:
+            raise NotImplementedError("resume prefill is LSTM-only, as in the "
+                                      "reference")
+        return stack_prefill(params["stack"], x, self.cfg, cache)
 
     def decode_step(self, params, token, cache, pos=None):
-        """token: (B,) int; ``pos`` is unused by the recurrent state.
+        """token: (B,) int; ``pos``: the token's absolute position (a scalar;
+        unused by the LSTM state). SSM/hybrid caches are updated in place.
         → (h (B, d), cache)."""
         x1 = embed_tokens(params["embed"], token)
-        h, new_state = lstm_decode_step(params["lstm"], x1, cache["lstm"],
-                                        self.cfg)
-        return h, {"lstm": new_state}
+        if self.cfg.family == "lstm":
+            h, new_state = lstm_decode_step(params["lstm"], x1, cache["lstm"],
+                                            self.cfg)
+            return h, {"lstm": new_state}
+        h, cache = stack_decode(params["stack"], x1[:, None], cache, pos, self.cfg)
+        return h[:, 0], cache
 
 
 def to_device(tree, device):
     """Every tensor of a nested dict/list moved to ``device``."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_device(v, device) for v in tree)
-    return tree
-
+    return tree_map(lambda a: a.to(device) if isinstance(a, torch.Tensor)
+                    else a, tree)

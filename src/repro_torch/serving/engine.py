@@ -1,6 +1,7 @@
 """Batched decode engine: prefill → token-by-token generation through a
-pluggable ``SoftmaxHead``. Twin of ``repro/serving/engine.py`` (LSTM
-family; ``serve_batch``, ``DecodeStream`` and the scheduler come later).
+pluggable ``SoftmaxHead``. Twin of ``repro/serving/engine.py`` (the lstm,
+ssm and hybrid families; ``serve_batch``, ``DecodeStream`` and the
+scheduler come later).
 
 The head is the ONE seam: greedy decode, temperature/nucleus sampling, and
 beam search all route next-token selection through ``head.next`` /
@@ -29,6 +30,7 @@ from repro_torch.core.screening import ScreenParams
 from repro_torch.device import resolve_device
 from repro_torch.heads.base import SoftmaxHead
 from repro_torch.models.model import Model, to_device
+from repro_torch.tree import tree_map
 
 HeadLike = Union[str, SoftmaxHead]
 
@@ -42,14 +44,20 @@ class GenerationResult:
 
 class DecodeEngine:
     def __init__(self, model: Model, params, head: HeadLike = "exact",
-                 screen: Optional[ScreenParams] = None,
-                 head_kwargs: Optional[dict] = None, device="cuda"):
+                 screen: Optional[ScreenParams] = None, max_len: int = 512,
+                 cache_dtype=torch.float32, head_kwargs: Optional[dict] = None,
+                 device="cuda"):
         """``head``: default decode head — a registry name or an instance.
         ``screen``: L2S screen handed to screening heads resolved by name.
+        ``max_len``: cache slots per row (prompt + generated tokens);
+        ``cache_dtype``: dtype of the K/V caches (conv tails and SSM states
+        stay f32, as the reference's do after prefill).
         ``head_kwargs``: extra construction kwargs for name resolution
         (e.g. ``{"fused": False}``). ``device``: "cuda" (default; raises
         without a GPU) or "cpu"; params and screen are moved there."""
         self.device = resolve_device(device)
+        self.max_len = max_len
+        self.cache_dtype = cache_dtype
         self.model = model
         self.params = to_device(params, self.device)
         self.screen = None if screen is None else screen.to(self.device)
@@ -71,12 +79,17 @@ class DecodeEngine:
             return self._head_cache[head]
         return head.prepare()
 
-    def _prefill(self, prompts):
-        """prompts (B, Tp) → (h_last (B, d), cache, Tp)."""
+    def _prefill(self, prompts, max_new: int):
+        """prompts (B, Tp) → (h_last (B, d), cache, Tp). Raises if the
+        prompt and ``max_new`` tokens do not fit ``max_len`` cache slots."""
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=self.device)
         B, Tp = tokens.shape
-        cache = self.model.init_cache(B, dtype=self.W.dtype,
+        if Tp + max_new > self.max_len:
+            raise ValueError(f"a prompt of {Tp} tokens and {max_new} new ones "
+                             f"need {Tp + max_new} cache slots; max_len is "
+                             f"{self.max_len}")
+        cache = self.model.init_cache(B, self.max_len, dtype=self.cache_dtype,
                                       device=self.device)
         h, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
         return h[:, -1].contiguous(), cache, Tp
@@ -97,7 +110,7 @@ class DecodeEngine:
         a new one seeded with ``seed`` — one of them is required unless
         temperature ≤ 0."""
         hd = self.resolve_head(head)
-        h_last, cache, Tp = self._prefill(prompts)
+        h_last, cache, Tp = self._prefill(prompts, max_new)
         if temperature is None:
             def pick(h):
                 return hd.next(h)
@@ -130,7 +143,7 @@ class DecodeEngine:
         hd = self.resolve_head(head)
         prompts = np.broadcast_to(np.asarray(prompt)[None],
                                   (beam, len(prompt))).copy()
-        h_last, cache, Tp = self._prefill(prompts)
+        h_last, cache, Tp = self._prefill(prompts, max_new)
 
         ids, lps = hd.topk_logprobs(h_last[:1], beam)      # expand from beam 0
         ids, lps = ids.cpu().numpy(), lps.cpu().numpy()
@@ -163,9 +176,8 @@ class DecodeEngine:
 
 
 def _reorder_cache(cache, src_idx, cfg):
-    """Gather beam rows: LSTM state lists carry batch at axis 0."""
-    if cfg.family != "lstm":
-        raise NotImplementedError(f"{cfg.family} caches come with their slice "
-                                  f"(ROADMAP.md, Queue 1)")
-    return {"lstm": [{k: v[src_idx] for k, v in layer.items()}
-                     for layer in cache["lstm"]]}
+    """Gather beam rows. LSTM state lists carry batch at axis 0; the stacked
+    SSM / attention caches at axis 1."""
+    if cfg.family == "lstm":
+        return tree_map(lambda a: a[src_idx], cache)
+    return tree_map(lambda a: a[:, src_idx], cache)

@@ -71,7 +71,8 @@ def test_cuda_kernels_match_plain(cuda, weights):
         uv, upos = topk_desc(row, k)
         assert torch.equal(kv, uv)
         assert torch.equal(ki, torch.gather(word, 1, upos))
-    assert all(n > 0 for n in ops.LAUNCHES.values())
+    assert all(ops.LAUNCHES[k] > 0 for k in ("cluster_route", "screened_logits",
+                                              "fused_screened_topk"))
 
 
 def test_cuda_fused_all_sentinel_and_noise(cuda):
@@ -134,3 +135,66 @@ def test_cuda_engine_fused_and_unfused_agree(cuda):
     np.testing.assert_array_equal(out[True][1].tokens, out[False][1].tokens)
     np.testing.assert_allclose(out[True][1].scores, out[False][1].scores,
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,G,N", [
+    (2, 2, 256, 8, 64, 1, 64),        # zamba2's chunk, fewer heads
+    (1, 1, 256, 4, 64, 2, 128),       # mamba2's N = 128 (B, C do not fit whole)
+    (3, 1, 7, 6, 8, 2, 16),           # a short, odd chunk
+    (1, 2, 100, 2, 72, 1, 20),        # ragged tiles in every dimension
+])
+def test_cuda_ssd_intra_matches_plain(cuda, B, nc, Q, H, P, G, N):
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    g = torch.Generator().manual_seed(Q + N)
+    xw = torch.randn((B, nc, Q, H, P), generator=g)
+    Bm = torch.randn((B, nc, Q, G, N), generator=g)
+    Cm = torch.randn((B, nc, Q, G, N), generator=g)
+    l = -torch.cumsum(torch.rand((B, nc, Q, H), generator=g) * 0.05, dim=2)
+    args = [a.to(cuda) for a in (xw, Bm, Cm, l)]
+    ops.reset_launches()
+    y, S = ssd_intra(*args)
+    py, pS = ssd_intra_plain(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_intra"] == 1
+    for got, want in ((y, py), (S, pS)):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_cache_slot_update_bit_identical(cuda, dtype):
+    from repro_torch.kernels.cache_update import (cache_slot_update,
+                                                  cache_slot_update_plain)
+    B, S, KV, hd = 4, 200, 3, 10          # rows of 60 / 30 bytes: no float4
+    g = torch.Generator().manual_seed(1)
+    cache = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    upd = torch.randn((B, KV, hd), generator=g).to(cuda, dtype)
+    ops.reset_launches()
+    for slot in (0, 127, S // 2, S - 1, S + 5, -1,
+                 torch.tensor([3, S + 5, -1, S - 1], dtype=torch.int32,
+                              device=cuda)):
+        got = cache_slot_update(cache.clone(), upd, slot)
+        want = cache_slot_update_plain(cache.clone(), upd, slot)
+        assert torch.equal(got, want), slot
+    assert ops.LAUNCHES["cache_slot_update"] == 7
+
+
+def test_cuda_hybrid_engine_runs_the_ssm_kernels(cuda):
+    """Reduced zamba2 on the card: prefill launches ssd_intra once per
+    layer, decode writes the shared block's K/V through the cache kernel,
+    and the greedy tokens of the kernel path equal the CPU plain path's
+    on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine
+
+    cfg = get_config("zamba2-2.7b").reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params["embed"]["embedding"] *= 20.0
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 40))
+    ops.reset_launches()
+    out = DecodeEngine(model, params, max_len=64, device=cuda).generate(prompts, 6)
+    assert ops.LAUNCHES["ssd_intra"] == cfg.num_layers
+    assert ops.LAUNCHES["cache_slot_update"] == 2 * cfg.num_layers * 5
+    cpu = DecodeEngine(model, params, max_len=64, device="cpu").generate(prompts, 6)
+    np.testing.assert_array_equal(out.tokens, cpu.tokens)

@@ -103,7 +103,7 @@ def test_model_hidden_states_match(fx):
 
     jcache = jm.init_cache(B, 32, dtype=jnp.float32)
     jh, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcache)
-    tcache = tm.init_cache(B)
+    tcache = tm.init_cache(B, device="cpu")
     th1, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :2])},
                              tcache)
     th2, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, 2:])},
@@ -142,8 +142,7 @@ def test_greedy_generate_and_beam_match_reference(fx, tname, jname, kw):
     tb = teng.beam_search(fx["prompts"][0], 4, 6, head=tname)
     np.testing.assert_array_equal(tb.tokens, jb.tokens)
     np.testing.assert_allclose(tb.scores, jb.scores, rtol=0, atol=1e-5)
-    assert ops.LAUNCHES == {"cluster_route": 0, "screened_logits": 0,
-                            "fused_screened_topk": 0}  # no kernel on the CPU
+    assert not any(ops.LAUNCHES.values())          # no kernel on the CPU
 
 
 def test_sampled_generate_runs_in_vocab(fx):

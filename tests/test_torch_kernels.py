@@ -276,6 +276,5 @@ def test_wrappers_validate_inputs():
         fused_screened_topk(tw, tb, h.T.contiguous().T, ids, k=1)
     with pytest.raises(ValueError, match="does not match"):
         cluster_route(h, _t(fx["v"])[:, :8].contiguous())
-    assert ops.LAUNCHES == {"cluster_route": 0, "screened_logits": 0,
-                            "fused_screened_topk": 0}
+    assert not any(ops.LAUNCHES.values())
 
