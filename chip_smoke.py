@@ -15,15 +15,20 @@ Phases, one line (or a few) each:
               the main path's shapes (nmt-deen-lstm: d = 500, V = 25,000 →
               196 blocks, r = 100 clusters, K = 16 blocks per cluster, some
               clusters sentinel-padded; B ∈ {1, 8}, k ∈ {1, 5}), plus a
-              dense-tie fixture and an all-sentinel row. Routes and ids must
-              be equal except where the plain scores differ by less than
-              1e-5 relative (counted and printed); values and logZ agree
-              within rtol = atol = 1e-5; the fused and unfused paths are
-              bit-identical on ids and values;
+              dense-tie fixture and an all-sentinel row; the route also at
+              zamba2-2.7b's d = 2560 (B ∈ {1, 4, 130}) and on an exact tie
+              between clusters held by different blocks of its thread
+              block cluster (the first index must win). Routes and ids
+              must be equal except where the plain scores differ by less
+              than 1e-5 relative (counted and printed); values and logZ
+              agree within rtol = atol = 1e-5; the fused and unfused paths
+              are bit-identical on ids and values;
   4. timing   CUDA-event median times with a cold L2 of each kernel, its
               plain version and, where one PyTorch call computes the same
-              function, that call; beside each, its bound (bytes over
-              3.35 TB/s or float32 flops over 67 TFLOP/s, the larger);
+              function, that call, timed in turns (library, kernel, plain,
+              plain, kernel, library); beside each, its bound (bytes over
+              3.35 TB/s or float32 flops over 67 TFLOP/s, the larger); the
+              L2S kernels at d = 500 and at zamba2's d = 2560;
   5. e2e      full-width nmt-deen-lstm (random weights from a seeded
               torch.Generator) on DecodeEngine(device="cuda"): greedy
               4 prompts × 16 tokens through exact and screened-cuda (fused
@@ -54,7 +59,10 @@ Phases, one line (or a few) each:
               prefill over 512 tokens and 4 decode steps equal one prefill
               over 516 (max relative error <= 1e-3), and a profile of one
               greedy screened-cuda decode;
-  8. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  8. a JSON line {"kernels": [...]} (each kernel with its launches on the
+              path it was ported for and, in "launches_by_path", on both;
+              the route and the fused kernel also "at_zamba2_width") and,
+              last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -88,6 +96,7 @@ SSD_REL_TOL = 1e-5
 # of 80 channels; hybrid decode 4 prompts x 512 tokens, 32 new
 CACHE_SHAPE = (4, 640, 32, 80)
 ZB, ZT, ZNEW, ZMAX = 4, 512, 32, 640
+ZD, ZV = 2560, 32_000                # zamba2-2.7b's d_model and vocabulary
 
 
 def log(*a):
@@ -100,13 +109,14 @@ def check(cond, msg):
 
 
 # -- fixtures ------------------------------------------------------------------
-def make_head(torch, seed, kind="normal"):
-    """(W (V, d), b (V,)) on the card: random normal or quantized (ties)."""
+def make_head(torch, seed, kind="normal", vocab=V, d=D):
+    """(W (vocab, d), b (vocab,)) on the card: random normal or quantized
+    (ties)."""
     g = torch.Generator().manual_seed(seed)
-    W = torch.randn((V, D), generator=g)
+    W = torch.randn((vocab, d), generator=g)
     if kind == "ties":
-        return (torch.round(W * 2) / 2).cuda(), torch.zeros(V).cuda()
-    return (W * 0.05).cuda(), (torch.randn((V,), generator=g) * 0.1).cuda()
+        return (torch.round(W * 2) / 2).cuda(), torch.zeros(vocab).cuda()
+    return (W * 0.05).cuda(), (torch.randn((vocab,), generator=g) * 0.1).cuda()
 
 
 def make_screen_blocks(np, seed, n_blk, r=R, k=K, dups=False):
@@ -149,6 +159,15 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def turns(self, fns):
+        """{name: fn} → {name: mean of two medians}, timed in turns: each
+        in the given order, then each in the reverse order (library,
+        kernel, plain, plain, kernel, library)."""
+        got = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            got[name].append(self(fns[name]))
+        return {name: sum(t) / len(t) for name, t in got.items()}
 
 
 def bound_ms(nbytes, flops):
@@ -288,75 +307,112 @@ def phase_parity(torch, np, K_):
                 fi, fv, _ = ops.screened_fused_topk(Wb, bb, v, cand, h, k=k)
                 check(torch.equal(ui, fi) and torch.equal(uv, fv),
                       f"screened_fused_topk != screened_topk (B={B}, k={k})")
+    # the route at zamba2-2.7b's width, B up to 130 (17 thread block
+    # clusters), and an exact tie across the blocks of one cluster: t = 3
+    # in block 0, t = 50 and t = 99 in later blocks; the first index wins
+    g = torch.Generator().manual_seed(9)
+    vz = torch.randn((R, ZD), generator=g).cuda()
+    for B in (1, 4, 130):
+        h = torch.randn((B, ZD), generator=g).cuda()
+        route, plain = cluster_route(h, vz), cluster_route_plain(h, vz)
+        scores = h @ vz.T
+        s_route = scores.gather(1, route.long()[:, None])[:, 0]
+        s_plain = scores.gather(1, plain.long()[:, None])[:, 0]
+        ids_match("cluster_route d=2560", route, plain, s_route, s_plain)
+        err["cluster_route"] = max(err["cluster_route"],
+                                   float((s_route - s_plain).abs().max()))
+    vt = torch.round(torch.randn((R, D), generator=g) * 2) / 2
+    vt[3] = vt[50] = vt[99] = 4.0
+    ht = (torch.round(torch.rand((8, D), generator=g) * 3) * 0.5 + 0.5).cuda()
+    check(bool((cluster_route_plain(ht, vt.cuda()) == 3).all()) and
+          bool((cluster_route(ht, vt.cuda()) == 3).all()),
+          "cluster_route: a tie across blocks did not pick the first index")
     log(f"[parity] kernels match their plain versions (rtol=atol=1e-5), "
-        f"fused == unfused bit for bit, ties exact; near-tie id positions: "
-        f"{near_ties}; max abs err {json.dumps(err)}")
+        f"fused == unfused bit for bit, ties exact (route also at d={ZD}, "
+        f"B in 1, 4, 130, and tied across the blocks of a cluster); near-tie "
+        f"id positions: {near_ties}; max abs err {json.dumps(err)}")
     return err
 
 
-def phase_timing(torch, np):
-    """→ {kernel: timing dict} at the greedy decode step's shape (B = 4,
-    K = 16, k = 1), after a table over B ∈ {1, 4, 8} and the full-cover
-    screen's K = 200."""
-    from repro_torch.kernels import ops
+def l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, seed):
+    """Timing rows of the three L2S kernels at one decode shape: each
+    kernel in turns with its plain version (and, for the route, the one
+    PyTorch call), and its bound at these inputs."""
     from repro_torch.kernels.fused_topk import (fused_screened_topk,
                                                 fused_screened_topk_plain)
     from repro_torch.kernels.route import cluster_route, cluster_route_plain
     from repro_torch.kernels.screen import (screened_logits,
                                             screened_logits_plain)
+    n_blk, _, d = Wb.shape
+    r, Ks = v.shape[0], screen.shape[1]
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn((B, d), generator=g).cuda()
+    block_ids = screen[cluster_route_plain(h, v).long()].contiguous()
+    valid = block_ids < n_blk
+    safe_u = int(torch.unique(torch.where(valid, block_ids, 0)).numel())
+    valid_u = int(torch.unique(block_ids[valid]).numel())
+    n_valid = int(valid.sum())
+    tile_bytes = V_BLK * (d + 1) * 4
+    t = timer.turns({"library_ms": lambda: torch.argmax(h @ v.T, dim=-1),
+                     "ms": lambda: cluster_route(h, v),
+                     "plain_ms": lambda: cluster_route_plain(h, v)})
+    rows = {"cluster_route": dict(
+        t, bound=bound_ms(4 * (B * d + r * d + B), 2 * B * r * d))}
+    t = timer.turns({"ms": lambda: screened_logits(Wb, bb, h, block_ids),
+                     "plain_ms": lambda: screened_logits_plain(Wb, bb, h,
+                                                               block_ids)})
+    rows["screened_logits"] = dict(
+        t, library_ms=None,
+        bound=bound_ms(safe_u * tile_bytes + 4 * (B * d + B * Ks) +
+                       4 * B * Ks * V_BLK, 2 * B * Ks * V_BLK * d))
+    t = timer.turns({"ms": lambda: fused_screened_topk(Wb, bb, h, block_ids,
+                                                       k),
+                     "plain_ms": lambda: fused_screened_topk_plain(
+                         Wb, bb, h, block_ids, k)})
+    rows["fused_screened_topk"] = dict(
+        t, library_ms=None,
+        bound=bound_ms(valid_u * tile_bytes + 4 * (B * d + B * Ks) +
+                       4 * (2 * B * k + B), 2 * n_valid * V_BLK * d))
+    for name, row in rows.items():
+        lib = row["library_ms"]
+        log(f"[timing] d={d} B={B} K={Ks} k={k} {name}: {row['ms']:.5f} ms, "
+            f"plain {row['plain_ms']:.5f} ms, library "
+            f"{'null' if lib is None else f'{lib:.5f}'} ms, bound "
+            f"{row['bound'][0]:.7f} ms ({row['bound'][1]}); distinct tiles "
+            f"{valid_u}")
+    return rows
+
+
+def phase_timing(torch, np):
+    """→ ({kernel: timing dict} at the LSTM greedy decode step's shape
+    (d = 500, B = 4, K = 16, k = 1), {kernel: timing dict} of the route and
+    the fused kernel at zamba2-2.7b's width (d = 2560, same B, K, k)),
+    after a table over B ∈ {1, 4, 8} and the full-cover screen's K = 200.
+    CUDA-event medians with a cold L2, each kernel in turns with its plain
+    version and the library call."""
+    from repro_torch.kernels import ops
     timer = Timer(torch)
     W, b = make_head(torch, 1)
     Wb, bb = ops.pack_head_blocks(W, b)
     n_blk = Wb.shape[0]
     cand = torch.from_numpy(make_screen_blocks(np, 3, n_blk)).cuda()
-    g = torch.Generator().manual_seed(5)
-    v = torch.randn((R, D), generator=g).cuda()
+    v = torch.randn((R, D), generator=torch.Generator().manual_seed(5)).cuda()
     full = torch.full((R, -(-n_blk // 8) * 8), n_blk, dtype=torch.int32,
                       device="cuda")
     full[:, :n_blk] = torch.arange(n_blk, device="cuda", dtype=torch.int32)
     out = {}
-    for B, k, screen in ((1, 5, cand), (4, 1, cand), (8, 5, cand),
-                         (4, 1, full)):
-        Ks = screen.shape[1]
-        h = torch.randn((B, D), generator=g).cuda()
-        block_ids = screen[cluster_route_plain(h, v).long()].contiguous()
-        valid = block_ids < n_blk
-        safe_u = int(torch.unique(torch.where(valid, block_ids, 0)).numel())
-        valid_u = int(torch.unique(block_ids[valid]).numel())
-        n_valid = int(valid.sum())
-        tile_bytes = V_BLK * (D + 1) * 4
-        rows = {
-            "cluster_route": dict(
-                ms=timer(lambda: cluster_route(h, v)),
-                plain_ms=timer(lambda: cluster_route_plain(h, v)),
-                library_ms=timer(lambda: torch.argmax(h @ v.T, dim=-1)),
-                bound=bound_ms(4 * (B * D + R * D + B), 2 * B * R * D)),
-            "screened_logits": dict(
-                ms=timer(lambda: screened_logits(Wb, bb, h, block_ids)),
-                plain_ms=timer(lambda: screened_logits_plain(Wb, bb, h,
-                                                             block_ids)),
-                library_ms=None,
-                bound=bound_ms(safe_u * tile_bytes + 4 * (B * D + B * Ks) +
-                               4 * B * Ks * V_BLK,
-                               2 * B * Ks * V_BLK * D)),
-            "fused_screened_topk": dict(
-                ms=timer(lambda: fused_screened_topk(Wb, bb, h, block_ids, k)),
-                plain_ms=timer(lambda: fused_screened_topk_plain(
-                    Wb, bb, h, block_ids, k)),
-                library_ms=None,
-                bound=bound_ms(valid_u * tile_bytes + 4 * (B * D + B * Ks) +
-                               4 * (2 * B * k + B),
-                               2 * n_valid * V_BLK * D)),
-        }
-        for name, t in rows.items():
-            lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-            log(f"[timing] B={B} K={Ks} k={k} {name}: {t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, library {lib} ms, bound "
-                f"{t['bound'][0]:.5f} ms ({t['bound'][1]}); distinct tiles "
-                f"{valid_u}")
-        if (B, k, Ks) == (4, 1, K):
+    for i, (B, k, screen) in enumerate(((1, 5, cand), (4, 1, cand),
+                                        (8, 5, cand), (4, 1, full))):
+        rows = l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, 50 + i)
+        if (B, k, screen.shape[1]) == (4, 1, K):
             out = rows
-    return out
+    del W, b, Wb, bb
+    W, b = make_head(torch, 11, vocab=ZV, d=ZD)
+    Wb, bb = ops.pack_head_blocks(W, b)
+    cand = torch.from_numpy(make_screen_blocks(np, 12, Wb.shape[0])).cuda()
+    vz = torch.randn((R, ZD), generator=torch.Generator().manual_seed(13))
+    wide = l2s_rows(torch, np, timer, Wb, bb, vz.cuda(), cand, 4, 1, 60)
+    return out, {k: wide[k] for k in ("cluster_route", "fused_screened_topk")}
 
 
 def phase_e2e(torch, np):
@@ -541,11 +597,11 @@ def phase_ssm_kernels(torch):
     for label in ("zamba2", "mamba2"):
         shape = SSD_SHAPES[label]
         args = ssd_inputs(torch, shape, 30)
-        t = dict(ms=timer(lambda: ssd_intra(*args)),
-                 plain_ms=timer(lambda: ssd_intra_plain(*args)),
-                 library_ms=None, bound=bound_ms(*ssd_bound(shape)))
-        log(f"[timing] ssd_intra {label} {shape}: {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library null, bound {t['bound'][0]:.5f} "
+        t = timer.turns({"ms": lambda: ssd_intra(*args),
+                         "plain_ms": lambda: ssd_intra_plain(*args)})
+        t.update(library_ms=None, bound=bound_ms(*ssd_bound(shape)))
+        log(f"[timing] ssd_intra {label} {shape}: {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f} ms, library null, bound {t['bound'][0]:.5f} "
             f"ms ({t['bound'][1]}; bytes {ssd_bound(shape)[0]}, flops "
             f"{ssd_bound(shape)[1]})")
         if label == "zamba2":
@@ -558,10 +614,11 @@ def phase_ssm_kernels(torch):
     def library():
         cache[rows, slot] = upd
 
-    t = dict(ms=timer(lambda: cache_slot_update(cache, upd, slot)),
-             plain_ms=timer(lambda: cache_slot_update_plain(cache, upd, slot)),
-             library_ms=timer(library),
-             bound=bound_ms(2 * B * KV * hd * 4, 0))
+    t = timer.turns({"library_ms": library,
+                     "ms": lambda: cache_slot_update(cache, upd, slot),
+                     "plain_ms": lambda: cache_slot_update_plain(cache, upd,
+                                                                 slot)})
+    t["bound"] = bound_ms(2 * B * KV * hd * 4, 0)
     log(f"[timing] cache_slot_update {CACHE_SHAPE} f32: {t['ms']:.4f} ms, "
         f"plain {t['plain_ms']:.4f} ms, library (cache[rows, slot] = upd) "
         f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.7f} ms "
@@ -583,6 +640,7 @@ def phase_e2e_hybrid(torch, np):
 
     cfg = get_config("zamba2-2.7b")
     d, vocab = cfg.d_model, cfg.vocab_size
+    check((d, vocab) == (ZD, ZV), "config drifted from the smoke's shapes")
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
@@ -741,14 +799,14 @@ def main() -> int:
     kind, _ = phase_device(torch)
     phase_build(ops)
     err = phase_parity(torch, np, K)
-    times = phase_timing(torch, np)
-    launches = phase_e2e(torch, np)
+    times, wide = phase_timing(torch, np)
+    lstm = phase_e2e(torch, np)
     ssm_err, ssm_times = phase_ssm_kernels(torch)
     err.update(ssm_err)
     times.update(ssm_times)
     hybrid = phase_e2e_hybrid(torch, np)
-    # each kernel's launches on the path it was ported for
-    launches.update({k: hybrid[k] for k in ssm_err})
+    # each kernel's launches on the path it was ported for, and on both
+    launches = {k: (hybrid if k in ssm_err else lstm)[k] for k in lstm}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),
@@ -768,7 +826,15 @@ def main() -> int:
                         "max_abs_err": err[name], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                         "bound_by": t["bound"][1],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"],
+                        "launches_by_path": {"nmt-deen-lstm": lstm[name],
+                                             "zamba2-2.7b": hybrid[name]}})
+        if name in wide:
+            w = wide[name]
+            kernels[-1]["at_zamba2_width"] = {
+                "d": ZD, "ms": w["ms"], "plain_ms": w["plain_ms"],
+                "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
+                "library_ms": w["library_ms"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

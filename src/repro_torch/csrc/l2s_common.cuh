@@ -1,4 +1,6 @@
-// Device routines shared by the L2S kernels (route.cu, screen.cu, fused_topk.cu).
+// Device routines shared by the L2S kernels (screen.cu, fused_topk.cu), and the
+// launch helpers every kernel library uses (l2s_allow_smem, l2s_error_string).
+// route.cu has its own dot product: one warp per cluster, all rows of h at once.
 //
 // One summation order for every dot product: screen.cu and fused_topk.cu both
 // compute a tile's logits through l2s_tile_logits, so the unfused and fused

@@ -4,71 +4,227 @@
 // (_route_kernel, pl.pallas_call at route.py:49), which does one
 // (128, d) x (d, r_pad) MXU product per 128 rows and an argmax in registers.
 //
-// Bound on the H100: bytes. It reads v (r x d floats, 200 KB at r = 100,
-// d = 500) and h, and does 2*B*r*d flops, far below the card's float32 rate;
-// at decode batch sizes the launch itself costs more than either.
+// Bound on the H100: bytes. It must read v (r x d floats: 200 KB at r = 100,
+// d = 500; 1 MB at zamba2-2.7b's d = 2560) and h once, and does 2*B*r*d
+// flops, far below the card's float32 rate. At decode batch sizes (B = 1..8)
+// the bytes take well under a microsecond, so the floor is one launch plus
+// one round trip to device memory.
 //
-// Design: one block per row of h (B blocks). The block stages its h row in
-// shared memory; its warps take the rows of v round robin, load each row
-// coalesced along d and reduce with warp shuffles (l2s_warp_dot). Each warp
-// keeps its best (score, index) over its rows in ascending order, and thread
-// 0 merges the warps' bests by (score desc, index asc): the first index wins
-// a tie, as jnp.argmax does. No (B, r) score matrix is written.
+// Design: parallel over the clusters t, not over the rows of h (one block
+// per row would use 4 of 132 SMs at B = 4 and read all of v in each).
+//   * One thread block cluster of up to 16 blocks of 8 warps covers r = 100
+//     in one wave (13 blocks, one warp per t); the grid is ceil(B / 8) such
+//     clusters, each owning ROUTE_BT = 8 rows of h, staged (zero-padded) in
+//     shared memory. 16 is Hopper's non-portable cluster size: 13 blocks
+//     of 8 warps spread the reads of v over twice the SMs that 7 blocks of
+//     16 warps would, and one SM streams only a small share of the card's
+//     memory rate.
+//   * One warp per cluster t (then t + W, t + 2W, ... when r exceeds the W
+//     warps of the cluster): it reads v_t from device memory once, with
+//     ROUTE_LOADS = 10 16-byte loads per lane in flight before the first FMA
+//     (the first batch is issued before h is staged, so the two round trips
+//     overlap), dots it with all 8 rows (8 partial sums per lane, fmaf in
+//     ascending chunk order), and reduces them with xor shuffles. A ragged d
+//     (d % 4 != 0) takes 4-byte loads instead.
+//   * Reduction warp -> block -> cluster: lane b of each warp keeps row b's
+//     best (score, t), one thread per row merges the block's warps, and
+//     block rank 0 merges the cluster's blocks through distributed shared
+//     memory (map_shared_rank) and writes out. Every merge orders by
+//     (score desc, t asc), so the first index wins a tie, as jnp.argmax does,
+//     whatever order the blocks run in.
+// One launch, no (B, r) score matrix, no workspace, no atomics.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; CUDA-event
+// medians, cold L2), B = 4, r = 100: 0.0098 ms at d = 500 (argmax(h @ v.T)
+// 0.0148 ms) and 0.0133 ms at d = 2560 (argmax(h @ v.T) 0.0189 ms). The
+// bound is 0.00006 and 0.0003 ms: launch and one round trip to memory
+// dominate.
+#include <cooperative_groups.h>
+
 #include "l2s_common.cuh"
 
-__global__ void __launch_bounds__(L2S_THREADS)
-route_kernel(const float* __restrict__ h, const float* __restrict__ v,
-             int* __restrict__ out, int r, int d) {
-  extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);  // d floats
-  __shared__ float warp_val[L2S_THREADS / 32];
-  __shared__ int warp_idx[L2S_THREADS / 32];
+namespace cg = cooperative_groups;
 
-  const int row = blockIdx.x;
+#define ROUTE_BT 8            // rows of h per thread block cluster
+#define ROUTE_THREADS 256     // 8 warps per block
+#define ROUTE_WARPS (ROUTE_THREADS / 32)
+#define ROUTE_MAX_CLUSTER 16  // a non-portable cluster size (Hopper allows 16)
+#define ROUTE_LOADS 10        // loads of v in flight per lane
+
+// (s, t) beats the best so far (m, mt): a higher score, or an equal one at a
+// lower index; t < 0 marks "no cluster seen".
+__device__ __forceinline__ bool route_better(float s, int t, float m, int mt) {
+  return t >= 0 && (mt < 0 || s > m || (s == m && t < mt));
+}
+
+// One batch of a row of v: up to ROUTE_LOADS elements (float4 when VEC, else
+// float in .x) at lane + 32u past c0; 0 past the end n.
+template <bool VEC>
+__device__ __forceinline__ void route_load(float4 (&w)[ROUTE_LOADS],
+                                           const float* __restrict__ row, int c0, int n) {
+#pragma unroll
+  for (int u = 0; u < ROUTE_LOADS; ++u) {
+    const int c = c0 + 32 * u;
+    if (VEC)
+      w[u] = c < n ? __ldg(reinterpret_cast<const float4*>(row) + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      w[u] = make_float4(c < n ? __ldg(row + c) : 0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// VEC: d % 4 == 0, v read as float4; else as single floats (ragged d).
+template <bool VEC>
+__global__ void __launch_bounds__(ROUTE_THREADS)
+route_kernel(const float* __restrict__ h, const float* __restrict__ v,
+             int* __restrict__ out, int B, int r, int d) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* h_s = reinterpret_cast<float*>(smem4);  // ROUTE_BT x dp floats
+  __shared__ float warp_val[ROUTE_WARPS][ROUTE_BT];
+  __shared__ int warp_idx[ROUTE_WARPS][ROUTE_BT];
+  __shared__ float blk_val[ROUTE_BT];
+  __shared__ int blk_idx[ROUTE_BT];
+
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int b0 = (int)(blockIdx.x / csize) * ROUTE_BT;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  l2s_stage(h + (size_t)row * d, h_s, d);
+  const int nwarps = csize * ROUTE_WARPS;
+  const int t_first = rank * ROUTE_WARPS + warp;
+  const int n = VEC ? d >> 2 : d;                // elements of a row of v
+  const int dp = (d + 3) & ~3;
+
+  // The first batch of this warp's first cluster is in flight while h is
+  // staged, so the two round trips to memory overlap.
+  float4 w[ROUTE_LOADS];
+  if (t_first < r) route_load<VEC>(w, v + (size_t)t_first * d, lane, n);
+  const int rows = min(ROUTE_BT, B - b0);
+  if (VEC) {
+    float4* h4 = reinterpret_cast<float4*>(h_s);
+    const float4* src = reinterpret_cast<const float4*>(h + (size_t)b0 * d);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROUTE_BT * n; i += ROUTE_THREADS)
+      h4[i] = i < rows * n ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = threadIdx.x; i < ROUTE_BT * dp; i += ROUTE_THREADS) {
+      const int b = i / dp, c = i - b * dp;
+      h_s[i] = (b < rows && c < d) ? __ldg(h + (size_t)(b0 + b) * d + c) : 0.f;
+    }
+  }
   __syncthreads();
 
+  // lane b < ROUTE_BT keeps row b's best (score, t) over this warp's clusters
   float best = -INFINITY;
   int best_t = -1;
-  for (int t = warp; t < r; t += nwarps) {
-    const float s = l2s_warp_dot(v + (size_t)t * d, h_s, d, lane);
-    if (best_t < 0 || s > best) {  // ascending t: a tie keeps the lower index
-      best = s;
+  for (int t = t_first; t < r; t += nwarps) {
+    float acc[ROUTE_BT];
+#pragma unroll
+    for (int b = 0; b < ROUTE_BT; ++b) acc[b] = 0.f;
+    const float* row = v + (size_t)t * d;
+    for (int c0 = lane; c0 < n; c0 += 32 * ROUTE_LOADS) {
+      if (t != t_first || c0 != lane) route_load<VEC>(w, row, c0, n);
+#pragma unroll
+      for (int u = 0; u < ROUTE_LOADS; ++u) {
+        const int c = c0 + 32 * u;
+        if (c >= n) break;
+#pragma unroll
+        for (int b = 0; b < ROUTE_BT; ++b) {
+          if (VEC) {
+            const float4 x = reinterpret_cast<const float4*>(h_s)[b * n + c];
+            acc[b] = fmaf(w[u].x, x.x, acc[b]);
+            acc[b] = fmaf(w[u].y, x.y, acc[b]);
+            acc[b] = fmaf(w[u].z, x.z, acc[b]);
+            acc[b] = fmaf(w[u].w, x.w, acc[b]);
+          } else {
+            acc[b] = fmaf(w[u].x, h_s[b * dp + c], acc[b]);
+          }
+        }
+      }
+    }
+    float mine = 0.f;
+#pragma unroll
+    for (int b = 0; b < ROUTE_BT; ++b) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
+      if (lane == b) mine = acc[b];
+    }
+    if (route_better(mine, t, best, best_t)) {
+      best = mine;
       best_t = t;
     }
   }
-  if (lane == 0) {
-    warp_val[warp] = best;
-    warp_idx[warp] = best_t;
+  if (lane < ROUTE_BT) {
+    warp_val[warp][lane] = best;
+    warp_idx[warp][lane] = best_t;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_val[0];  // warp 0 always holds row t = 0
-    int mt = warp_idx[0];
-    for (int w = 1; w < nwarps; ++w) {
-      const int t = warp_idx[w];
-      if (t < 0) continue;
-      const float s = warp_val[w];
-      if (s > m || (s == m && t < mt)) {
+  if (threadIdx.x < ROUTE_BT) {
+    const int b = threadIdx.x;
+    float m = -INFINITY;
+    int mt = -1;
+    for (int q = 0; q < ROUTE_WARPS; ++q) {
+      if (route_better(warp_val[q][b], warp_idx[q][b], m, mt)) {
+        m = warp_val[q][b];
+        mt = warp_idx[q][b];
+      }
+    }
+    blk_val[b] = m;
+    blk_idx[b] = mt;
+  }
+  cluster.sync();
+  if (rank == 0 && threadIdx.x < ROUTE_BT) {
+    const int b = threadIdx.x;
+    float m = blk_val[b];
+    int mt = blk_idx[b];
+    for (int q = 1; q < csize; ++q) {
+      const float s = cluster.map_shared_rank(blk_val, q)[b];
+      const int t = cluster.map_shared_rank(blk_idx, q)[b];
+      if (route_better(s, t, m, mt)) {
         m = s;
         mt = t;
       }
     }
-    out[row] = mt;
+    if (b < rows) out[b0 + b] = mt;
   }
+  cluster.sync();  // every block's shared memory lives until rank 0 has read it
 }
 
 // h (B, d) f32, v (r, d) f32, out (B,) int32; all contiguous on one device,
-// h and v 16-byte aligned. Returns a cudaError_t (0 on success).
+// h and v 16-byte aligned; r >= 1, and d at most ~7,200 (eight rows of h must
+// fit one block's shared memory). Returns a cudaError_t (0 on success).
 extern "C" int l2s_cluster_route(const float* h, const float* v, int* out, int B,
                                  int r, int d, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)d * sizeof(float);
-  cudaError_t err = l2s_allow_smem(route_kernel, smem);
+  if (r <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)ROUTE_BT * ((d + 3) & ~3) * sizeof(float);
+  if (smem > 220 * 1024) return (int)cudaErrorInvalidValue;
+  const bool vec = (d & 3) == 0;
+  const void* kernel = vec ? (const void*)route_kernel<true> : (const void*)route_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  route_kernel<<<B, L2S_THREADS, smem, (cudaStream_t)stream>>>(h, v, out, r, d);
+  int csize = (r + ROUTE_WARPS - 1) / ROUTE_WARPS;
+  if (csize > ROUTE_MAX_CLUSTER) csize = ROUTE_MAX_CLUSTER;
+  const int groups = (B + ROUTE_BT - 1) / ROUTE_BT;
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(groups * csize));
+  cfg.blockDim = dim3(ROUTE_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = vec ? cudaLaunchKernelEx(&cfg, route_kernel<true>, h, v, out, B, r, d)
+            : cudaLaunchKernelEx(&cfg, route_kernel<false>, h, v, out, B, r, d);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -2,12 +2,16 @@
 
 Twin of ``repro/kernels/route.py``. scores = h (B, d) · vᵀ (d, r);
 cluster = argmax over r, the first index winning a tie. On a CUDA tensor
-``cluster_route`` launches ``csrc/route.cu``, which never writes the (B, r)
-score matrix; on a CPU tensor it runs ``cluster_route_plain``.
+``cluster_route`` launches ``csrc/route.cu`` (one warp per cluster t, one
+thread block cluster per 8 rows of h, merged through distributed shared
+memory), which never writes the (B, r) score matrix; on a CPU tensor it runs
+``cluster_route_plain``.
 """
 from __future__ import annotations
 
 import torch
+
+MAX_D = 7040    # eight rows of h staged in 220 KB of one block's shared memory
 
 
 def cluster_route_plain(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -26,6 +30,8 @@ def cluster_route(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"v {tuple(v.shape)} does not match h {tuple(h.shape)}")
     if dev.type == "cpu":
         return cluster_route_plain(h, v)
+    if d > MAX_D:
+        raise ValueError(f"cluster_route: d={d} exceeds the kernel's {MAX_D}")
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     ops.launch("cluster_route", "route", "l2s_cluster_route", dev,
                h.data_ptr(), v.data_ptr(), out.data_ptr(), B, r, d)

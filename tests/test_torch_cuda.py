@@ -90,6 +90,43 @@ def test_cuda_fused_all_sentinel_and_noise(cuda):
     assert bool((kv[2] == NEG_INF).all()) and not bool(torch.isnan(kz).any())
 
 
+@pytest.mark.parametrize("d", [37, 500, 2560])
+@pytest.mark.parametrize("r", [1, 100, 1000])
+@pytest.mark.parametrize("B", [1, 4, 130])
+def test_cuda_cluster_route_matches_plain(cuda, B, r, d):
+    """One cluster of blocks per 8 rows, one warp per cluster t: routes
+    equal the plain argmax except where the plain top-2 scores lie within
+    1e-5 relative (float32 sums in another order)."""
+    g = torch.Generator().manual_seed(B * r + d)
+    h = torch.randn((B, d), generator=g).to(cuda)
+    v = torch.randn((r, d), generator=g).to(cuda)
+    ops.reset_launches()
+    got, want = cluster_route(h, v), cluster_route_plain(h, v)
+    assert ops.LAUNCHES["cluster_route"] == 1
+    scores = h @ v.T
+    s_got = scores.gather(1, got.long()[:, None])[:, 0]
+    s_want = scores.gather(1, want.long()[:, None])[:, 0]
+    diff = got != want
+    rel = (s_got - s_want).abs() / s_want.abs().clamp_min(1e-30)
+    assert bool((rel[diff] < 1e-5).all()), (int(diff.sum()), rel[diff])
+    assert bool(((got >= 0) & (got < r)).all())
+
+
+@pytest.mark.parametrize("B", [1, 4, 130])
+def test_cuda_cluster_route_tie_across_blocks(cuda, B):
+    """Two clusters with equal (exact) scores in different blocks of the
+    thread block cluster (t = 3 in block 0, t = 50 and t = 99 in later
+    ones): the first index wins, as jnp.argmax."""
+    g = torch.Generator().manual_seed(B)
+    d, r = 500, 100
+    v = torch.round(torch.randn((r, d), generator=g) * 2) / 2
+    v[3] = v[50] = v[99] = 4.0
+    h = torch.round(torch.rand((B, d), generator=g) * 3) * 0.5 + 0.5
+    h, v = h.to(cuda), v.to(cuda)
+    assert bool((cluster_route_plain(h, v) == 3).all())
+    assert bool((cluster_route(h, v) == 3).all())
+
+
 def test_cuda_wrappers_refuse_mixed_devices(cuda):
     Wb, bb, h, ids, v = _inputs(cuda, "normal", L=300, d=16, K=2, B=3)
     with pytest.raises(ValueError, match="expected cuda"):
@@ -142,6 +179,10 @@ def test_cuda_engine_fused_and_unfused_agree(cuda):
     (1, 1, 256, 4, 64, 2, 128),       # mamba2's N = 128 (B, C do not fit whole)
     (3, 1, 7, 6, 8, 2, 16),           # a short, odd chunk
     (1, 2, 100, 2, 72, 1, 20),        # ragged tiles in every dimension
+    (2, 1, 1, 80, 64, 1, 128),        # Q = 1: one row, a one-row state
+    (1, 2, 65, 80, 64, 1, 128),       # Q = 65: a one-row second t tile
+    (1, 2, 256, 80, 64, 1, 128),      # zamba2's heads at mamba2's N
+    (1, 1, 70, 3, 10, 3, 6),          # P, N not multiples of 4: 4-byte copies
 ])
 def test_cuda_ssd_intra_matches_plain(cuda, B, nc, Q, H, P, G, N):
     from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain

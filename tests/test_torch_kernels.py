@@ -244,6 +244,38 @@ def test_fused_topk_rejects_k_past_the_candidates():
                             k=2 * V_BLK + 1)
 
 
+def test_negative_block_id_is_a_sentinel():
+    """A recorded divergence (ROADMAP Queue 3): the port treats a block id
+    of -1 exactly as a sentinel >= n_blk. screened_logits reads tile 0 for
+    it and the composition masks it (NEG_INF, sentinel word id); the fused
+    path skips it (sentinel id, no mass in logZ). The reference would read
+    it as a valid block with a negative word id."""
+    fx = _fixture(5, 1500, 16, 1, 4, 3)
+    _, (tw, tb) = _packed(fx)
+    n_blk, h = fx["n_blk"], _t(fx["h"])
+    neg = np.array([[0, -1, 2, -1], [-1, -1, -1, -1], [3, 1, -1, 4]], np.int32)
+    sent = np.where(neg < 0, n_blk, neg).astype(np.int32)
+    raw_neg = screened_logits(tw, tb, h, _t(neg))
+    np.testing.assert_array_equal(raw_neg.numpy(),
+                                  screened_logits(tw, tb, h, _t(sent)).numpy())
+    np.testing.assert_array_equal(raw_neg.numpy()[0, 1], raw_neg.numpy()[0, 0])
+    for k in (1, 5):
+        got = fused_screened_topk(tw, tb, h, _t(neg), k=k)
+        want = fused_screened_topk(tw, tb, h, _t(sent), k=k)
+        for g_, w_ in zip(got, want):
+            np.testing.assert_array_equal(g_.numpy(), w_.numpy())
+        assert np.all(got[0].numpy()[1] == n_blk * V_BLK)
+        assert np.all(np.isneginf(got[2].numpy()[1]))
+    # routed through the composition: every row lands on the one cluster,
+    # whose slots hold -1
+    v, cand = _t(fx["v"]), _t(neg[2:3])
+    logits, words = ops.screened_candidate_logits(tw, tb, v, cand, h)
+    dead = np.repeat(neg[2] < 0, V_BLK)
+    assert np.all(logits.numpy()[:, dead] == np.float32(NEG_INF))
+    assert np.all(words.numpy()[:, dead] == n_blk * V_BLK)
+    assert np.all(logits.numpy()[:, ~dead] > NEG_INF)
+
+
 def test_subset_softmax_topk_ref_matches():
     from repro.kernels.ref import subset_softmax_topk_ref as j_ref
     rng = np.random.default_rng(2)
