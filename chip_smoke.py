@@ -22,13 +22,25 @@ Phases, one line (or a few) each:
               must be equal except where the plain scores differ by less
               than 1e-5 relative (counted and printed); values and logZ
               agree within rtol = atol = 1e-5; the fused and unfused paths
-              are bit-identical on ids and values;
+              are bit-identical on ids and values. Then the fused kernel's
+              split design (blocks per row, slot and part of the tile,
+              merged by each row's last block) over k in {1, 5, 128, 129,
+              130} x K in {1, 3, 16, 200} x B in {1, 4, 130} and k = K*128
+              at K = 3, with sentinels mid-row and an all-sentinel row:
+              fused == unfused bit for bit at d = 500 and 2560; a tie
+              across blocks (slots and parts) going to the lowest
+              position; noise; two calls bit-identical in ids, vals and
+              logZ;
   4. timing   CUDA-event median times with a cold L2 of each kernel, its
               plain version and, where one PyTorch call computes the same
               function, that call, timed in turns (library, kernel, plain,
               plain, kernel, library); beside each, its bound (bytes over
               3.35 TB/s or float32 flops over 67 TFLOP/s, the larger); the
-              L2S kernels at d = 500 and at zamba2's d = 2560;
+              L2S kernels at d = 500 and at zamba2's d = 2560; the fused
+              kernel also beside the unfused composition (screened_logits
+              + torch.where + stable top-k + logsumexp, "unfused_ms"), and
+              at B = 4, K = 16, k = 1 with each tile cut into P = 1, 2, 4
+              and 8 parts;
   5. e2e      full-width nmt-deen-lstm (random weights from a seeded
               torch.Generator) on DecodeEngine(device="cuda"): greedy
               4 prompts × 16 tokens through exact and screened-cuda (fused
@@ -43,9 +55,10 @@ Phases, one line (or a few) each:
               short odd one (Q = 7, G = 2): max |kernel - plain| / max |plain|
               of y and of S, each <= 1e-5; the KV-cache slot update against
               its plain version, bit for bit, float32 and bfloat16, slots
-              0, 127, S/2, S-1, S+5 and per-row slots; both kernels timed
-              like phase 4 (the cache update beside the one PyTorch call
-              cache[rows, slot] = upd);
+              0, 127, S/2, S-1, S+5 and per-row slots, for one cache and
+              for the K and V pair written in one launch; both kernels
+              timed like phase 4 (the pair launch beside two single
+              launches and beside cache[rows, slot] = upd done twice);
   7. hybrid   full-width zamba2-2.7b in float32 (2.3 B parameters drawn on
               the card from a seeded CUDA generator) on DecodeEngine(
               device="cuda", max_len=640): greedy 4 prompts x 512 tokens
@@ -55,14 +68,18 @@ Phases, one line (or a few) each:
               exact's except after a step whose exact top-2 gap is below
               1e-4. Counters are reset just before and read just after:
               ssd_intra must launch 54 times per prefill and the cache
-              update more than 0. Then a self-check: the hidden states of
+              update 9 times (once per shared-attention application) per
+              decode step. Then a self-check: the hidden states of
               prefill over 512 tokens and 4 decode steps equal one prefill
               over 516 (max relative error <= 1e-3), and a profile of one
-              greedy screened-cuda decode;
+              greedy screened-cuda decode (each profile also gives the fused
+              kernel's share of device time);
   8. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on both;
-              the route and the fused kernel also "at_zamba2_width") and,
-              last, {"ok": true, "device": ...}.
+              the route and the fused kernel also "at_zamba2_width"; the
+              fused kernel "unfused_ms"; the cache update's times are the K
+              and V pair's, with "single_ms" of one single-cache launch)
+              and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -142,6 +159,7 @@ class Timer:
         self.torch = torch
         self.reps = reps
         self.flush = torch.empty(256 * 2 ** 20 // 4, device="cuda")
+        self.n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def __call__(self, fn):
         torch = self.torch
@@ -174,6 +192,14 @@ def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_share(kern, busy_ms):
+    """The fused top-k kernel's device time in a profile, and its share."""
+    ev = [e for e in kern if "fused_topk_kernel" in e.key]
+    ms = sum(e.self_device_time_total for e in ev) / 1e3
+    return (f"fused_topk_kernel {ms:.3f} ms x{sum(e.count for e in ev)} "
+            f"({ms / busy_ms:.1%} of device time)")
 
 
 # -- phases ----------------------------------------------------------------------
@@ -334,10 +360,164 @@ def phase_parity(torch, np, K_):
     return err
 
 
+def phase_fused_split(torch, np):
+    """The fused kernel's split design on the card: parity over the k, K, B
+    grid, fused == unfused bit for bit at d = 500 and 2560, a tie across
+    blocks, mid-row sentinels, an all-sentinel row, noise, and run-to-run
+    determinism. → max abs err against the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_topk import (fused_parts,
+                                                fused_screened_topk,
+                                                fused_screened_topk_plain)
+    from repro_torch.kernels.ref import NEG_INF, topk_desc
+    from repro_torch.kernels.screen import screened_logits
+    err = 0.0
+    near = 0
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def one(Wb, bb, h, ids, k, noise=None):
+        """One call against the plain version, and (without noise) against
+        the masked unfused kernel logits + stable top-k, bit for bit."""
+        nonlocal err, near
+        n_blk = Wb.shape[0]
+        B = h.shape[0]
+        fi, fv, fz = fused_screened_topk(Wb, bb, h, ids, k, noise)
+        pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k, noise)
+        torch.testing.assert_close(fv, pv, **TOL)
+        fin = torch.isfinite(pz)
+        check(torch.equal(fin, torch.isfinite(fz)) and
+              bool(torch.isneginf(fz[~fin]).all()), "fused split: logZ not "
+              "finite where the plain one is, or not -inf elsewhere")
+        torch.testing.assert_close(fz[fin], pz[fin], **TOL)
+        diff = fi != pi
+        if bool(diff.any()):
+            rel = (fv[diff] - pv[diff]).abs() / pv[diff].abs().clamp_min(1e-30)
+            check(bool((rel < 1e-5).all()), "fused split: ids differ beyond "
+                  "near-ties")
+            near += int(diff.sum())
+        err = max(err, float((fv - pv).abs().max()),
+                  float((fz[fin] - pz[fin]).abs().max()) if bool(fin.any())
+                  else 0.0)
+        if noise is None:
+            raw = screened_logits(Wb, bb, h, ids)
+            valid = ((ids >= 0) & (ids < n_blk))[..., None]
+            row = torch.where(valid, raw, NEG_INF).reshape(B, -1)
+            lane = torch.arange(V_BLK, device="cuda", dtype=torch.int32)
+            word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                               n_blk * V_BLK).reshape(B, -1)
+            uv, upos = topk_desc(row, k)
+            check(torch.equal(fv, uv) and
+                  torch.equal(fi, torch.gather(word, 1, upos)),
+                  f"fused split != unfused (B={B}, K={ids.shape[1]}, k={k}, "
+                  f"d={h.shape[1]})")
+        return fi, fv, fz
+
+    def sentinels(ids, n_blk):
+        K = ids.shape[1]
+        ids[:, K // 2] = n_blk                    # mid-row sentinels
+        if K > 2:
+            ids[::2, 1] = -1
+        if ids.shape[0] > 1:
+            ids[-1] = n_blk                       # an all-sentinel row
+        return ids
+
+    W, b = make_head(torch, 21)
+    Wb, bb = ops.pack_head_blocks(W, b)
+    n_blk = Wb.shape[0]
+    g = torch.Generator().manual_seed(22)
+    grid = [(B, K_, k) for B in (1, 4, 130) for K_ in (1, 3, 16, 200)
+            for k in (1, 5, 128, 129, 130) if k <= K_ * V_BLK]
+    grid += [(B, 3, 3 * V_BLK) for B in (1, 4, 130)]
+    parts = set()
+    for B, K_, k in grid:
+        h = torch.randn((B, D), generator=g).cuda()
+        ids = torch.randint(0, n_blk, (B, K_), generator=g,
+                            dtype=torch.int32).cuda()
+        fi, fv, fz = one(Wb, bb, h, sentinels(ids, n_blk), k)
+        parts.add(fused_parts(B, K_, n_sm))
+        if B > 1:
+            check(bool((fi[-1] == n_blk * V_BLK).all()) and
+                  bool((fv[-1] == NEG_INF).all()) and
+                  bool(torch.isneginf(fz[-1])),
+                  f"all-sentinel row (B={B}, K={K_}, k={k}): wrong ids, vals "
+                  f"or logZ")
+    # noise, and two calls bit-identical in ids, vals and logZ
+    for B, k in ((4, 1), (4, 5), (130, 130)):
+        h = torch.randn((B, D), generator=g).cuda()
+        ids = sentinels(torch.randint(0, n_blk, (B, K), generator=g,
+                                      dtype=torch.int32).cuda(), n_blk)
+        gn = torch.Generator(device="cuda").manual_seed(B + k)
+        noise = ops.gumbel_noise((B, K, V_BLK), gn, "cuda")
+        for nz in (None, noise):
+            a = one(Wb, bb, h, ids, k, nz)
+            b_ = fused_screened_topk(Wb, bb, h, ids, k, nz)
+            check(all(torch.equal(x, y) for x, y in zip(a, b_)),
+                  f"fused split: two calls differ (B={B}, k={k})")
+    # a tie across blocks: equal maxima at slot 2 row 120, slot 5 row 64 and
+    # slot 9 row 3 (three parts, three slots); W = 0, so logits are biases
+    Wt = torch.zeros((40 * V_BLK, 32), device="cuda")
+    bt = torch.rand((40 * V_BLK,), generator=g).cuda()
+    Wtb, btb = ops.pack_head_blocks(Wt, bt)
+    tie_ids = torch.randperm(40, generator=g)[:K].to(torch.int32)
+    tied = [(2, 120), (5, 64), (9, 3)]
+    for j, lane in tied:
+        btb[int(tie_ids[j]), lane] = 5.0
+    want = [int(tie_ids[j]) * V_BLK + lane for j, lane in tied]
+    for B in (1, 4):
+        h = torch.randn((B, 32), generator=g).cuda()
+        ids = tie_ids.repeat(B, 1).contiguous().cuda()
+        for k in (1, 3):
+            fi, fv, _ = one(Wtb, btb, h, ids, k)
+            check(fi.tolist() == [want[:k]] * B and bool((fv == 5.0).all()),
+                  f"fused split: tie across blocks gave {fi.tolist()}, "
+                  f"want {want[:k]}")
+    del W, b, Wb, bb
+    # fused == unfused at zamba2-2.7b's width
+    W, b = make_head(torch, 23, vocab=ZV, d=ZD)
+    Wb, bb = ops.pack_head_blocks(W, b)
+    n_blk = Wb.shape[0]
+    for B, k in ((1, 1), (4, 1), (4, 5), (130, 130)):
+        h = torch.randn((B, ZD), generator=g).cuda()
+        ids = sentinels(torch.randint(0, n_blk, (B, K), generator=g,
+                                      dtype=torch.int32).cuda(), n_blk)
+        one(Wb, bb, h, ids, k)
+    torch.cuda.synchronize()
+    from repro_torch.kernels import fused_topk
+    check(all(int(c.abs().sum()) == 0 for c in fused_topk._COUNTERS.values()),
+          "fused split: a merge counter was left non-zero")
+    log(f"[parity] fused split (parts per tile {sorted(parts)}): {len(grid)} "
+        f"(B, K, k) cases at d={D} with mid-row and all-sentinel rows, "
+        f"fused == unfused bit for bit at d={D} and d={ZD}, tie across slots "
+        f"and parts -> lowest position, noise, two calls bit-identical in "
+        f"ids, vals and logZ, counters left zero; near-tie id positions vs "
+        f"plain: {near}; max abs err {err:.3g}")
+    return err
+
+
+def unfused_topk(Wb, bb, h, block_ids, k):
+    """The unfused composition the fused kernel replaces: the gather kernel,
+    the sentinel mask, a stable top-k and a logsumexp."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF, topk_desc
+    from repro_torch.kernels.screen import screened_logits
+    n_blk = Wb.shape[0]
+    B = h.shape[0]
+    raw = screened_logits(Wb, bb, h, block_ids)
+    valid = ((block_ids >= 0) & (block_ids < n_blk))[..., None]
+    logz = torch.logsumexp(torch.where(valid, raw, -torch.inf).reshape(B, -1),
+                           dim=-1)
+    vals, pos = topk_desc(torch.where(valid, raw, NEG_INF).reshape(B, -1), k)
+    lane = torch.arange(V_BLK, dtype=torch.int32, device=h.device)
+    word = torch.where(valid, block_ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    return torch.gather(word, 1, pos), vals, logz
+
+
 def l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, seed):
     """Timing rows of the three L2S kernels at one decode shape: each
     kernel in turns with its plain version (and, for the route, the one
     PyTorch call), and its bound at these inputs."""
+    from repro_torch.kernels import fused_topk
     from repro_torch.kernels.fused_topk import (fused_screened_topk,
                                                 fused_screened_topk_plain)
     from repro_torch.kernels.route import cluster_route, cluster_route_plain
@@ -368,16 +548,29 @@ def l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, seed):
     t = timer.turns({"ms": lambda: fused_screened_topk(Wb, bb, h, block_ids,
                                                        k),
                      "plain_ms": lambda: fused_screened_topk_plain(
-                         Wb, bb, h, block_ids, k)})
+                         Wb, bb, h, block_ids, k),
+                     "unfused_ms": lambda: unfused_topk(Wb, bb, h, block_ids,
+                                                        k)})
     rows["fused_screened_topk"] = dict(
         t, library_ms=None,
         bound=bound_ms(valid_u * tile_bytes + 4 * (B * d + B * Ks) +
                        4 * (2 * B * k + B), 2 * n_valid * V_BLK * d))
+    if (B, k, Ks) == (4, 1, K):
+        # the wrapper picks P parts per tile; time each P in turns
+        sweep = timer.turns({f"P={p}": (lambda p=p: fused_topk._launch(
+            Wb, bb, h, block_ids, k, None, p)) for p in (1, 2, 4, 8)})
+        log(f"[timing] d={d} B={B} K={Ks} k={k} fused_screened_topk by parts "
+            f"per tile (the wrapper picks P="
+            f"{fused_topk.fused_parts(B, Ks, timer.n_sm)}): " +
+            ", ".join(f"{n} {x:.5f} ms" for n, x in sweep.items()))
     for name, row in rows.items():
         lib = row["library_ms"]
+        extra = (f", unfused {row['unfused_ms']:.5f} ms (ratio "
+                 f"{row['unfused_ms'] / row['ms']:.2f})"
+                 if "unfused_ms" in row else "")
         log(f"[timing] d={d} B={B} K={Ks} k={k} {name}: {row['ms']:.5f} ms, "
             f"plain {row['plain_ms']:.5f} ms, library "
-            f"{'null' if lib is None else f'{lib:.5f}'} ms, bound "
+            f"{'null' if lib is None else f'{lib:.5f}'} ms{extra}, bound "
             f"{row['bound'][0]:.7f} ms ({row['bound'][1]}); distinct tiles "
             f"{valid_u}")
     return rows
@@ -511,7 +704,8 @@ def phase_e2e(torch, np):
     if busy_ms > 0:
         log(f"[e2e] profile, greedy 4x{new} screened-cuda: device busy "
             f"{busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall (idle "
-            f"share {1 - busy_ms / (t_scr * 1e3):.3f}); top kernels: " +
+            f"share {1 - busy_ms / (t_scr * 1e3):.3f}); "
+            f"{fused_share(kern, busy_ms)}; top kernels: " +
             "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                       f" x{e.count}" for e in top))
     else:
@@ -558,7 +752,8 @@ def ssd_bound(shape):
 def phase_ssm_kernels(torch):
     """SSD and cache-update kernels vs their plain versions on the card,
     then timed. → ({kernel: max abs err}, {kernel: timing dict})."""
-    from repro_torch.kernels.cache_update import (cache_slot_update,
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update,
                                                   cache_slot_update_plain)
     from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
     err = {"ssd_intra": 0.0, "cache_slot_update": 0.0}
@@ -583,14 +778,24 @@ def phase_ssm_kernels(torch):
     for dtype in (torch.float32, torch.bfloat16):
         cache = torch.randn(CACHE_SHAPE, generator=g).to("cuda", dtype)
         upd = torch.randn((B, KV, hd), generator=g).to("cuda", dtype)
+        cache_v = torch.randn(CACHE_SHAPE, generator=g).to("cuda", dtype)
+        upd_v = torch.randn((B, KV, hd), generator=g).to("cuda", dtype)
         for slot in slots:
             got = cache_slot_update(cache.clone(), upd, slot)
             want = cache_slot_update_plain(cache.clone(), upd, slot)
             check(torch.equal(got, want),
                   f"cache_slot_update {dtype} slot {slot}: not bit-identical")
+            gk, gv = cache_kv_update(cache.clone(), upd, cache_v.clone(),
+                                     upd_v, slot)
+            check(torch.equal(gk, want) and
+                  torch.equal(gv, cache_slot_update_plain(cache_v.clone(),
+                                                          upd_v, slot)),
+                  f"cache_kv_update {dtype} slot {slot}: not bit-identical")
     log(f"[ssm] cache_slot_update (B, S, KV, hd) = {CACHE_SHAPE}: bit-identical "
         f"to its plain version, float32 and bfloat16, slots 0, 127, S/2, S-1, "
-        f"S+5 and per-row [0, 127, S+5, -1]")
+        f"S+5 and per-row [0, 127, S+5, -1]; the K and V pair in one launch "
+        f"(cache_kv_update) bit-identical to two plain writes at the same "
+        f"slots")
 
     timer = Timer(torch)
     out = {}
@@ -606,23 +811,33 @@ def phase_ssm_kernels(torch):
             f"{ssd_bound(shape)[1]})")
         if label == "zamba2":
             out["ssd_intra"] = t
-    cache = torch.randn(CACHE_SHAPE, generator=g).cuda()
-    upd = torch.randn((B, KV, hd), generator=g).cuda()
+    ck, cv = (torch.randn(CACHE_SHAPE, generator=g).cuda() for _ in range(2))
+    uk, uv = (torch.randn((B, KV, hd), generator=g).cuda() for _ in range(2))
     rows = torch.arange(B, device="cuda")
     slot = ZT + 5
 
     def library():
-        cache[rows, slot] = upd
+        ck[rows, slot] = uk
+        cv[rows, slot] = uv
+
+    def singles():
+        cache_slot_update(ck, uk, slot)
+        cache_slot_update(cv, uv, slot)
+
+    def plain():
+        cache_slot_update_plain(ck, uk, slot)
+        cache_slot_update_plain(cv, uv, slot)
 
     t = timer.turns({"library_ms": library,
-                     "ms": lambda: cache_slot_update(cache, upd, slot),
-                     "plain_ms": lambda: cache_slot_update_plain(cache, upd,
-                                                                 slot)})
-    t["bound"] = bound_ms(2 * B * KV * hd * 4, 0)
-    log(f"[timing] cache_slot_update {CACHE_SHAPE} f32: {t['ms']:.4f} ms, "
-        f"plain {t['plain_ms']:.4f} ms, library (cache[rows, slot] = upd) "
-        f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.7f} ms "
-        f"({t['bound'][1]})")
+                     "ms": lambda: cache_kv_update(ck, uk, cv, uv, slot),
+                     "two_single_ms": singles, "plain_ms": plain,
+                     "single_ms": lambda: cache_slot_update(ck, uk, slot)})
+    t["bound"] = bound_ms(2 * 2 * B * KV * hd * 4, 0)
+    log(f"[timing] cache_kv_update (K and V) {CACHE_SHAPE} f32: {t['ms']:.5f} "
+        f"ms, two single launches {t['two_single_ms']:.5f} ms, one single "
+        f"launch {t['single_ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+        f"library (cache[rows, slot] = upd, twice) {t['library_ms']:.5f} ms, "
+        f"bound {t['bound'][0]:.7f} ms ({t['bound'][1]})")
     out["cache_slot_update"] = t
     return err, out
 
@@ -708,6 +923,12 @@ def phase_e2e_hybrid(torch, np):
           f"{cfg.num_layers} x {prefills} prefills")
     check(all(n > 0 for n in launches.values()),
           f"a kernel never launched on the hybrid path: {launches}")
+    # K and V in one launch, once per shared-attention application per
+    # decode step (ZNEW - 1 steps after each prefill)
+    n_attn = cfg.num_layers // cfg.hybrid_shared_period
+    check(launches["cache_slot_update"] == n_attn * prefills * (ZNEW - 1),
+          f"cache_slot_update launched {launches['cache_slot_update']} times, "
+          f"expected {n_attn} x {prefills * (ZNEW - 1)} decode steps")
 
     # full cover: screened == exact up to the first near-tie step per row
     seq = torch.as_tensor(np.concatenate([prompts, f_exact.tokens[:, :-1]], 1),
@@ -759,7 +980,8 @@ def phase_e2e_hybrid(torch, np):
         log(f"[hybrid] profile, greedy {ZB}x{ZT}+{ZNEW} screened-cuda: device "
             f"busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall "
             f"(idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
-            f"{sum(e.count for e in kern)} device kernels; top kernels: " +
+            f"{sum(e.count for e in kern)} device kernels; "
+            f"{fused_share(kern, busy_ms)}; top kernels: " +
             "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                       f" x{e.count}" for e in top))
     else:
@@ -799,6 +1021,8 @@ def main() -> int:
     kind, _ = phase_device(torch)
     phase_build(ops)
     err = phase_parity(torch, np, K)
+    err["fused_screened_topk"] = max(err["fused_screened_topk"],
+                                     phase_fused_split(torch, np))
     times, wide = phase_timing(torch, np)
     lstm = phase_e2e(torch, np)
     ssm_err, ssm_times = phase_ssm_kernels(torch)
@@ -829,12 +1053,17 @@ def main() -> int:
                         "library_ms": t["library_ms"],
                         "launches_by_path": {"nmt-deen-lstm": lstm[name],
                                              "zamba2-2.7b": hybrid[name]}})
+        for key in ("unfused_ms", "single_ms", "two_single_ms"):
+            if key in t:
+                kernels[-1][key] = t[key]
         if name in wide:
             w = wide[name]
             kernels[-1]["at_zamba2_width"] = {
                 "d": ZD, "ms": w["ms"], "plain_ms": w["plain_ms"],
                 "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
                 "library_ms": w["library_ms"]}
+            if "unfused_ms" in w:
+                kernels[-1]["at_zamba2_width"]["unfused_ms"] = w["unfused_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,8 +15,9 @@
 // B = 8 rows x K = 16 slots puts a block on almost every SM. The block stages
 // h[i] in shared memory; a tile is too large to stage (more than the 227 KB a
 // block may have), so l2s_tile_logits streams it row by row, one warp per row,
-// over d in float4 chunks with the ragged end masked. Not yet done: several
-// rows per block, TMA / cp.async staging of the tile in chunks of d.
+// over d in float4 chunks with the ragged end masked, each lane with 8
+// float4 loads in flight. Not yet done: a grid that cuts tiles into parts, as
+// fused_topk.cu does, for decode batches with few (row, slot) pairs.
 #include "l2s_common.cuh"
 
 __global__ void __launch_bounds__(L2S_THREADS)
@@ -32,7 +33,7 @@ screened_logits_kernel(const float* __restrict__ W, const float* __restrict__ b,
   l2s_stage(h + (size_t)i * d, h_s, d);
   __syncthreads();
   l2s_tile_logits(W + (size_t)blk * L2S_V_BLK * d, b + (size_t)blk * L2S_V_BLK, h_s,
-                  d, out + ((size_t)i * K + j) * L2S_V_BLK);
+                  d, out + ((size_t)i * K + j) * L2S_V_BLK, L2S_V_BLK);
 }
 
 // W (n_blk, 128, d) f32, b (n_blk, 128) f32, h (B, d) f32, ids (B, K) int32,

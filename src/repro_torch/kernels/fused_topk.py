@@ -8,15 +8,18 @@ lane-minor) position — ``jax.lax.top_k``'s order over the unfused row — and
 an online log Z over the valid slots. With ``noise`` (B, K, V_BLK) the noise
 is added to the valid logits after log Z (Gumbel-max sampling).
 
-On a CUDA tensor ``fused_screened_topk`` launches ``csrc/fused_topk.cu``
-(one block per row loops over the K slots); on a CPU tensor it runs
+On a CUDA tensor ``fused_screened_topk`` launches ``csrc/fused_topk.cu``:
+one block per (row, slot, part of the tile) writes its part's sorted top list
+and (max, sum-exp) to scratch, and the last block of each row to finish
+merges the row in the same launch. On a CPU tensor it runs
 ``fused_screened_topk_plain``. Both need 1 ≤ k ≤ K·V_BLK: the unfused
 reference's ``top_k`` refuses a larger k, and for one the Pallas kernel pads
 with −inf values whose ids repeat real candidates.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -69,13 +72,57 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
     if dev.type == "cpu":
         return fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k,
                                          noise)
+    return _launch(W_blocks, b_blocks, h, block_ids, k, noise,
+                   fused_parts(B, K, _sm_count(dev)))
+
+
+def fused_parts(B: int, K: int, n_sm: int) -> int:
+    """Parts P each candidate tile is cut into: the fewest of 1, 2, 4, 8
+    whose grid of B·K·P blocks puts two blocks on every SM (8 if none)."""
+    for parts in (1, 2, 4, 8):
+        if B * K * parts >= 2 * n_sm:
+            return parts
+    return 8
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# (device, stream) → per-row merge counters, zero between launches
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, B: int) -> torch.Tensor:
+    """The kernel's per-row counters for the current stream of ``dev``:
+    allocated zero, left zero by every launch, never shared by two
+    streams."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < B:
+        buf = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def _launch(W_blocks, b_blocks, h, block_ids, k: int, noise, parts: int):
+    """One launch of the kernel with each tile cut into ``parts`` parts."""
+    from repro_torch.kernels import ops
+    dev = h.device
+    n_blk, v_blk, d = W_blocks.shape
+    B, K = block_ids.shape
+    kk = min(k, v_blk // parts)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     logz = torch.empty((B,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B * K * parts * (2 * kk + 2),), dtype=torch.float32,
+                          device=dev)
     ops.launch("fused_screened_topk", "fused_topk", "l2s_fused_screened_topk",
                dev, W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
                block_ids.data_ptr(),
                None if noise is None else noise.data_ptr(),
                ids.data_ptr(), vals.data_ptr(), logz.data_ptr(),
-               B, K, n_blk, d, k)
+               scratch.data_ptr(), _counters(dev, B).data_ptr(),
+               B, K, n_blk, d, k, parts)
     return ids, vals, logz

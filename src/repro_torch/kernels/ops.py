@@ -4,8 +4,9 @@ per-kernel launch counters.
 Two further kernels sit on the SSM / hybrid path and need no composition:
 ``kernels/ssd.py::ssd_intra`` (``csrc/ssd.cu``, the SSD intra-chunk dual
 form inside ``layers/ssm.py::ssd_chunked``) and
-``kernels/cache_update.py::cache_slot_update`` (``csrc/cache_update.cu``, the
-KV-cache write of ``layers/attention.py::attn_decode``).
+``kernels/cache_update.py::cache_slot_update`` (``csrc/cache_update.cu``; its
+pair form ``cache_kv_update`` is the K and V cache write of
+``layers/attention.py::attn_decode``, one launch for both).
 
 Two decode hot paths, twins of ``repro/kernels/ops.py``:
 
@@ -13,10 +14,11 @@ Two decode hot paths, twins of ``repro/kernels/ops.py``:
   gather-matmul (``screened_logits``) → sentinel masking → stable top-k over
   the (B, K·V_BLK) candidate row, which round-trips through device memory.
 
-``screened_fused_topk`` — the FUSED pipeline: route → one block per query
-  row reduces its candidates on chip (``fused_screened_topk``); only (B, k)
-  ids/vals and (B,) logZ reach device memory. ids/vals are bit-identical to
-  the unfused path. ``screened_fused_sample`` rides the same kernel with
+``screened_fused_topk`` — the FUSED pipeline: route → one launch reduces
+  each row's candidates on chip (``fused_screened_topk``: blocks per (row,
+  slot, part of the tile), merged by the row's last block); only short
+  per-part lists, (B, k) ids/vals and (B,) logZ reach device memory.
+  ids/vals are bit-identical to the unfused path. ``screened_fused_sample`` rides the same kernel with
   temperature-scaled Gumbel noise (Gumbel-max ≡ categorical sampling).
 
 Kernels. Each ``csrc/*.cu`` (route, screen, fused_topk, ssd, cache_update)
@@ -61,9 +63,10 @@ _SIGNATURES = {
     "screen": {"l2s_screened_logits":
                ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
     "fused_topk": {"l2s_fused_screened_topk":
-                   ([_P] * 8 + [_I] * 5 + [_P], _I)},
+                   ([_P] * 10 + [_I] * 6 + [_P], _I)},
     "ssd": {"l2s_ssd_intra": ([_P] * 6 + [_I] * 6 + [_P], _I)},
-    "cache_update": {"l2s_cache_slot_update": ([_P] * 3 + [_I] * 4 + [_P], _I)},
+    "cache_update": {"l2s_cache_slot_update": ([_P] * 3 + [_I] * 4 + [_P], _I),
+                     "l2s_cache_kv_update": ([_P] * 5 + [_I] * 4 + [_P], _I)},
 }
 
 LAUNCHES: Dict[str, int] = {"cluster_route": 0, "screened_logits": 0,

@@ -9,8 +9,9 @@ Conventions:
                                       write time (absolute positions).
 
 The projections and ``_sdpa`` are plain PyTorch (the JAX package has no
-attention kernel). The decode step's cache write goes through
-``kernels/cache_update.py::cache_slot_update`` — the CUDA kernel on the card.
+attention kernel). The decode step's K and V cache writes go through
+``kernels/cache_update.py::cache_kv_update`` — one launch of the CUDA kernel
+on the card.
 
 Not ported yet (each raises NotImplementedError, ROADMAP.md Queue 1): the
 vector-``pos`` decode branch, ring-buffer (sliding-window) caches, the
@@ -24,7 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.cache_update import cache_slot_update
+from repro_torch.kernels.cache_update import cache_kv_update
 from repro_torch.layers.initializers import dense_init
 from repro_torch.layers.rope import apply_rope
 
@@ -153,7 +154,7 @@ def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
     """One-token decode. x1: (B, 1, d); pos: scalar int absolute position.
 
     Writes this token's K/V at slot ``pos`` of every row through
-    ``cache_slot_update`` — IN PLACE: ``cache`` itself is updated, where the
+    ``cache_kv_update`` — IN PLACE: ``cache`` itself is updated, where the
     reference returns a new cache and leaves its argument as it was. A
     caller that needs the old cache must copy it first. A slot past the end
     is clamped to S − 1, as the reference's ``dynamic_update_slice`` does.
@@ -170,10 +171,9 @@ def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
     B = x1.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x1.device)
     q, k, v = _project_qkv(params, x1, cfg, positions)
-    ck = cache_slot_update(cache["k"], k[:, 0].to(cache["k"].dtype).contiguous(),
-                           pos)
-    cv = cache_slot_update(cache["v"], v[:, 0].to(cache["v"].dtype).contiguous(),
-                           pos)
+    dtype = cache["k"].dtype
+    ck, cv = cache_kv_update(cache["k"], k[:, 0].to(dtype).contiguous(),
+                             cache["v"], v[:, 0].to(dtype).contiguous(), pos)
     valid = torch.arange(S, device=x1.device) <= pos
     mask = valid[None, None, :].expand(B, 1, S)
     out = _sdpa(q, ck, cv, mask, cfg)

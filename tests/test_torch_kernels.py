@@ -8,7 +8,9 @@ hold that version to the reference:
   * on the tie and all-equal fixtures every product is exact in float32, so
     values are exactly equal too;
   * on normal fixtures values and logZ agree within rtol = atol = 1e-5 (the
-    CPU sums in another order than XLA).
+    CPU sums in another order than XLA);
+  * ``cache_kv_update`` (the K and V cache write of attention decode) equal,
+    bit for bit, to the Pallas ``cache_slot_update`` applied to K and to V.
 
 tests/test_torch_cuda.py holds each CUDA kernel against its plain version
 on the card.
@@ -20,11 +22,13 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.cache_update import cache_slot_update as j_cache_update
 from repro.kernels.fused_topk import fused_screened_topk as j_fused
 from repro.kernels.route import cluster_route as j_route
 from repro.kernels.screen import screened_logits as j_screen
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_topk import fused_screened_topk
+from repro_torch.kernels.cache_update import cache_kv_update
+from repro_torch.kernels.fused_topk import fused_parts, fused_screened_topk
 from repro_torch.kernels.ref import (NEG_INF, cluster_route_ref,
                                      screened_logits_ref,
                                      subset_softmax_topk_ref, topk_desc)
@@ -310,3 +314,57 @@ def test_wrappers_validate_inputs():
         cluster_route(h, _t(fx["v"])[:, :8].contiguous())
     assert not any(ops.LAUNCHES.values())
 
+
+
+def test_fused_parts_fill_the_card():
+    """Each candidate tile is cut into the fewest parts (1, 2, 4, 8) whose
+    B·K·P blocks put two on every SM of a 132-SM H100."""
+    assert fused_parts(4, 16, 132) == 8           # the decode step: 512 blocks
+    assert fused_parts(8, 16, 132) == 4
+    assert fused_parts(1, 1, 132) == 8            # never more than 8
+    assert fused_parts(4, 200, 132) == 1          # the full-cover screen
+    assert fused_parts(130, 16, 132) == 1
+    assert fused_parts(1, 200, 132) == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("slot", [0, 255, 261, -1],
+                         ids=["0", "S-1", "S+5", "neg"])
+def test_cache_kv_update_matches_pallas(dtype, slot):
+    """Both caches written at the same slot(s), each as the Pallas kernel
+    writes one (S = 256): a scalar slot, then per-row slots."""
+    B, S, KV, hd = 3, 256, 2, 8
+    rng = np.random.default_rng(S + slot + 7)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    caches = [jnp.asarray(rng.standard_normal((B, S, KV, hd)), jd)
+              for _ in range(2)]
+    upds = [jnp.asarray(rng.standard_normal((B, KV, hd)), jd)
+            for _ in range(2)]
+
+    def port(c):                       # bf16 goes through float32 exactly
+        return torch.from_numpy(np.array(c, np.float32)).to(td)
+
+    per_row = np.asarray([slot, 3, S + 5], np.int32)
+    for arg, slots in ((slot, [slot] * B), (torch.from_numpy(per_row), per_row)):
+        tk, tv = port(caches[0]), port(caches[1])
+        got = cache_kv_update(tk, port(upds[0]), tv, port(upds[1]), arg)
+        assert got[0] is tk and got[1] is tv      # in place
+        for g_, cache, upd in zip(got, caches, upds):
+            want = np.stack([np.asarray(j_cache_update(cache[b], upd[b],
+                                                       jnp.int32(slots[b])),
+                                        np.float32) for b in range(B)])
+            np.testing.assert_array_equal(g_.float().numpy(), want)
+    assert ops.LAUNCHES["cache_slot_update"] == 0
+
+
+def test_cache_kv_update_validates_inputs():
+    ck, cv = torch.zeros((2, 5, 2, 4)), torch.zeros((2, 5, 2, 4))
+    upd = torch.zeros((2, 2, 4))
+    with pytest.raises(ValueError, match="upd_v .* does not match"):
+        cache_kv_update(ck, upd, cv, torch.zeros((2, 2, 3)), 1)
+    with pytest.raises(ValueError, match="differs from cache_k"):
+        cache_kv_update(ck, upd, torch.zeros((2, 6, 2, 4)), upd, 1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cache_kv_update(ck, upd, cv.double(), upd.double(), 1)
+    with pytest.raises(ValueError, match="int32"):
+        cache_kv_update(ck, upd, cv, upd, torch.zeros(2, dtype=torch.int64))
