@@ -30,17 +30,33 @@ Phases, one line (or a few) each:
               fused == unfused bit for bit at d = 500 and 2560; a tie
               across blocks (slots and parts) going to the lowest
               position; noise; two calls bit-identical in ids, vals and
-              logZ;
-  4. timing   CUDA-event median times with a cold L2 of each kernel, its
-              plain version and, where one PyTorch call computes the same
-              function, that call, timed in turns (library, kernel, plain,
-              plain, kernel, library); beside each, its bound (bytes over
-              3.35 TB/s or float32 flops over 67 TFLOP/s, the larger); the
-              L2S kernels at d = 500 and at zamba2's d = 2560; the fused
-              kernel also beside the unfused composition (screened_logits
-              + torch.where + stable top-k + logsumexp, "unfused_ms"), and
-              at B = 4, K = 16, k = 1 with each tile cut into P = 1, 2, 4
-              and 8 parts;
+              logZ. Then the gather kernel's split grid (a block per row,
+              slot and part of the tile) at d in {30, 130, 500, 2560} x
+              B in {1, 4, 8, 20} with ids random, repeated in a row,
+              shared across rows, all on one cluster, sentinels mixed with
+              tile 0 plus an all-sentinel row, and a beam of 4 x 5 rows,
+              and the full cover: against
+              its plain version (rtol = atol = 1e-5), bit for bit against
+              the fused kernel's masked logits (k = K*128), the same bits
+              at P = 1, 2, 4, 8, two calls bit-identical;
+  4. timing   CUDA-event median times of each kernel, its plain version
+              and, where one PyTorch call computes the same function, that
+              call, timed in turns (library, kernel, plain, plain, kernel,
+              library), L2 flushed before each call by reading 256 MB (so
+              it holds clean lines, as a decode step finds it); beside
+              each, its bound (bytes over 3.35 TB/s or float32 flops over
+              67 TFLOP/s, the larger; the gather kernels' bytes count each
+              distinct tile once); the L2S kernels at d = 500 and at
+              zamba2's d = 2560; the fused kernel also beside the unfused
+              composition (screened_logits + torch.where + stable top-k +
+              logsumexp, "unfused_ms"); both gather kernels at B = 4,
+              K = 16, k = 1 once more under each flush in turns (reading,
+              zeroing, the earlier flush, zeroing, reading); each tile cut
+              into P = 1, 2, 4 and 8 parts for the fused kernel there, and
+              for screened_logits at every shape it is timed (P = 1 is its
+              grid before the split) and at a beam's shape (B = 20 rows in
+              4 groups of 5, one cluster each, K = 16, d = 500 and 2560,
+              timed with its bound);
   5. e2e      full-width nmt-deen-lstm (random weights from a seeded
               torch.Generator) on DecodeEngine(device="cuda"): greedy
               4 prompts × 16 tokens through exact and screened-cuda (fused
@@ -49,6 +65,9 @@ Phases, one line (or a few) each:
               tokens must equal the exact head's except after a step whose
               exact top-2 gap is below 1e-4. Launch counters are reset just
               before and read just after: every kernel must have launched;
+              a profile of the fused greedy decode; the unfused greedy and
+              top-p decodes, counted from zero, must launch screened_logits
+              once a step (profiled for its device time);
   6. ssm      the SSD intra-chunk kernel against its plain version at
               zamba2-2.7b's prefill chunk (B = 4, nc = 2, Q = 256, H = 80,
               P = N = 64, G = 1), mamba2-1.3b's (H = 64, N = 128) and a
@@ -76,9 +95,10 @@ Phases, one line (or a few) each:
               kernel's share of device time);
   8. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on both;
-              the route and the fused kernel also "at_zamba2_width"; the
-              fused kernel "unfused_ms"; the cache update's times are the K
-              and V pair's, with "single_ms" of one single-cache launch)
+              the three L2S kernels also "at_zamba2_width"; the gather
+              kernel "at_beam_shape"; the fused kernel "unfused_ms"; the
+              cache update's times are the K and V pair's, with "single_ms"
+              of one single-cache launch)
               and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
@@ -153,13 +173,27 @@ def make_screen_blocks(np, seed, n_blk, r=R, k=K, dups=False):
 class Timer:
     """Median device time of one call, L2 flushed before each: the stream
     is held by a short sleep while the host enqueues the call, so host
-    overhead does not enter the measurement."""
+    overhead does not enter the measurement.
 
-    def __init__(self, torch, reps=30):
+    The flush reads a 256 MB buffer (a sum into a preallocated scalar), so
+    the timed call finds L2 full of clean lines, as a decode step finds it
+    after the step before. ``dirty=True`` flushes by zeroing the buffer
+    instead (the earlier timer): the call then also pays for writing
+    up to 50 MB of dirty lines back to device memory."""
+
+    def __init__(self, torch, reps=30, dirty=False):
         self.torch = torch
         self.reps = reps
-        self.flush = torch.empty(256 * 2 ** 20 // 4, device="cuda")
+        self.dirty = dirty
+        self.flush = torch.zeros(256 * 2 ** 20 // 4, device="cuda")
+        self.total = torch.zeros((), device="cuda")
         self.n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def _flush(self):
+        if self.dirty:
+            self.flush.zero_()
+        else:
+            self.torch.sum(self.flush, dim=0, out=self.total)
 
     def __call__(self, fn):
         torch = self.torch
@@ -167,7 +201,7 @@ class Timer:
             fn()
         times = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            self._flush()
             torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -494,6 +528,70 @@ def phase_fused_split(torch, np):
     return err
 
 
+def phase_screen_grid(torch, np):
+    """The gather kernel's split grid on the card: each case against the
+    plain version (rtol = atol = 1e-5) and bit for bit against the fused
+    kernel's masked logits (k = K*128, so every logit is compared), the
+    same bits at P = 1, 2, 4, 8 parts per tile, and two calls
+    bit-identical. → max abs err against the plain version."""
+    from repro_torch.kernels import ops, screen
+    from repro_torch.kernels.fused_topk import fused_screened_topk
+    from repro_torch.kernels.ref import NEG_INF, topk_desc
+    from repro_torch.kernels.screen import (screened_logits,
+                                            screened_logits_plain)
+    from repro_torch.testing import screen_id_patterns
+    err, cases = 0.0, 0
+    g = torch.Generator().manual_seed(40)
+
+    def one(label, Wb, bb, h, ids):
+        nonlocal err, cases
+        n_blk = Wb.shape[0]
+        B, K_ = ids.shape
+        got = screened_logits(Wb, bb, h, ids)
+        want = screened_logits_plain(Wb, bb, h, ids)
+        torch.testing.assert_close(got, want, **TOL)
+        check(torch.equal(got, screened_logits(Wb, bb, h, ids)),
+              f"screened_logits {label}: two calls differ")
+        for p in (1, 2, 4, 8):
+            check(torch.equal(got, screen._launch(Wb, bb, h, ids, p)),
+                  f"screened_logits {label}: P={p} gives other bits")
+        valid = ((ids >= 0) & (ids < n_blk))[..., None]
+        row = torch.where(valid, got, NEG_INF).reshape(B, -1)
+        lane = torch.arange(V_BLK, device="cuda", dtype=torch.int32)
+        word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                           n_blk * V_BLK).reshape(B, -1)
+        fi, fv, _ = fused_screened_topk(Wb, bb, h, ids, K_ * V_BLK)
+        uv, upos = topk_desc(row, K_ * V_BLK)
+        check(torch.equal(fv, uv) and torch.equal(fi, torch.gather(word, 1,
+                                                                   upos)),
+              f"screened_logits {label}: masked logits != the fused kernel's")
+        err = max(err, float((got - want).abs().max()))
+        cases += 1
+
+    for d, vocab in ((30, 3000), (130, 3000), (D, V), (ZD, ZV)):
+        W, b = make_head(torch, 41 + d, vocab=vocab, d=d)
+        Wb, bb = ops.pack_head_blocks(W, b)
+        n_blk = Wb.shape[0]
+        for B in (1, 4, 8, 20):
+            h = torch.randn((B, d), generator=g).cuda()
+            for name, ids in screen_id_patterns(g, n_blk, B, K).items():
+                one(f"d={d} B={B} {name}", Wb, bb, h, ids.cuda())
+        if d == D:                                 # full cover, K = 200
+            full = torch.full((4, 200), n_blk, dtype=torch.int32)
+            full[:, :n_blk] = torch.arange(n_blk, dtype=torch.int32)
+            one("full cover", Wb, bb, torch.randn((4, d), generator=g).cuda(),
+                full.cuda())
+        del W, b, Wb, bb
+    log(f"[parity] screened_logits split grid: {cases} cases (d in "
+        f"30, 130, {D}, {ZD}; B in 1, 4, 8, 20; ids random, repeated in a "
+        f"row, shared across rows, one cluster, sentinels with tile 0 and an "
+        f"all-sentinel row, a beam of 4 x 5 rows; full cover K = 200): == "
+        f"plain (rtol=atol=1e-5), == the fused kernel's masked logits bit for "
+        f"bit, the same bits at P = 1, 2, 4, 8, two calls bit-identical; max "
+        f"abs err {err:.3g}")
+    return err
+
+
 def unfused_topk(Wb, bb, h, block_ids, k):
     """The unfused composition the fused kernel replaces: the gather kernel,
     the sentinel mask, a stable top-k and a logsumexp."""
@@ -563,6 +661,11 @@ def l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, seed):
             f"per tile (the wrapper picks P="
             f"{fused_topk.fused_parts(B, Ks, timer.n_sm)}): " +
             ", ".join(f"{n} {x:.5f} ms" for n, x in sweep.items()))
+        flush_compare(timer, f"d={d} B={B} K={Ks} k={k}", {
+            "screened_logits": lambda: screened_logits(Wb, bb, h, block_ids),
+            "fused_screened_topk": lambda: fused_screened_topk(
+                Wb, bb, h, block_ids, k)})
+    screen_sweep(timer, Wb, bb, h, block_ids, f"d={d} B={B} K={Ks}")
     for name, row in rows.items():
         lib = row["library_ms"]
         extra = (f", unfused {row['unfused_ms']:.5f} ms (ratio "
@@ -576,13 +679,75 @@ def l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, seed):
     return rows
 
 
+def flush_compare(timer, label, fns):
+    """Each of ``fns`` timed once under each L2 flush, in turns (reading,
+    zeroing, zeroing, reading): how much of a time was the zeroing flush's
+    write-back of dirty lines."""
+    got = {(name, dirty): [] for name in fns for dirty in (False, True)}
+    for dirty in (False, True, True, False):
+        timer.dirty = dirty
+        for name, fn in fns.items():
+            got[(name, dirty)].append(timer(fn))
+    timer.dirty = False
+    log(f"[timing] {label} L2 flush by reading (clean lines) / by zeroing "
+        f"(dirty lines, the earlier timer): " + "; ".join(
+            f"{name} {sum(got[(name, False)]) / 2:.5f} / "
+            f"{sum(got[(name, True)]) / 2:.5f} ms" for name in fns))
+
+
+def screen_sweep(timer, Wb, bb, h, ids, label):
+    """screened_logits with each tile cut into P = 1, 2, 4, 8 parts, in
+    turns, beside the P the wrapper's rule picks."""
+    from repro_torch.kernels import screen
+    B, Ks = ids.shape
+    sweep = timer.turns({f"P={p}": (lambda p=p: screen._launch(
+        Wb, bb, h, ids, p)) for p in (1, 2, 4, 8)})
+    rule = screen.screen_parts(B, Ks, Wb.shape[2], timer.n_sm)
+    log(f"[timing] {label} screened_logits by parts per tile (the wrapper "
+        f"picks P={rule}; P=1 is the grid before the split): " +
+        ", ".join(f"{n} {x:.5f} ms" for n, x in sweep.items()))
+
+
+def beam_rows(torch, timer, Wb, bb, screen, seed):
+    """The gather kernels at a beam's shape: B = 20 rows in 4 groups of 5,
+    each group routed to one cluster (the hypotheses of a beam mostly share
+    one), K = 16; bound by the distinct tiles. → screened_logits' timing
+    dict."""
+    from repro_torch.kernels.fused_topk import fused_screened_topk
+    from repro_torch.kernels.screen import (screened_logits,
+                                            screened_logits_plain)
+    n_blk, _, d = Wb.shape
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn((20, d), generator=g).cuda()
+    clusters = torch.randperm(screen.shape[0], generator=g)[:4]
+    ids = screen[clusters.repeat_interleave(5).cuda()].contiguous()
+    B, Ks = ids.shape
+    distinct = int(torch.unique(torch.where(ids < n_blk, ids, 0)).numel())
+    t = timer.turns({"ms": lambda: screened_logits(Wb, bb, h, ids),
+                     "plain_ms": lambda: screened_logits_plain(Wb, bb, h,
+                                                               ids),
+                     "fused_ms": lambda: fused_screened_topk(Wb, bb, h, ids,
+                                                             5)})
+    t.update(library_ms=None, bound=bound_ms(
+        distinct * V_BLK * (d + 1) * 4 + 4 * (B * d + B * Ks) +
+        4 * B * Ks * V_BLK, 2 * B * Ks * V_BLK * d))
+    log(f"[timing] d={d} beam B={B} (4 groups of 5 rows, one cluster each) "
+        f"K={Ks} screened_logits: {t['ms']:.5f} ms, plain "
+        f"{t['plain_ms']:.5f} ms, bound {t['bound'][0]:.7f} ms "
+        f"({t['bound'][1]}; distinct tiles {distinct} of {B * Ks}); "
+        f"fused_screened_topk k=5 {t['fused_ms']:.5f} ms")
+    screen_sweep(timer, Wb, bb, h, ids, f"d={d} beam B={B} K={Ks}")
+    return t
+
+
 def phase_timing(torch, np):
     """→ ({kernel: timing dict} at the LSTM greedy decode step's shape
-    (d = 500, B = 4, K = 16, k = 1), {kernel: timing dict} of the route and
-    the fused kernel at zamba2-2.7b's width (d = 2560, same B, K, k)),
-    after a table over B ∈ {1, 4, 8} and the full-cover screen's K = 200.
-    CUDA-event medians with a cold L2, each kernel in turns with its plain
-    version and the library call."""
+    (d = 500, B = 4, K = 16, k = 1), {kernel: timing dict} of the three L2S
+    kernels at zamba2-2.7b's width (d = 2560, same B, K, k), [the gather
+    kernel's timing dict at the beam shape, d = 500 and 2560]), after a
+    table over B ∈ {1, 4, 8} and the full-cover screen's K = 200.
+    CUDA-event medians with L2 flushed (clean) before each call, each kernel
+    in turns with its plain version and the library call."""
     from repro_torch.kernels import ops
     timer = Timer(torch)
     W, b = make_head(torch, 1)
@@ -599,13 +764,15 @@ def phase_timing(torch, np):
         rows = l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, 50 + i)
         if (B, k, screen.shape[1]) == (4, 1, K):
             out = rows
+    beam = [beam_rows(torch, timer, Wb, bb, cand, 55)]
     del W, b, Wb, bb
     W, b = make_head(torch, 11, vocab=ZV, d=ZD)
     Wb, bb = ops.pack_head_blocks(W, b)
     cand = torch.from_numpy(make_screen_blocks(np, 12, Wb.shape[0])).cuda()
     vz = torch.randn((R, ZD), generator=torch.Generator().manual_seed(13))
     wide = l2s_rows(torch, np, timer, Wb, bb, vz.cuda(), cand, 4, 1, 60)
-    return out, {k: wide[k] for k in ("cluster_route", "fused_screened_topk")}
+    beam.append(beam_rows(torch, timer, Wb, bb, cand, 65))
+    return out, wide, beam
 
 
 def phase_e2e(torch, np):
@@ -710,6 +877,26 @@ def phase_e2e(torch, np):
                       f" x{e.count}" for e in top))
     else:
         log("[e2e] profile: the profiler saw no device time (not measured)")
+    # the gather kernel on the paths that run it, once a step: unfused
+    # greedy and top-p (counted exactly; the profile gives its device time)
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(prompts, new, head=unfused)
+        eng.generate(prompts, new, head="screened-cuda", temperature=1.0,
+                     top_p=0.9, seed=2)
+        torch.cuda.synchronize()
+    n_scr = ops.LAUNCHES["screened_logits"]
+    check(n_scr == 2 * new, f"screened_logits launched {n_scr} times on the "
+          f"unfused and top-p paths, expected {2 * new}")
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")
+          and "screened_logits_kernel" in e.key]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    log(f"[e2e] greedy unfused + top-p 4x{new} screened-cuda: screened_logits "
+        f"launched {n_scr} times; profile: screened_logits_kernel "
+        f"x{sum(e.count for e in ev)}, " +
+        (f"{dev_ms:.3f} ms of device time" if ev else "not measured"))
     tok = 4 * new
     log(f"[e2e] nmt-deen-lstm d={D} V={V} on DecodeEngine(device='cuda'): "
         f"greedy 4x{new} exact {tok / t_exact:.1f} tok/s, screened-cuda "
@@ -1023,7 +1210,9 @@ def main() -> int:
     err = phase_parity(torch, np, K)
     err["fused_screened_topk"] = max(err["fused_screened_topk"],
                                      phase_fused_split(torch, np))
-    times, wide = phase_timing(torch, np)
+    err["screened_logits"] = max(err["screened_logits"],
+                                 phase_screen_grid(torch, np))
+    times, wide, beam = phase_timing(torch, np)
     lstm = phase_e2e(torch, np)
     ssm_err, ssm_times = phase_ssm_kernels(torch)
     err.update(ssm_err)
@@ -1064,6 +1253,12 @@ def main() -> int:
                 "library_ms": w["library_ms"]}
             if "unfused_ms" in w:
                 kernels[-1]["at_zamba2_width"]["unfused_ms"] = w["unfused_ms"]
+        if name == "screened_logits":
+            kernels[-1]["at_beam_shape"] = [
+                {"B": 20, "K": K, "d": d_, "ms": t_["ms"],
+                 "plain_ms": t_["plain_ms"], "bound_ms": t_["bound"][0],
+                 "bound_by": t_["bound"][1], "fused_ms": t_["fused_ms"]}
+                for d_, t_ in zip((D, ZD), beam)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -61,8 +61,8 @@ __device__ __forceinline__ float l2s_warp_dot(const float* __restrict__ row,
   return acc;
 }
 
-// The logits of `rows` consecutive rows of a gathered weight tile (all
-// L2S_V_BLK of them in screen.cu, one part of the tile in fused_topk.cu):
+// The logits of `rows` consecutive rows of a gathered weight tile (one part
+// of the tile in screen.cu and in fused_topk.cu):
 //   out[row] = W_tile[row] . h + b_tile[row]
 // one warp per row, rows dealt round robin over the block's warps. The tile
 // (L2S_V_BLK x d floats, 256,000 bytes at d = 500) is streamed from global memory row

@@ -60,8 +60,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # library stem → {exported symbol: (argtypes, restype)}
 _SIGNATURES = {
     "route": {"l2s_cluster_route": ([_P, _P, _P, _I, _I, _I, _P], _I)},
-    "screen": {"l2s_screened_logits":
-               ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
+    "screen": {"l2s_screened_logits": ([_P] * 5 + [_I] * 5 + [_P], _I)},
     "fused_topk": {"l2s_fused_screened_topk":
                    ([_P] * 10 + [_I] * 6 + [_P], _I)},
     "ssd": {"l2s_ssd_intra": ([_P] * 6 + [_I] * 6 + [_P], _I)},

@@ -6,6 +6,12 @@ sentinel id (outside [0, n_blk)) reads tile 0 and is left unmasked, as the
 Pallas kernel leaves it: ``kernels/ops.py`` applies the NEG_INF mask. On a
 CUDA tensor ``screened_logits`` launches ``csrc/screen.cu``; on a CPU tensor
 it runs ``screened_logits_plain``.
+
+The kernel runs one block per (row, slot, part of the tile): each tile is
+cut into P parts (``screen_parts``) so that a decode batch of a few rows
+fills the card, and the sums run in the order of the fused kernel's
+(``csrc/l2s_common.cuh::l2s_warp_dot``), so the unfused and fused paths give
+bit-identical logits on the card, whatever P is.
 """
 from __future__ import annotations
 
@@ -44,15 +50,37 @@ def screened_logits(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
     """W_blocks (n_blk, V_BLK, d) f32; b_blocks (n_blk, V_BLK) f32;
     h (B, d) f32; block_ids (B, K) int32 (sentinel ≥ n_blk)
     → raw logits (B, K, V_BLK) f32, sentinel tiles NOT masked."""
-    from repro_torch.kernels import ops
     check_head_inputs(W_blocks, b_blocks, h, block_ids)
     dev = h.device
     if dev.type == "cpu":
         return screened_logits_plain(W_blocks, b_blocks, h, block_ids)
+    from repro_torch.kernels.fused_topk import _sm_count
+    B, K = block_ids.shape
+    return _launch(W_blocks, b_blocks, h, block_ids,
+                   screen_parts(B, K, h.shape[1], _sm_count(dev)))
+
+
+def screen_parts(B: int, K: int, d: int, n_sm: int) -> int:
+    """Parts P each candidate tile is cut into: the fewest of 1, 2, 4, 8
+    whose grid of B·K·P blocks (16 warps each) puts ⌈d / 1024⌉ blocks on
+    every SM (8 if none). A lane keeps 8 float4 loads in flight, so a wider
+    row needs more warps per SM to stream at the card's rate: at d = 2560,
+    B = 4, K = 16 P = 8 beats 4 in chip_smoke.py's sweep, at d = 500 P = 4
+    beats 8."""
+    for parts in (1, 2, 4, 8):
+        if B * K * parts >= n_sm * -(-d // 1024):
+            return parts
+    return 8
+
+
+def _launch(W_blocks, b_blocks, h, block_ids, parts: int) -> torch.Tensor:
+    """One launch of the kernel with each tile cut into ``parts`` parts."""
+    from repro_torch.kernels import ops
+    dev = h.device
     n_blk, v_blk, d = W_blocks.shape
     B, K = block_ids.shape
     out = torch.empty((B, K, v_blk), dtype=torch.float32, device=dev)
     ops.launch("screened_logits", "screen", "l2s_screened_logits", dev,
                W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
-               block_ids.data_ptr(), out.data_ptr(), B, K, n_blk, d)
+               block_ids.data_ptr(), out.data_ptr(), B, K, n_blk, d, parts)
     return out

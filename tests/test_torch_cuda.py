@@ -17,6 +17,7 @@ from repro_torch.kernels.fused_topk import (fused_screened_topk,
 from repro_torch.kernels.ref import NEG_INF, topk_desc
 from repro_torch.kernels.route import cluster_route, cluster_route_plain
 from repro_torch.kernels.screen import screened_logits, screened_logits_plain
+from repro_torch.testing import screen_id_patterns
 
 V_BLK = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -194,6 +195,70 @@ def test_cuda_fused_noise_and_determinism(cuda, K):
         assert torch.equal(a[0], pi)
     torch.cuda.synchronize()
     assert all(int(c.abs().sum()) == 0 for c in fused_topk._COUNTERS.values())
+
+
+def _check_screen(Wb, bb, h, ids):
+    """The gather kernel against its plain version (1e-5), bit for bit
+    against the fused kernel's masked logits (k = K·128: every logit), the
+    same bits at P = 1, 2, 4, 8 and on a second call; one launch counted."""
+    from repro_torch.kernels import screen
+    n_blk = Wb.shape[0]
+    B, K = ids.shape
+    ops.reset_launches()
+    got = screened_logits(Wb, bb, h, ids)
+    assert ops.LAUNCHES["screened_logits"] == 1
+    torch.testing.assert_close(got, screened_logits_plain(Wb, bb, h, ids), **TOL)
+    assert torch.equal(got, screened_logits(Wb, bb, h, ids))
+    for parts in (1, 2, 4, 8):
+        assert torch.equal(got, screen._launch(Wb, bb, h, ids, parts))
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    row = torch.where(valid, got, NEG_INF).reshape(B, -1)
+    lane = torch.arange(V_BLK, device=h.device, dtype=torch.int32)
+    word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    ki, kv, _ = fused_screened_topk(Wb, bb, h, ids, k=K * V_BLK)
+    uv, upos = topk_desc(row, K * V_BLK)
+    assert torch.equal(kv, uv)
+    assert torch.equal(ki, torch.gather(word, 1, upos))
+
+
+# (d, B, pattern): ragged d (30, 130), the LSTM's 500 and zamba2's 2560; the
+# beam pattern (4 groups of 5 rows) at B = 20 only
+SCREEN_GRID = [(d, B, pat) for d in (30, 130, 500, 2560) for B in (1, 4, 20)
+               for pat in ("random", "repeated_in_row", "shared_across_rows",
+                           "one_cluster", "sentinels_and_tile0", "beam")
+               if pat != "beam" or B == 20]
+
+
+@pytest.mark.parametrize("d,B,pattern", SCREEN_GRID)
+def test_cuda_screened_split_grid(cuda, d, B, pattern):
+    """screen.cu's grid (a block per row, slot and part of the tile) on
+    repeated ids within and across rows, one cluster for all rows,
+    sentinels beside tile 0 and an all-sentinel row, and a beam."""
+    g = torch.Generator().manual_seed(d * 100 + B)
+    vocab = {30: 3000, 130: 3000, 500: 25_000, 2560: 32_000}[d]
+    W = torch.randn((vocab, d), generator=g) * 0.05
+    b = torch.randn((vocab,), generator=g) * 0.1
+    Wb, bb = ops.pack_head_blocks(W.to(cuda), b.to(cuda))
+    h = torch.randn((B, d), generator=g).to(cuda)
+    ids = screen_id_patterns(g, Wb.shape[0], B, 16)[pattern]
+    _check_screen(Wb, bb, h, ids.to(cuda))
+
+
+@pytest.mark.parametrize("d", [130, 500])
+def test_cuda_screened_full_cover(cuda, d):
+    """Every row holds every tile (K = n_blk, padded with sentinels to a
+    multiple of 8, as candidates_to_padded pads): each tile has B holders."""
+    g = torch.Generator().manual_seed(d)
+    W = torch.randn((25_000, d), generator=g) * 0.05
+    b = torch.randn((25_000,), generator=g) * 0.1
+    Wb, bb = ops.pack_head_blocks(W.to(cuda), b.to(cuda))
+    n_blk = Wb.shape[0]
+    K = -(-n_blk // 8) * 8
+    ids = torch.full((4, K), n_blk, dtype=torch.int32)
+    ids[:, :n_blk] = torch.arange(n_blk, dtype=torch.int32)
+    h = torch.randn((4, d), generator=g).to(cuda)
+    _check_screen(Wb, bb, h, ids.to(cuda))
 
 
 @pytest.mark.parametrize("d", [37, 500, 2560])
