@@ -58,7 +58,8 @@ Phases, one line (or a few) each:
               4 groups of 5, one cluster each, K = 16, d = 500 and 2560,
               timed with its bound);
   5. e2e      full-width nmt-deen-lstm (random weights from a seeded
-              torch.Generator) on DecodeEngine(device="cuda"): greedy
+              torch.Generator) on DecodeEngine(device="cuda"), whose decode
+              steps are CUDA graph replays: greedy
               4 prompts × 16 tokens through exact and screened-cuda (fused
               and unfused), sampled decode (Gumbel-max and top-p), beam
               search (beam 5), and a full-cover screen whose screened-cuda
@@ -68,6 +69,24 @@ Phases, one line (or a few) each:
               a profile of the fused greedy decode; the unfused greedy and
               top-p decodes, counted from zero, must launch screened_logits
               once a step (profiled for its device time);
+     graph    on a fresh engine over the same model: greedy 4 x 16, sampled
+              (T = 1 on each head, top-p 0.9 on screened-cuda) and beam 5
+              through exact and screened-cuda fused and unfused (the latter
+              registered as "screened-cuda-unfused"), first with the step
+              bodies run eagerly (repro_torch.testing), then through the
+              engine's graphs: tokens and beams bit-identical, launch
+              counts (each side from zero) equal, sampled tokens equal to
+              the head's own sample(h, generator=...) draws, one graph per
+              (head, kind); prints compiled_step_counts, the launches per replay,
+              the memory the graph pools add, and graph against eager
+              host-clock tokens/s, median decode step and profiled idle
+              share with the port's kernels' device time per launch;
+     serve    16 ServeRequests (greedy and sampled, k = 1 and 5, prompts of
+              8 and 12 tokens) routed by a CostAwarePolicy over exact and
+              screened-cuda fused and unfused, one with an explicit head,
+              through DecodeEngine.serve_batch: greedy results equal solo
+              generate calls, and a second identical serve_batch adds no
+              graph;
   6. ssm      the SSD intra-chunk kernel against its plain version at
               zamba2-2.7b's prefill chunk (B = 4, nc = 2, Q = 256, H = 80,
               P = N = 64, G = 1), mamba2-1.3b's (H = 64, N = 128) and a
@@ -92,9 +111,20 @@ Phases, one line (or a few) each:
               prefill over 512 tokens and 4 decode steps equal one prefill
               over 516 (max relative error <= 1e-3), and a profile of one
               greedy screened-cuda decode (each profile also gives the fused
-              kernel's share of device time);
+              kernel's share of device time); then the graph phase on a
+              fresh engine (greedy 4 x 512 + 32 and beam 4, no sampling),
+              with the same exact launch counts, and each kernel's launch
+              cost at its decode shape: one eager launch, a one-launch
+              graph and a graph of 9 launches, in turns under the timer;
+     Every profile (e2e, hybrid, graph) holds the device calls the
+              profiler counts for each port kernel equal to the launches
+              its wrapper counted in the same call (graph replays add
+              the count their capture recorded).
   8. a JSON line {"kernels": [...]} (each kernel with its launches on the
-              path it was ported for and, in "launches_by_path", on both;
+              path it was ported for and, in "launches_by_path", on each
+              path: the two e2e paths, their graph phases and serve; its
+              "launch_cost_ms" eager, in a graph and per launch in a graph
+              of 9;
               the three L2S kernels also "at_zamba2_width"; the gather
               kernel "at_beam_shape"; the fused kernel "unfused_ms"; the
               cache update's times are the K and V pair's, with "single_ms"
@@ -226,6 +256,45 @@ def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# each port kernel's device symbols, as the profiler names them
+KERNEL_NAMES = {"cluster_route": ("route_kernel",),
+                "screened_logits": ("screened_logits_kernel",),
+                "fused_screened_topk": ("fused_topk_kernel",),
+                "ssd_intra": ("ssd_intra_kernel",),
+                "cache_slot_update": ("cache_kv_update_kernel",
+                                      "cache_slot_update_kernel")}
+
+
+def kernel_events(kern, name):
+    """The profiler's events of the port kernel ``name``."""
+    return [e for e in kern if any(sym in e.key for sym in KERNEL_NAMES[name])]
+
+
+def profile_counted(torch, tag, fn):
+    """Profile one call of ``fn`` → its device kernels' events. The call
+    count the profiler gives each port kernel must equal the launches its
+    wrapper counted in the same call (a graph replay adds the count its
+    capture recorded): the counts the launch checks read are the device's.
+    A profiler that sees no kernel fails this too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    before = dict(ops.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    counted = {k: ops.LAUNCHES[k] - before[k] for k in KERNEL_NAMES}
+    seen = {k: sum(e.count for e in kernel_events(kern, k))
+            for k in KERNEL_NAMES}
+    check(seen == counted, f"{tag} profile: the device ran the port's kernels "
+          f"{seen} times, their wrappers counted {counted}")
+    log(f"{tag} profile: device calls == counted launches {json.dumps(seen)}")
+    return kern
 
 
 def fused_share(kern, busy_ms):
@@ -859,44 +928,33 @@ def phase_e2e(torch, np):
     check(all(launches[k] > 0 for k in L2S_KERNELS),
           f"a kernel never launched on the main path: {launches}")
     # where the device time of the same greedy screened-cuda decode goes
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompts, new, head="screened-cuda")
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+    kern = profile_counted(torch, "[e2e] greedy screened-cuda", lambda:
+                           eng.generate(prompts, new, head="screened-cuda"))
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    if busy_ms > 0:
-        log(f"[e2e] profile, greedy 4x{new} screened-cuda: device busy "
-            f"{busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall (idle "
-            f"share {1 - busy_ms / (t_scr * 1e3):.3f}); "
-            f"{fused_share(kern, busy_ms)}; top kernels: " +
-            "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
-                      f" x{e.count}" for e in top))
-    else:
-        log("[e2e] profile: the profiler saw no device time (not measured)")
+    log(f"[e2e] profile, greedy 4x{new} screened-cuda: device busy "
+        f"{busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall (idle "
+        f"share {1 - busy_ms / (t_scr * 1e3):.3f}); "
+        f"{fused_share(kern, busy_ms)}; top kernels: " +
+        "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
+                  f" x{e.count}" for e in top))
     # the gather kernel on the paths that run it, once a step: unfused
     # greedy and top-p (counted exactly; the profile gives its device time)
     ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def unfused_and_top_p():
         eng.generate(prompts, new, head=unfused)
         eng.generate(prompts, new, head="screened-cuda", temperature=1.0,
                      top_p=0.9, seed=2)
-        torch.cuda.synchronize()
+    kern = profile_counted(torch, "[e2e] unfused + top-p", unfused_and_top_p)
     n_scr = ops.LAUNCHES["screened_logits"]
     check(n_scr == 2 * new, f"screened_logits launched {n_scr} times on the "
           f"unfused and top-p paths, expected {2 * new}")
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA")
-          and "screened_logits_kernel" in e.key]
+    ev = [e for e in kern if "screened_logits_kernel" in e.key]
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
     log(f"[e2e] greedy unfused + top-p 4x{new} screened-cuda: screened_logits "
         f"launched {n_scr} times; profile: screened_logits_kernel "
-        f"x{sum(e.count for e in ev)}, " +
-        (f"{dev_ms:.3f} ms of device time" if ev else "not measured"))
+        f"x{sum(e.count for e in ev)}, {dev_ms:.3f} ms of device time")
     tok = 4 * new
     log(f"[e2e] nmt-deen-lstm d={D} V={V} on DecodeEngine(device='cuda'): "
         f"greedy 4x{new} exact {tok / t_exact:.1f} tok/s, screened-cuda "
@@ -909,7 +967,8 @@ def phase_e2e(torch, np):
         f"{int((gaps < GAP).sum())} of {gaps.size}")
     log(f"[e2e] launches on the main path: "
         f"{json.dumps({k: launches[k] for k in L2S_KERNELS})}")
-    return launches
+    return launches, dict(model=model, params=eng.params, screen=screen,
+                          prompts=prompts)
 
 
 def ssd_inputs(torch, shape, seed):
@@ -1154,25 +1213,17 @@ def phase_e2e_hybrid(torch, np):
     del cache, one
     check(rel <= 1e-3, f"prefill + decode != prefill: relative error {rel:.3g}")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompts, ZNEW, head="screened-cuda")
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+    kern = profile_counted(torch, "[hybrid] greedy screened-cuda", lambda:
+                           eng.generate(prompts, ZNEW, head="screened-cuda"))
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    if busy_ms > 0:
-        log(f"[hybrid] profile, greedy {ZB}x{ZT}+{ZNEW} screened-cuda: device "
-            f"busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall "
-            f"(idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
-            f"{sum(e.count for e in kern)} device kernels; "
-            f"{fused_share(kern, busy_ms)}; top kernels: " +
-            "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
-                      f" x{e.count}" for e in top))
-    else:
-        log("[hybrid] profile: the profiler saw no device time (not measured)")
+    log(f"[hybrid] profile, greedy {ZB}x{ZT}+{ZNEW} screened-cuda: device "
+        f"busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall "
+        f"(idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
+        f"{sum(e.count for e in kern)} device kernels; "
+        f"{fused_share(kern, busy_ms)}; top kernels: " +
+        "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
+                  f" x{e.count}" for e in top))
     tok = ZB * ZNEW
     log(f"[hybrid] zamba2-2.7b d={d} V={vocab} on DecodeEngine(device='cuda', "
         f"max_len={ZMAX}): greedy {ZB}x{ZT}+{ZNEW} exact {t_exact:.3f} s "
@@ -1191,6 +1242,302 @@ def phase_e2e_hybrid(torch, np):
         f"(<= 1e-3)")
     log(f"[hybrid] launches on the hybrid path ({prefills} prefills): "
         f"{json.dumps(launches)}")
+    return launches, dict(model=model, params=eng.params, screen=screen,
+                          prompts=prompts)
+
+
+UNFUSED = "screened-cuda-unfused"
+HEADS3 = ("exact", "screened-cuda", UNFUSED)
+
+
+def register_unfused():
+    """The unfused screened-cuda head under a registry name of its own, so
+    that routing and compiled_step_counts tell it from the fused one."""
+    from repro_torch import heads
+
+    def build(W, b, screen=None, **_):
+        head = heads.ScreenedCudaHead(W, b, screen, fused=False)
+        head.name = UNFUSED
+        return head
+    heads.register(UNFUSED, build)
+
+
+def host_timed(torch, fn):
+    """(fn's result, host-clock seconds of fn ending in a synchronise)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t
+
+
+def median_step_ms(torch, eng, head, prompts, n, eager):
+    """Median host-clock time of ``n`` greedy decode steps, each ending in
+    a synchronise: graph replays, or (``eager``) the step body run as it
+    is."""
+    with torch.inference_mode():
+        hd = eng.resolve_head(head)
+        slab, h = eng._prefill(prompts, n + 1)
+        slab.tok.copy_(hd.next(h))
+        step = eng._greedy_step(hd)
+        times = []
+        for _ in range(n):
+            _, t = host_timed(torch, lambda: step.body(slab) if eager
+                              else eng._run(step, slab))
+            times.append(t * 1e3)
+    return statistics.median(times)
+
+
+def device_profile(torch, tag, fn, wall_s):
+    """Profile one call of ``fn`` (``profile_counted``) → (device busy ms,
+    idle share against the unprofiled wall ``wall_s``, {kernel: (device ms,
+    calls)} of the port's kernels, device kernels in all)."""
+    kern = profile_counted(torch, tag, fn)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    ours = {}
+    for name in KERNEL_NAMES:
+        ev = kernel_events(kern, name)
+        if ev:
+            ours[name] = (sum(e.self_device_time_total for e in ev) / 1e3,
+                          sum(e.count for e in ev))
+    return (busy, 1 - busy / (wall_s * 1e3), ours,
+            sum(e.count for e in kern))
+
+
+def phase_graph(torch, np, tag, eng, prompts, new, beam, sampled):
+    """[graph] on one full-width path, on a fresh engine: the eager step
+    bodies (``repro_torch.testing``) and then the engine's CUDA graphs
+    decode greedy (and, with ``sampled``, sampled: T = 1 on each head, and
+    top-p 0.9 on screened-cuda) 4 prompts and beam search, through exact
+    and screened-cuda fused and unfused. Tokens, beams and launch counts
+    (each side counted from zero) must be equal, and sampled tokens equal
+    the head's own ``sample`` draws; one graph per (head, kind) at this
+    width. Then graph against eager: host-clock tokens/s, median step time,
+    and profiled idle share and per-launch device time of the port's
+    kernels, whose device calls must equal the counted launches. →
+    launches of the graph runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.testing import (eager_beam_search, eager_generate,
+                                     head_sampled_generate)
+    B = len(prompts)
+    runs = [(name, {}) for name in HEADS3]
+    if sampled:
+        runs += [(name, dict(temperature=1.0, seed=21)) for name in HEADS3]
+        runs.append(("screened-cuda", dict(temperature=1.0, top_p=0.9,
+                                           seed=22)))
+
+    def key(name, kw):
+        return (name,) + tuple(sorted(kw.items()))
+
+    # the slabs (static caches) of both widths are held across both sides,
+    # so the memory figure below is the graph pools' own: without a graph
+    # a slab lives for one call only
+    with torch.inference_mode():
+        slabs = [eng._slab(w) for w in {B, beam}]
+    ops.reset_launches()
+    eager = {key(n, kw): eager_generate(eng, prompts, new, head=n, **kw)
+             for n, kw in runs}
+    eager_beam = {n: eager_beam_search(eng, prompts[0], beam, new, head=n)
+                  for n in HEADS3}
+    torch.cuda.synchronize()
+    eager_launches = dict(ops.LAUNCHES)
+    torch.cuda.empty_cache()
+    mem0 = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+    ops.reset_launches()
+    got = {key(n, kw): eng.generate(prompts, new, head=n, **kw)
+           for n, kw in runs}
+    got_beam = {n: eng.beam_search(prompts[0], beam, new, head=n)
+                for n in HEADS3}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    torch.cuda.empty_cache()
+    pools = torch.cuda.memory_reserved() - mem0[0]
+    held = torch.cuda.memory_allocated() - mem0[1]
+    del slabs
+
+    for k, want in eager.items():
+        check(np.array_equal(got[k].tokens, want.tokens),
+              f"[graph] {tag} {k}: graph tokens differ from the eager step "
+              f"body's")
+    for n, want in eager_beam.items():
+        check(np.array_equal(got_beam[n].tokens, want.tokens) and
+              np.array_equal(got_beam[n].scores, want.scores),
+              f"[graph] {tag} beam {n}: graph beam differs from eager")
+    check(launches == eager_launches,
+          f"[graph] {tag}: graph runs launched {launches}, the eager step "
+          f"bodies {eager_launches}")
+    for n, kw in runs:
+        if kw:
+            own = head_sampled_generate(eng, prompts, new, n,
+                                        kw["temperature"],
+                                        kw.get("top_p", 1.0), kw["seed"])
+            check(np.array_equal(got[key(n, kw)].tokens, own),
+                  f"[graph] {tag} {key(n, kw)}: graph-sampled tokens differ "
+                  f"from the head's own sample(h, generator=...) draws")
+    check(all(launches[k] > 0 for k in L2S_KERNELS),
+          f"[graph] {tag}: a kernel never launched: {launches}")
+    counts = eng.compiled_step_counts()
+    want = {(n, kind): 1 for n in HEADS3 for kind in ("greedy", "decode")}
+    if sampled:
+        want.update({(n, "sample"): 1 for n in HEADS3})
+        want[("screened-cuda", "sample")] = 2
+    check(counts == want, f"[graph] {tag}: compiled_step_counts {counts}, "
+          f"expected {want}")
+    per_replay = {f"{s_key[0][0]}/{s_key[1]}" + (
+        f"/T={s_key[2]},top_p={s_key[3]}" if s_key[1] == "sample" else "") +
+        f"/B={w}": g.launches
+        for s_key, step in eng._step_cache.items()
+        for w, g in step.graphs.items()}
+
+    name = "screened-cuda"
+    _, t_graph = host_timed(torch, lambda: eng.generate(prompts, new,
+                                                        head=name))
+    _, t_eager = host_timed(torch, lambda: eager_generate(eng, prompts, new,
+                                                          head=name))
+    _, t_gx = host_timed(torch, lambda: eng.generate(prompts, new,
+                                                     head="exact"))
+    _, t_ex = host_timed(torch, lambda: eager_generate(eng, prompts, new,
+                                                       head="exact"))
+    step_g = median_step_ms(torch, eng, name, prompts, min(new, 24), False)
+    step_e = median_step_ms(torch, eng, name, prompts, min(new, 24), True)
+    prof_g = device_profile(torch, f"[graph] {tag} graph", lambda:
+                            eng.generate(prompts, new, head=name), t_graph)
+    prof_e = device_profile(torch, f"[graph] {tag} eager", lambda:
+                            eager_generate(eng, prompts, new, head=name),
+                            t_eager)
+    tok = B * new
+    log(f"[graph] {tag}: graph == eager step body, bit for bit: greedy "
+        f"{B}x{new} and beam({beam}) through {', '.join(HEADS3)}" +
+        (", sampled T=1 on each and top-p 0.9 on screened-cuda (same seeds; "
+         "== the head's own sample draws)"
+         if sampled else "") + f"; launches (graph runs == eager runs, each "
+        f"from zero): {json.dumps(launches)}")
+    log(f"[graph] {tag}: compiled_step_counts "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in sorted(counts.items())} }; "
+        f"launches per replay: {json.dumps(per_replay)}")
+    log(f"[graph] {tag}: graph pools add {pools / 2 ** 20:.1f} MiB reserved "
+        f"({held / 2 ** 20:.1f} MiB of graph outputs held), after the eager "
+        f"runs of the same work")
+    log(f"[graph] {tag}: greedy {B}x{new} (prefill included) screened-cuda "
+        f"graph {tok / t_graph:.1f} tok/s vs eager {tok / t_eager:.1f} tok/s "
+        f"(exact {tok / t_gx:.1f} vs {tok / t_ex:.1f}); median decode step "
+        f"(synchronised) graph {step_g:.4f} ms vs eager {step_e:.4f} ms "
+        f"(host clock, information only)")
+    for label, (busy, idle, ours, n_kern), wall in (
+            ("graph", prof_g, t_graph), ("eager", prof_e, t_eager)):
+        log(f"[graph] {tag} profile {label}, greedy screened-cuda: device "
+            f"busy {busy:.3f} ms of {wall * 1e3:.3f} ms unprofiled wall "
+            f"(idle share {idle:.3f}), {n_kern} device kernels; per launch: "
+            + "; ".join(f"{k} {ms / n * 1e3:.2f} us x{n}"
+                        for k, (ms, n) in ours.items()))
+    return launches
+
+
+def launch_costs(torch, np):
+    """What a launch costs inside a graph: each kernel at its decode shape
+    timed (clean-L2 Timer) as one eager launch, one graph replay of one
+    launch, and one replay of a graph of 9 launches (per launch; the cache
+    pair's 9 are one zamba2 decode step's)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cache_update import cache_kv_update
+    from repro_torch.kernels.fused_topk import fused_screened_topk
+    from repro_torch.kernels.route import cluster_route
+    from repro_torch.kernels.screen import screened_logits
+    timer = Timer(torch)
+    W, b = make_head(torch, 1)
+    Wb, bb = ops.pack_head_blocks(W, b)
+    cand = torch.from_numpy(make_screen_blocks(np, 3, Wb.shape[0])).cuda()
+    g = torch.Generator().manual_seed(9)
+    v = torch.randn((R, D), generator=g).cuda()
+    h = torch.randn((4, D), generator=g).cuda()
+    ids = cand[cluster_route(h, v).long()].contiguous()
+    ck, cv = (torch.zeros(CACHE_SHAPE, device="cuda") for _ in range(2))
+    uk, uv = (torch.randn(CACHE_SHAPE[:1] + CACHE_SHAPE[2:], generator=g)
+              .cuda() for _ in range(2))
+    slots = torch.full((CACHE_SHAPE[0],), 300, dtype=torch.int32,
+                       device="cuda")
+    fns = {"cluster_route": lambda: cluster_route(h, v),
+           "screened_logits": lambda: screened_logits(Wb, bb, h, ids),
+           "fused_screened_topk": lambda: fused_screened_topk(Wb, bb, h, ids,
+                                                              1),
+           "cache_slot_update": lambda: cache_kv_update(ck, uk, cv, uv,
+                                                        slots)}
+    stream = torch.cuda.Stream()
+    out = {}
+    for name, fn in fns.items():
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        graphs = {}
+        for n in (1, 9):
+            graphs[n] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[n], stream=stream):
+                for _ in range(n):
+                    fn()
+        t = timer.turns({"eager": fn, "graph": graphs[1].replay,
+                         "graph9": graphs[9].replay})
+        out[name] = dict(eager=t["eager"], graph=t["graph"],
+                         graph9=t["graph9"] / 9)
+        log(f"[graph] launch cost, {name} (clean-L2 timer): eager "
+            f"{t['eager']:.5f} ms, one-launch graph {t['graph']:.5f} ms, "
+            f"graph of 9 {t['graph9'] / 9:.5f} ms per launch")
+    return out
+
+
+def phase_serve(torch, np, ctx):
+    """[serve] on full-width nmt-deen-lstm: 16 ServeRequests (greedy and
+    sampled, k = 1 and 5, prompts of 8 and 12 tokens, accuracy floors 0
+    and 1) routed by a CostAwarePolicy over screened-cuda fused, unfused
+    and exact, one with an explicit head; greedy results equal solo
+    generate calls, and a second identical serve_batch adds no graph.
+    → launches of the first serve_batch."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import CostAwarePolicy, DecodeEngine, ServeRequest
+    eng = DecodeEngine(ctx["model"], ctx["params"], screen=ctx["screen"],
+                       device="cuda")
+    rng = np.random.default_rng(16)
+    reqs = []
+    for i in range(16):
+        sampled = i % 4 == 1
+        reqs.append(ServeRequest(
+            prompt=rng.integers(0, V, 8 if i % 2 == 0 else 12),
+            max_new=8 + i % 5, k=5 if i % 3 == 0 else 1,
+            accuracy_floor=1.0 if i % 5 == 2 else 0.0,
+            temperature=0.9 if sampled else None,
+            top_p=0.95 if i == 5 else 1.0, seed=100 + i,
+            head=UNFUSED if i == 15 else None))
+    pol = CostAwarePolicy(["screened-cuda", UNFUSED, "exact"],
+                          accuracy={UNFUSED: 0.99})
+    ops.reset_launches()
+    first, t_first = host_timed(torch, lambda: eng.serve_batch(reqs, pol))
+    launches = dict(ops.LAUNCHES)
+    counts = eng.compiled_step_counts()
+    again, t_again = host_timed(torch, lambda: eng.serve_batch(reqs, pol))
+    check(eng.compiled_step_counts() == counts,
+          f"[serve] the second serve_batch added graphs: {counts} -> "
+          f"{eng.compiled_step_counts()}")
+    check(all(launches[k] > 0 for k in L2S_KERNELS),
+          f"[serve] a kernel never launched: {launches}")
+    heads_used = sorted({r.head for r in first})
+    check(heads_used == sorted(HEADS3), f"[serve] routes {heads_used}")
+    for req, a, b in zip(reqs, first, again):
+        check(np.array_equal(a.tokens, b.tokens) and
+              a.tokens.shape == (req.max_new,) and a.tokens.max() < V,
+              "[serve] a repeated serve_batch changed a result")
+        if not req.sampled:
+            solo = eng.generate(req.prompt[None], req.max_new, head=a.head)
+            check(np.array_equal(solo.tokens[0], a.tokens),
+                  f"[serve] request for {a.head} differs from solo generate")
+    groups = len({r.group_key(a.head) for r, a in zip(reqs, first)})
+    log(f"[serve] nmt-deen-lstm: 16 requests in {groups} groups routed to "
+        f"{ {h: sum(r.head == h for r in first) for h in heads_used} }; "
+        f"greedy results == solo generate; second identical serve_batch "
+        f"adds 0 graphs (compiled_step_counts "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in sorted(counts.items())} }); "
+        f"serve_batch {t_first:.3f} s first (captures included), "
+        f"{t_again:.3f} s again (host clock, information only); launches: "
+        f"{json.dumps(launches)}")
     return launches
 
 
@@ -1203,6 +1550,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeEngine
 
     resolve_device("cuda")                     # TF32 off for float32 matmuls
     kind, _ = phase_device(torch)
@@ -1213,13 +1561,37 @@ def main() -> int:
     err["screened_logits"] = max(err["screened_logits"],
                                  phase_screen_grid(torch, np))
     times, wide, beam = phase_timing(torch, np)
-    lstm = phase_e2e(torch, np)
+    register_unfused()
+    lstm, ctx = phase_e2e(torch, np)
+    graph_lstm = phase_graph(
+        torch, np, "nmt-deen-lstm",
+        DecodeEngine(ctx["model"], ctx["params"], screen=ctx["screen"],
+                     device="cuda"), ctx["prompts"], 16, 5, sampled=True)
+    serve = phase_serve(torch, np, ctx)
+    del ctx
     ssm_err, ssm_times = phase_ssm_kernels(torch)
     err.update(ssm_err)
     times.update(ssm_times)
-    hybrid = phase_e2e_hybrid(torch, np)
-    # each kernel's launches on the path it was ported for, and on both
+    hybrid, ctx = phase_e2e_hybrid(torch, np)
+    graph_hybrid = phase_graph(
+        torch, np, "zamba2-2.7b",
+        DecodeEngine(ctx["model"], ctx["params"], screen=ctx["screen"],
+                     max_len=ZMAX, device="cuda"), ctx["prompts"], ZNEW, 4,
+        sampled=False)
+    zcfg = ctx["model"].cfg
+    n_attn = zcfg.num_layers // zcfg.hybrid_shared_period
+    check(graph_hybrid["cache_slot_update"] == n_attn * 6 * (ZNEW - 1) and
+          graph_hybrid["ssd_intra"] == zcfg.num_layers * 6,
+          f"[graph] zamba2-2.7b: launches {graph_hybrid}, expected "
+          f"{n_attn} cache and {zcfg.num_layers} SSD launches per decode "
+          f"step and per prefill")
+    del ctx
+    costs = launch_costs(torch, np)
+    # each kernel's launches on the path it was ported for, and on each path
     launches = {k: (hybrid if k in ssm_err else lstm)[k] for k in lstm}
+    paths = {"nmt-deen-lstm": lstm, "nmt-deen-lstm graph": graph_lstm,
+             "serve": serve, "zamba2-2.7b": hybrid,
+             "zamba2-2.7b graph": graph_hybrid}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),
@@ -1240,8 +1612,9 @@ def main() -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                         "bound_by": t["bound"][1],
                         "library_ms": t["library_ms"],
-                        "launches_by_path": {"nmt-deen-lstm": lstm[name],
-                                             "zamba2-2.7b": hybrid[name]}})
+                        "launches_by_path": {p: n[name]
+                                             for p, n in paths.items()},
+                        "launch_cost_ms": costs.get(name)})
         for key in ("unfused_ms", "single_ms", "two_single_ms"):
             if key in t:
                 kernels[-1][key] = t[key]

@@ -10,7 +10,8 @@ Registered backends:
   screened        L2S route + candidate softmax (torch)    O((r+L̄)·d)
   screened-cuda   L2S on the hand-written CUDA kernels     O((r+L̄)·d)
 """
-from repro_torch.heads.base import (NEG_INF, MissingScreenError, SoftmaxHead,
+from repro_torch.heads.base import (NEG_INF, MissingScreenError,
+                                    ScreenBlockError, SoftmaxHead,
                                     adjust_logits, require_screen,
                                     sample_from_logits,
                                     screened_flops_per_query)

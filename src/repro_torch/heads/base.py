@@ -11,12 +11,19 @@ copy of W, ...) and answers four queries over context vectors h (B, d):
   next(h)             → (B,) int32 greedy argmax
   sample(h, temperature, top_p, generator=None, gumbel=None) → (B,) int32
 
-Sampling draws its Gumbel noise from ``generator`` (a ``torch.Generator`` on
-the head's device), or takes it ready-made as ``gumbel``: the same noise
-handed to two heads gives the same draw.
+Sampling draws its Gumbel noise, of the head's ``noise_shape``, from
+``generator`` (a ``torch.Generator`` on the head's device), or takes it
+ready-made as ``gumbel``: the same noise handed to two heads gives the same
+draw.
 
 ``prepare()`` performs any one-time packing and returns the head; it is
 idempotent and is called by the registry and the serving engine.
+
+Routing metadata (``describe()``, ``memory_bytes``, ``step_key()``) is the
+reference's, with one change of meaning: ``device_kind`` names the
+framework, ``"torch"`` where the reference says ``"jax"``, and
+``is_jittable`` says that the head's calls can be captured into a CUDA
+graph (the port's counterpart of tracing into a ``jax.jit``).
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ NEG_INF = -1e30
 
 class MissingScreenError(ValueError):
     """A screening head was requested without a fitted ``ScreenParams``."""
+
+
+class ScreenBlockError(ValueError):
+    """A kernel head was given a screen whose block size it cannot take."""
 
 
 def require_screen(screen, head_name: str):
@@ -76,6 +87,11 @@ class SoftmaxHead:
     top-1."""
 
     name: str = "abstract"
+    device_kind: str = "torch"
+    is_jittable: bool = True
+    supports_sampling: bool = True
+    supports_dist: bool = False
+    mesh = None
 
     def prepare(self) -> "SoftmaxHead":
         """One-time packing. Idempotent."""
@@ -96,6 +112,28 @@ class SoftmaxHead:
                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
 
+    def noise_shape(self, batch: int, temperature: float
+                    ) -> Optional[Tuple[int, ...]]:
+        """Shape of the standard Gumbel noise ``sample`` draws for ``batch``
+        rows at ``temperature`` (None at temperature ≤ 0, which draws
+        none). ``sample`` draws exactly this (``noise``); the serving
+        engine draws the same uniforms into a static buffer before each
+        CUDA graph replay."""
+        raise NotImplementedError
+
+    def noise(self, h, temperature: float,
+              generator: Optional[torch.Generator] = None,
+              gumbel: Optional[torch.Tensor] = None
+              ) -> Optional[torch.Tensor]:
+        """The noise ``sample`` adds: ``gumbel`` when given, else a draw of
+        ``noise_shape`` from ``generator``."""
+        if gumbel is not None:
+            return gumbel
+        shape = self.noise_shape(h.shape[0], temperature)
+        return None if shape is None else gumbel_noise(shape, generator,
+                                                       h.device)
+
+    # -- metadata -----------------------------------------------------------
     @property
     def flops_per_query(self) -> float:
         """Analytic MACs per query (paper's hardware-independent cost)."""
@@ -105,6 +143,56 @@ class SoftmaxHead:
     def bytes_per_query(self) -> float:
         """Estimated device-memory bytes one decode-step query moves."""
         return float("nan")
+
+    _MEMORY_ATTRS = ("W", "b", "_Wb", "_bb")
+
+    @property
+    def memory_bytes(self) -> int:
+        """Resident bytes of the head's serving tables: weights, the packed
+        copy where the head keeps one, and the screen's tensors, each
+        tensor counted once."""
+        tensors = [getattr(self, a, None) for a in self._MEMORY_ATTRS]
+        screen = getattr(self, "screen", None)
+        if screen is not None:
+            tensors += [screen.v, screen.cand_idx, screen.cand_len]
+        seen = {id(t): t for t in tensors if isinstance(t, torch.Tensor)}
+        return sum(int(t.nbytes) for t in seen.values())
+
+    @property
+    def n_shards(self):
+        """Vocab shards this head spans: None, no port head is sharded."""
+        return None
+
+    def step_key(self) -> tuple:
+        """Stable identity for the serving engine's step cache: the head's
+        class and name, its underlying tensors by ``id`` (W, b and the
+        screen's v, cand_idx, cand_len — a screen moved to the device it is
+        on keeps its tensors) and its ``fused`` flag. A transient instance
+        over the same tensors hits the hot entry (and its CUDA graphs)
+        instead of evicting it; packed copies (``_Wb``, ``_bb``) are left
+        out, being made from W and b."""
+        parts = [self.name, type(self)]
+        parts += [id(getattr(self, a)) for a in ("W", "b") if hasattr(self, a)]
+        screen = getattr(self, "screen", None)
+        if screen is not None:
+            parts += [id(screen.v), id(screen.cand_idx), id(screen.cand_len),
+                      screen.block]
+        fused = getattr(self, "fused", None)
+        if fused is not None:
+            parts.append(bool(fused))
+        return tuple(parts)
+
+    def describe(self) -> dict:
+        """Routing metadata, with the reference's keys: everything a
+        ``RoutingPolicy`` may weigh."""
+        return {"name": self.name, "device_kind": self.device_kind,
+                "is_jittable": self.is_jittable,
+                "supports_sampling": self.supports_sampling,
+                "supports_dist": self.supports_dist,
+                "flops_per_query": self.flops_per_query,
+                "bytes_per_query": self.bytes_per_query,
+                "memory_bytes": self.memory_bytes,
+                "n_shards": self.n_shards}
 
 
 def adjust_logits(logits: torch.Tensor, temperature: float, top_p: float
@@ -130,16 +218,13 @@ def adjust_logits(logits: torch.Tensor, temperature: float, top_p: float
 
 
 def sample_from_logits(logits: torch.Tensor, temperature: float, top_p: float,
-                       generator: Optional[torch.Generator] = None,
-                       gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       gumbel: Optional[torch.Tensor]) -> torch.Tensor:
     """Temperature + nucleus sampling over a (B, C) logit matrix, as a
     Gumbel-max draw: argmax(G + adjusted logits), the form of
-    ``jax.random.categorical``. temperature ≤ 0 degenerates to argmax."""
+    ``jax.random.categorical``, with G the head's ``gumbel`` noise (any
+    shape of B·C elements). temperature ≤ 0 degenerates to argmax."""
     if temperature <= 0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = adjust_logits(logits, temperature, top_p)
-    if gumbel is None:
-        gumbel = gumbel_noise(logits.shape, generator, logits.device)
     return torch.argmax(gumbel.reshape(logits.shape) + logits,
                         dim=-1).to(torch.int32)
-

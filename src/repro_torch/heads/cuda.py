@@ -15,7 +15,8 @@ torch, kept for A/B timing and as a fallback while bringing the fused kernel
 up on new hardware.
 
 The head needs a block-candidate screen (``block == V_BLK`` = 128) so a
-candidate set is a set of vocab tiles. ``prepare()`` packs (W, b) once into
+candidate set is a set of vocab tiles; another block size raises
+``ScreenBlockError``. ``prepare()`` packs (W, b) once into
 (n_blk, V_BLK, d) tiles; rows past the vocab get a NEG_INF bias. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
 """
@@ -25,8 +26,8 @@ import torch
 
 from repro_torch.configs.base import V_BLK
 from repro_torch.core.screening import ScreenParams
-from repro_torch.heads.base import (NEG_INF, SoftmaxHead, require_screen,
-                                    sample_from_logits,
+from repro_torch.heads.base import (NEG_INF, ScreenBlockError, SoftmaxHead,
+                                    require_screen, sample_from_logits,
                                     screened_bytes_per_query,
                                     screened_flops_per_query)
 from repro_torch.kernels import ops
@@ -40,7 +41,7 @@ class ScreenedCudaHead(SoftmaxHead):
                  fused: bool = True):
         require_screen(screen, "ScreenedCudaHead")
         if screen.block != V_BLK:
-            raise ValueError(
+            raise ScreenBlockError(
                 f"the CUDA head needs a {V_BLK}-word block-candidate screen "
                 f"(got block={screen.block}); fit with vocab_block={V_BLK}")
         self.W = W
@@ -60,6 +61,12 @@ class ScreenedCudaHead(SoftmaxHead):
         """(n_blk, V_BLK, d) of the packed weights."""
         self.prepare()
         return tuple(self._Wb.shape)
+
+    @property
+    def packed_nbytes(self) -> int:
+        """Bytes of the packed weights and bias."""
+        self.prepare()
+        return int(self._Wb.nbytes + self._bb.nbytes)
 
     def _args(self, h):
         self.prepare()
@@ -93,21 +100,24 @@ class ScreenedCudaHead(SoftmaxHead):
 
     def sample(self, h, temperature: float = 1.0, top_p: float = 1.0,
                generator=None, gumbel=None):
-        """``gumbel``, when given, is (B, K, V_BLK) standard Gumbel noise
-        (the fused path scales it by the temperature)."""
+        """The noise is (B, K, V_BLK) standard Gumbel noise (the fused path
+        scales it by the temperature; the unfused one reads it as
+        (B, K·V_BLK))."""
+        gumbel = self.noise(h, temperature, generator, gumbel)
         if self.fused and top_p >= 1.0:
             if temperature <= 0:
                 return self.topk(h, 1)[0][:, 0]
             return ops.screened_fused_sample(*self._args(h),
                                              temperature=temperature,
-                                             generator=generator,
                                              gumbel=gumbel)
         # nucleus sampling (and fused=False) needs the full candidate
         # distribution — unfused gather path
         logits, word_ids = ops.screened_candidate_logits(*self._args(h))
-        choice = sample_from_logits(logits, temperature, top_p, generator,
-                                    gumbel)
+        choice = sample_from_logits(logits, temperature, top_p, gumbel)
         return torch.gather(word_ids, 1, choice[:, None].long())[:, 0]
+
+    def noise_shape(self, batch: int, temperature: float):
+        return None if temperature <= 0 else (batch, self.screen.c_max, V_BLK)
 
     @property
     def flops_per_query(self) -> float:

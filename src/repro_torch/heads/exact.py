@@ -34,7 +34,11 @@ class ExactHead(SoftmaxHead):
     def sample(self, h, temperature: float = 1.0, top_p: float = 1.0,
                generator=None, gumbel=None):
         return sample_from_logits(self.logits(h), temperature, top_p,
-                                  generator, gumbel)
+                                  self.noise(h, temperature, generator,
+                                              gumbel))
+
+    def noise_shape(self, batch: int, temperature: float):
+        return None if temperature <= 0 else (batch, self.W.shape[0])
 
     @property
     def flops_per_query(self) -> float:

@@ -51,10 +51,16 @@ class ScreenedHead(SoftmaxHead):
         """Temperature/nucleus sample WITHIN the routed candidate set
         (probability 0 elsewhere)."""
         logits, word_ids = self._candidate_logits(h)
-        choice = sample_from_logits(logits.float(), temperature, top_p,
-                                    generator, gumbel)
+        choice = sample_from_logits(
+            logits.float(), temperature, top_p,
+            self.noise(h, temperature, generator, gumbel))
         return torch.gather(word_ids, 1, choice[:, None].long())[:, 0].to(
             torch.int32)
+
+    def noise_shape(self, batch: int, temperature: float):
+        if temperature <= 0:
+            return None
+        return (batch, self.screen.c_max * self.screen.block)
 
     @property
     def flops_per_query(self) -> float:

@@ -19,7 +19,7 @@ with −inf values whose ids repeat real candidates.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -92,15 +92,31 @@ def _sm_count(dev: torch.device) -> int:
 
 # (device, stream) → per-row merge counters, zero between launches
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# counters outgrown by a wider batch: a CUDA graph captured before may still
+# hold their address, so they are kept for the life of the process
+_RETIRED: List[torch.Tensor] = []
 
 
 def _counters(dev: torch.device, B: int) -> torch.Tensor:
     """The kernel's per-row counters for the current stream of ``dev``:
     allocated zero, left zero by every launch, never shared by two
-    streams."""
+    streams.
+
+    A CUDA graph bakes in the address it was captured with, so a buffer is
+    never freed, and never allocated during a capture (it would live in
+    that graph's private pool): a launch on the capture stream outside the
+    capture, at the capture's batch width, must come first, and a capture
+    that needs a new buffer raises."""
     key = (dev, torch.cuda.current_stream(dev).cuda_stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < B:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused_screened_topk: no counters for this stream at batch "
+                f"width {B}; launch once on the capture stream, outside the "
+                "CUDA graph capture, first")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
         _COUNTERS[key] = buf
     return buf

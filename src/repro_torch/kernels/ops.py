@@ -31,7 +31,9 @@ tensor each wrapper runs its plain PyTorch version instead.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
 it with ``reset_launches`` and reads it to show that the path it drove went
-through the kernels.
+through the kernels. A wrapper called while a CUDA graph captures launches
+nothing: the serving engine takes the capture's count back out and adds it
+again at every replay of the graph (``serving/engine.py::_Graph``).
 """
 from __future__ import annotations
 
@@ -188,9 +190,17 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
     """Standard Gumbel noise, ``-log(-log(u))`` with u uniform in
     [tiny, 1) as ``jax.random.gumbel`` draws it (other bits: the two
     frameworks' generators differ)."""
-    u = torch.rand(shape, generator=generator, device=device)
-    u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    return gumbel_from_uniform(torch.rand(shape, generator=generator,
+                                          device=device))
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """The Gumbel transform of ``gumbel_noise`` applied to uniform draws
+    ``u`` already made (``u`` is left as it was): the serving engine draws
+    into a static buffer before each CUDA graph replay and the graph
+    transforms it, giving the bits ``gumbel_noise`` gives from the same
+    generator state."""
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
 def _route_block_ids(v, cand_blocks, h) -> torch.Tensor:

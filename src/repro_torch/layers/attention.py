@@ -13,9 +13,9 @@ attention kernel). The decode step's K and V cache writes go through
 ``kernels/cache_update.py::cache_kv_update`` — one launch of the CUDA kernel
 on the card.
 
-Not ported yet (each raises NotImplementedError, ROADMAP.md Queue 1): the
-vector-``pos`` decode branch, ring-buffer (sliding-window) caches, the
-chunked attention path for T ≥ 2048, M-RoPE and ``attn_decode_paged``.
+Not ported yet (each raises NotImplementedError, ROADMAP.md Queue 1):
+ring-buffer (sliding-window) caches, the chunked attention path for
+T ≥ 2048, M-RoPE and ``attn_decode_paged``.
 """
 from __future__ import annotations
 
@@ -151,7 +151,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
 
 def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
                 window: Optional[int] = None):
-    """One-token decode. x1: (B, 1, d); pos: scalar int absolute position.
+    """One-token decode. x1: (B, 1, d); pos: the token's absolute position
+    — a Python int, a 0-dim int32 tensor on x1's device (one position for
+    every row), or a (B,) int32 tensor of per-row positions.
 
     Writes this token's K/V at slot ``pos`` of every row through
     ``cache_kv_update`` — IN PLACE: ``cache`` itself is updated, where the
@@ -159,24 +161,33 @@ def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
     caller that needs the old cache must copy it first. A slot past the end
     is clamped to S − 1, as the reference's ``dynamic_update_slice`` does.
 
-    Returns (out (B, 1, d), cache). The vector-``pos`` branch (per-row
-    positions) and ring buffers raise NotImplementedError."""
-    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
-        raise _not_ported("vector-pos attention decode")
-    pos = int(pos)
+    A tensor ``pos`` is never read on the host: the RoPE positions, the
+    keep-mask ``arange(S) <= pos`` and the per-row cache slots are built from
+    it on the device, so a CUDA graph that captures this step reads the
+    position each replay finds in the tensor. For rows at equal positions
+    the tensor and int paths give bit-identical outputs and caches.
+
+    Returns (out (B, 1, d), cache). Ring buffers raise NotImplementedError."""
     w = window if window is not None else cfg.sliding_window
     S = cache["k"].shape[1]
     if w is not None and S == w:
         raise _not_ported("ring-buffer attention decode")
     B = x1.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x1.device)
-    q, k, v = _project_qkv(params, x1, cfg, positions)
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() > 1 or (pos.dim() == 1 and pos.shape[0] != B):
+            raise ValueError(f"pos must be 0-dim or ({B},), got "
+                             f"{tuple(pos.shape)}")
+        pvec = pos.to(torch.int32).expand(B).contiguous()
+        slot = pvec
+    else:
+        slot = int(pos)
+        pvec = torch.full((B,), slot, dtype=torch.int32, device=x1.device)
+    q, k, v = _project_qkv(params, x1, cfg, pvec[:, None])
     dtype = cache["k"].dtype
     ck, cv = cache_kv_update(cache["k"], k[:, 0].to(dtype).contiguous(),
-                             cache["v"], v[:, 0].to(dtype).contiguous(), pos)
-    valid = torch.arange(S, device=x1.device) <= pos
-    mask = valid[None, None, :].expand(B, 1, S)
-    out = _sdpa(q, ck, cv, mask, cfg)
+                             cache["v"], v[:, 0].to(dtype).contiguous(), slot)
+    valid = torch.arange(S, device=x1.device)[None, :] <= pvec[:, None]
+    out = _sdpa(q, ck, cv, valid[:, None, :], cfg)
     return _proj_out(out, params["wo"]), {"k": ck, "v": cv}
 
 

@@ -166,9 +166,11 @@ def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def stack_decode(params, x1, cache, pos: int, cfg: ModelConfig):
+def stack_decode(params, x1, cache, pos, cfg: ModelConfig):
     """One-token decode through the stack. x1: (B, 1, d) → (h (B, 1, d),
-    cache), the cache updated in place."""
+    cache), the cache updated in place. ``pos`` (an int, a 0-dim or a (B,)
+    int32 tensor, see ``attn_decode``) reaches the shared attention block;
+    the Mamba2 layers ignore it."""
     _check_family(cfg)
     period = _period(cfg)
     for i in range(cfg.num_layers // period):

@@ -99,9 +99,11 @@ class Model:
         return stack_prefill(params["stack"], x, self.cfg, cache)
 
     def decode_step(self, params, token, cache, pos=None):
-        """token: (B,) int; ``pos``: the token's absolute position (a scalar;
-        unused by the LSTM state). SSM/hybrid caches are updated in place.
-        → (h (B, d), cache)."""
+        """token: (B,) int; ``pos``: the token's absolute position — an int,
+        a 0-dim int32 tensor or a (B,) int32 tensor of per-row positions on
+        the token's device (see ``layers/attention.py::attn_decode``); the
+        LSTM and the SSM layers ignore it. SSM/hybrid caches are updated in
+        place. → (h (B, d), cache)."""
         x1 = embed_tokens(params["embed"], token)
         if self.cfg.family == "lstm":
             h, new_state = lstm_decode_step(params["lstm"], x1, cache["lstm"],

@@ -434,3 +434,167 @@ def test_cuda_hybrid_engine_runs_the_ssm_kernels(cuda):
     assert ops.LAUNCHES["cache_slot_update"] == cfg.num_layers * 5
     cpu = DecodeEngine(model, params, max_len=64, device="cpu").generate(prompts, 6)
     np.testing.assert_array_equal(out.tokens, cpu.tokens)
+
+
+# -- the engine's CUDA graphs ---------------------------------------------------
+
+def _graph_engine(cuda, family):
+    """Reduced nmt-deen-lstm (V = 600, a padded last block) or reduced
+    zamba2-2.7b on the card, with a 128-word block screen."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.screening import candidates_to_padded
+    from repro_torch.interop import screen_from_numpy
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine
+
+    if family == "lstm":
+        from dataclasses import replace
+        cfg = replace(get_config("nmt-deen-lstm").reduced(), vocab_size=600)
+    else:
+        cfg = get_config("zamba2-2.7b").reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params["embed"]["embedding"] *= 20.0
+    rng = np.random.default_rng(0)
+    n_blk = -(-cfg.vocab_size // V_BLK)
+    mask = rng.random((4, n_blk)) < 0.6
+    mask[:, n_blk - 1] = True
+    idx, lens = candidates_to_padded(mask, cfg.vocab_size, block=V_BLK)
+    screen = screen_from_numpy(rng.standard_normal((4, cfg.d_model)), idx,
+                               lens, cfg.vocab_size, V_BLK)
+    eng = DecodeEngine(model, params, screen=screen, max_len=64, device=cuda)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 20))
+    return eng, prompts
+
+
+def _head(eng, name):
+    from repro_torch.heads import ScreenedCudaHead
+    if name == "cuda-unfused":
+        return ScreenedCudaHead(eng.W, eng.b, eng.screen, fused=False).prepare()
+    return eng.resolve_head("screened-cuda" if name == "cuda-fused" else name)
+
+
+@pytest.mark.parametrize("family", ["lstm", "hybrid"])
+@pytest.mark.parametrize("name", ["exact", "cuda-fused", "cuda-unfused"])
+def test_cuda_graph_tokens_equal_the_eager_step_body(cuda, family, name):
+    """Greedy, sampled (top_p 1 and 0.9) and beam tokens of the graph
+    replays equal the step bodies' run eagerly, bit for bit; one graph per
+    (head, kind) at this width; replays count the launches eager runs make."""
+    from repro_torch.testing import eager_beam_search, eager_generate
+    eng, prompts = _graph_engine(cuda, family)
+    hd = _head(eng, name)
+    runs = [dict(), dict(temperature=0.9, seed=3),
+            dict(temperature=0.9, top_p=0.9, seed=4)]
+    for kw in runs:
+        ops.reset_launches()
+        got = eng.generate(prompts, 6, head=hd, **kw)
+        ops.reset_launches()
+        got = eng.generate(prompts, 6, head=hd, **kw)    # replays only
+        replayed = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        want = eager_generate(eng, prompts, 6, head=hd, **kw)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        assert replayed == ops.LAUNCHES, kw
+    gb = eng.beam_search(prompts[0], 4, 6, head=hd)
+    eb = eager_beam_search(eng, prompts[0], 4, 6, head=hd)
+    np.testing.assert_array_equal(gb.tokens, eb.tokens)
+    np.testing.assert_array_equal(gb.scores, eb.scores)
+    counts = eng.compiled_step_counts()
+    assert counts == {(hd.name, "greedy"): 1, (hd.name, "sample"): 2,
+                      (hd.name, "decode"): 1}
+
+
+@pytest.mark.parametrize("family", ["lstm", "hybrid"])
+@pytest.mark.parametrize("name", ["exact", "cuda-fused", "cuda-unfused"])
+def test_cuda_graph_sampled_tokens_equal_the_heads_own_draw(cuda, family,
+                                                             name):
+    """Graph-sampled tokens equal those the head's own ``sample(h,
+    generator=...)`` draws from the same seed, the model stepped eagerly."""
+    from repro_torch.testing import head_sampled_generate
+    eng, prompts = _graph_engine(cuda, family)
+    hd = _head(eng, name)
+    for top_p in (1.0, 0.9):
+        for _ in range(2):                              # capture, replay
+            got = eng.generate(prompts, 6, head=hd, temperature=0.9,
+                               top_p=top_p, seed=5)
+            want = head_sampled_generate(eng, prompts, 6, hd, 0.9, top_p,
+                                         seed=5)
+            np.testing.assert_array_equal(got.tokens, want)
+
+
+def test_cuda_slabs_freed_with_their_last_graph(cuda):
+    """Widths 1..3 each keep one slab while their graphs live; once the LRU
+    has evicted every graph, no slab is left, and a new one serves the
+    next call."""
+    from repro_torch.testing import eager_generate
+    eng, prompts = _graph_engine(cuda, "lstm")
+    hd = eng.resolve_head("screened-cuda")
+    for B in (1, 2, 3):
+        eng.generate(prompts[:B], 3, head=hd)
+    assert sorted(eng._slabs) == [1, 2, 3]
+    eng.generate(prompts[:1], 1, head="exact")      # runs no step
+    assert sorted(eng._slabs) == [1, 2, 3]
+    for i in range(32):                             # steps with no graph
+        eng._sample_step(hd, 0.5 + 0.05 * i, 1.0)
+    assert len(eng._slabs) == 0
+    np.testing.assert_array_equal(
+        eng.generate(prompts[:2], 4, head=hd).tokens,
+        eager_generate(eng, prompts[:2], 4, head=hd).tokens)
+    assert sorted(eng._slabs) == [2]
+
+
+def test_cuda_graph_replay_adds_its_captured_launches(cuda):
+    eng, prompts = _graph_engine(cuda, "hybrid")
+    hd = eng.resolve_head("screened-cuda")
+    eng.generate(prompts, 2, head=hd)                   # capture
+    graph = eng._step_cache[(hd.step_key(), "greedy")].graphs[3]
+    n_attn = eng.model.cfg.num_layers // eng.model.cfg.hybrid_shared_period
+    assert graph.launches == {"cluster_route": 1, "fused_screened_topk": 1,
+                              "cache_slot_update": n_attn}
+    ops.reset_launches()
+    with torch.inference_mode():
+        graph.replay()
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == graph.launches
+
+
+def test_cuda_graphs_survive_eviction_and_wider_counters(cuda):
+    """33 captures evict the first entry of the LRU of 32; a wider batch
+    (B = 70) outgrows the fused kernel's counters. The graphs captured
+    before both still replay the eager tokens."""
+    from repro_torch.testing import eager_generate
+    eng, prompts = _graph_engine(cuda, "lstm")
+    hd = eng.resolve_head("screened-cuda")
+    eng.generate(prompts, 3, head=hd)
+    temps = [0.5 + 0.05 * i for i in range(32)]
+    for t in temps:
+        eng.generate(prompts, 3, head=hd, temperature=t, seed=1)
+    assert eng._cache_size() == 32
+    assert (hd.step_key(), "greedy") not in eng._step_cache
+    wide = np.resize(prompts, (70, prompts.shape[1]))
+    np.testing.assert_array_equal(eng.generate(wide, 4, head=hd).tokens,
+                                  eager_generate(eng, wide, 4, head=hd).tokens)
+    for t in temps[1:3]:
+        got = eng.generate(prompts, 5, head=hd, temperature=t, seed=2)
+        want = eager_generate(eng, prompts, 5, head=hd, temperature=t, seed=2)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
+def test_cuda_serve_batch_adds_no_graph_when_repeated(cuda):
+    from repro_torch.serving import CostAwarePolicy, ServeRequest
+    eng, prompts = _graph_engine(cuda, "lstm")
+    reqs = [ServeRequest(prompt=prompts[i % 3][:10 + 5 * (i % 2)],
+                         max_new=3 + i % 3, k=1 + 4 * (i % 2),
+                         accuracy_floor=1.0 if i % 4 == 3 else 0.0,
+                         temperature=0.8 if i % 5 == 4 else None, seed=i)
+            for i in range(10)]
+    pol = CostAwarePolicy(["screened-cuda", "exact"])
+    first = eng.serve_batch(reqs, policy=pol)
+    counts = eng.compiled_step_counts()
+    assert sum(counts.values()) > 0
+    again = eng.serve_batch(reqs, policy=pol)
+    assert eng.compiled_step_counts() == counts
+    for req, a, b in zip(reqs, first, again):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        if req.temperature is None:
+            solo = eng.generate(req.prompt[None], req.max_new, head=a.head)
+            np.testing.assert_array_equal(solo.tokens[0], a.tokens)

@@ -12,6 +12,7 @@ of the JAX engine through ``exact`` and ``screened-pallas``, and
 ``beam_search`` (beam 4) the same top beam with its score within 1e-5. The
 fixture asserts that every decided step has a top-2 gap above 1e-4 (logits,
 and cluster scores on the screened path), so the equality is meaningful.
+``ptb-small-lstm`` decodes past ``max_len`` with the reference's tokens.
 """
 from dataclasses import replace
 
@@ -143,6 +144,28 @@ def test_greedy_generate_and_beam_match_reference(fx, tname, jname, kw):
     np.testing.assert_array_equal(tb.tokens, jb.tokens)
     np.testing.assert_allclose(tb.scores, jb.scores, rtol=0, atol=1e-5)
     assert not any(ops.LAUNCHES.values())          # no kernel on the CPU
+
+
+def test_lstm_decodes_past_max_len_like_the_reference():
+    """The LSTM state does not grow with the sequence: ``ptb-small-lstm``
+    decodes a prompt of 10 tokens and 5 new ones with max_len = 8, with the
+    JAX engine's greedy tokens (each step decided by a top-2 gap > 1e-4)."""
+    jcfg = j_get_config("ptb-small-lstm").reduced()
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init(jax.random.key(3))
+    jparams["embed"]["lm_head"] = jparams["embed"]["lm_head"] * 100.0
+    tmodel = Model(get_config("ptb-small-lstm").reduced())
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    prompts = np.random.default_rng(3).integers(
+        0, jcfg.vocab_size, (2, 10)).astype(np.int32)
+    want = JEngine(jmodel, jparams, max_len=8).generate(prompts, 5).tokens
+    seq = np.concatenate([prompts, np.asarray(want)[:, :-1]], axis=1)
+    h, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(seq)})
+    logits = jmodel.logits(jparams, h[:, prompts.shape[1] - 1:])
+    assert _top2_gap(logits).min() > GAP
+    got = DecodeEngine(tmodel, tparams, max_len=8,
+                       device="cpu").generate(prompts, 5).tokens
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_sampled_generate_runs_in_vocab(fx):

@@ -6,6 +6,9 @@ package's, on weights initialised in JAX and carried across with
   * ``attn_forward_kv`` / ``attn_decode`` (scalar pos, its cache write
     through ``cache_slot_update``), ``apply_rope``, ``mlp_apply``,
     ``norm_apply``: atol = 1e-4 (1e-5 for the elementwise layers);
+    ``attn_decode`` with a (B,) tensor of per-row positions against the
+    reference's vector branch, atol = 1e-5, and with a 0-dim or aligned
+    tensor pos bit for bit against its own int path;
   * end to end, reduced configs (d = 128, chunk 16): hidden states of
     ``forward``, ``prefill`` and 3 ``decode_step``s within atol = 1e-4;
     greedy tokens of ``DecodeEngine(device="cpu")`` through ``exact`` and
@@ -13,7 +16,9 @@ package's, on weights initialised in JAX and carried across with
     ``exact`` and ``screened-pallas`` on prompts of 40 tokens (3 chunks of
     16, the last padded); beam 4 gives the same top beam, its score within
     1e-4. The fixture asserts that every decided step has a top-2 gap above
-    1e-4 (logits, and cluster scores on the screened path).
+    1e-4 (logits, and cluster scores on the screened path). Past
+    ``max_len`` the hybrid engine refuses and the SSM engine decodes, with
+    the reference's tokens.
 """
 from dataclasses import replace
 
@@ -87,8 +92,30 @@ def test_attention_forward_and_decode_match_reference():
         for k in ("k", "v"):
             np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]),
                                        atol=1e-4)
-    with pytest.raises(NotImplementedError, match="vector-pos"):
-        tattn.attn_decode(tp, _t(x[:, :1]), tc, torch.tensor([1, 2]), tcfg)
+    # a tensor pos: rows at different depths against the reference's
+    # vector branch, within atol = 1e-5 (the reference's own attention
+    # decode tolerance; its bit-identity test fails at the seed); a 0-dim
+    # and an aligned (B,) pos bit for bit against the port's own int path
+    x1 = x[:, T + 2:T + 3]
+    pvec = np.asarray([T + 3, T + 1], np.int32)
+    jo, jcv = jattn.attn_decode(jp, jnp.asarray(x1), jc, jnp.asarray(pvec),
+                                cfg)
+    tcv = {k: a.clone() for k, a in tc.items()}
+    to, _ = tattn.attn_decode(tp, _t(x1), tcv, _t(pvec), tcfg)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tcv[k].numpy(), np.asarray(jcv[k]),
+                                   atol=1e-5)
+    want = {k: a.clone() for k, a in tc.items()}
+    wo, _ = tattn.attn_decode(tp, _t(x1), want, T + 3, tcfg)
+    for pos in (torch.tensor(T + 3, dtype=torch.int32),
+                torch.full((2,), T + 3, dtype=torch.int32)):
+        got = {k: a.clone() for k, a in tc.items()}
+        go, _ = tattn.attn_decode(tp, _t(x1), got, pos, tcfg)
+        assert torch.equal(go, wo)
+        assert all(torch.equal(got[k], want[k]) for k in ("k", "v"))
+    with pytest.raises(ValueError, match="pos must be"):
+        tattn.attn_decode(tp, _t(x1), tc, torch.tensor([1, 2, 3]), tcfg)
     assert ops.LAUNCHES["cache_slot_update"] == 0
 
 
@@ -242,8 +269,33 @@ def test_greedy_generate_and_beam_match_reference(fx, tname, jname, kw):
     np.testing.assert_array_equal(tb.tokens, jb.tokens)
     np.testing.assert_allclose(tb.scores, jb.scores, rtol=0, atol=1e-4)
     assert not any(ops.LAUNCHES.values())           # no kernel on the CPU
-    with pytest.raises(ValueError, match="max_len"):
-        teng.generate(fx["prompts"], MAX_LEN, head=tname)
+    # past max_len: the hybrid's K/V cache refuses; the SSM state does not
+    # grow, and decodes on as the reference does
+    if fx["tmodel"].cfg.family == "hybrid":
+        with pytest.raises(ValueError, match="max_len"):
+            teng.generate(fx["prompts"], MAX_LEN, head=tname)
+    else:
+        want = jeng.generate(fx["prompts"], MAX_LEN, head=jname).tokens
+        _assert_decided(fx, fx["prompts"], want, screened=tname != "exact")
+        got = teng.generate(fx["prompts"], MAX_LEN, head=tname).tokens
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_decode_past_max_len(fx):
+    """A prompt of 10 tokens and 5 new ones with max_len = 8: the SSM state
+    does not grow, and ``mamba2-1.3b`` decodes the JAX engine's greedy
+    tokens; the hybrid's K/V cache of 8 slots refuses."""
+    prompts = fx["prompts"][:, :10]
+    teng = DecodeEngine(fx["tmodel"], fx["tparams"], max_len=8, device="cpu")
+    if fx["tmodel"].cfg.family == "hybrid":
+        with pytest.raises(ValueError, match="max_len is 8"):
+            teng.generate(prompts, 5)
+        return
+    want = JEngine(fx["jmodel"], fx["jparams"], max_len=8).generate(
+        prompts, 5).tokens
+    _assert_decided(fx, prompts, want, screened=False)
+    np.testing.assert_array_equal(teng.generate(prompts, 5).tokens,
+                                  np.asarray(want))
 
 
 @pytest.mark.parametrize("tname,jname,kw", [
