@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU, and
-check it: the L2S screened decode of the paper's LSTM (nmt-deen-lstm) and the
+check it: the L2S screened decode of the paper's LSTM (nmt-deen-lstm), the
+training side (the LM trainer and Algorithm 1, fitting a screen) and the
 Mamba2/Zamba2 decode path (zamba2-2.7b).
 
     python3 chip_smoke.py
@@ -87,6 +88,30 @@ Phases, one line (or a few) each:
               through DecodeEngine.serve_batch: greedy results equal solo
               generate calls, and a second identical serve_batch adds no
               graph;
+     train    the training side on full-width nmt-deen-lstm (seeded random
+              init): the synthetic Zipf-Markov corpus (V = 25,000, 64
+              successors; its host build time printed); one train step on
+              the card against the same step on the CPU (gradients within
+              1e-4 of the largest |g|, loss and gnorm within rtol 1e-5);
+              300 steps of 32 x 64 tokens (lr 2e-3, warmup 20, cosine):
+              the mean loss of the last 20 steps below the first 20's,
+              every gnorm finite; s/step and peak device memory;
+     l2s      Algorithm 1 on the trained LM: 100,000 contexts with their
+              exact top-5 (90,000 to fit, 10,000 held out), fit_l2s (r =
+              100, budget 1,024 words, 128-word blocks, 4 rounds x 200
+              v-steps of 512) and the k-means-only ablation on the card,
+              each round's loss, Lbar, coverage and c-/v-step times; the
+              route kernel's clusters give back the fit's coverage (rows
+              whose top-2 cluster scores differ by < 1e-5 relative aside);
+              on the held-out rows screened-cuda fused == unfused ids, ==
+              the plain block screened head (sentinels mapped) except rows
+              whose top-k gap is < 1e-5; P@1 / P@5 against exact for L2S
+              and k-means only, Lbar and the analytic speedup; greedy 4 x 16
+              through exact and screened-cuda on DecodeEngine with the
+              fitted screen (token agreement); launches of the evaluation
+              and decode, counted from zero, with route and fused top-k
+              launched; exact against screened-cuda head times (CUDA
+              events) at B = 1 and B = 10,000;
   6. ssm      the SSD intra-chunk kernel against its plain version at
               zamba2-2.7b's prefill chunk (B = 4, nc = 2, Q = 256, H = 80,
               P = N = 64, G = 1), mamba2-1.3b's (H = 64, N = 128) and a
@@ -122,7 +147,8 @@ Phases, one line (or a few) each:
               the count their capture recorded).
   8. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on each
-              path: the two e2e paths, their graph phases and serve; its
+              path: the two e2e paths, their graph phases, serve and
+              the fitted screen's "nmt-deen-lstm l2s-fit"; its
               "launch_cost_ms" eager, in a graph and per launch in a graph
               of 9;
               the three L2S kernels also "at_zamba2_width"; the gather
@@ -1541,6 +1567,249 @@ def phase_serve(torch, np, ctx):
     return launches
 
 
+# -- training side: the LM trainer and Algorithm 1 -------------------------------
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 32, 64, 300
+N_CTX, N_FIT = 100_000, 90_000
+TOP_GAP = 1e-5
+
+
+def plain_topk_rows(torch, np, W, b, screen, H, k, batch=256):
+    """The plain block screened head (``core/screening.py``) over H in
+    batches on the card → (ids (N, k), smallest gap between its k + 1
+    largest candidate logits (N,))."""
+    from repro_torch.core.screening import screened_topk
+    ids, gaps = [], []
+    with torch.inference_mode():
+        for i in range(0, len(H), batch):
+            h = torch.as_tensor(H[i:i + batch], device="cuda")
+            got, vals = screened_topk(W, b, screen, h, k + 1)
+            ids.append(got[:, :k].cpu().numpy())
+            gaps.append((vals[:, :-1] - vals[:, 1:]).min(dim=1).values
+                        .cpu().numpy())
+    return np.concatenate(ids), np.concatenate(gaps)
+
+
+def phase_train_l2s(torch, np):
+    """[train] / [l2s] on full-width nmt-deen-lstm: train the LM on the
+    synthetic corpus (300 steps of 32 x 64 tokens; one step held against the
+    CPU's), harvest 100,000 contexts, fit a 128-word block screen with
+    ``fit_l2s`` (and the k-means-only ablation), then hold it to the exact
+    head on 10,000 held-out contexts through the CUDA kernels and decode
+    with it. → launches of the evaluation and decode through the fitted
+    screen (counted from zero)."""
+    from repro_torch import heads
+    from repro_torch.configs import L2SConfig, TrainConfig, get_config
+    from repro_torch.core import collect_contexts, fit_l2s, precision_at_k
+    from repro_torch.core.evaluate import (avg_candidate_size, exact_topk,
+                                           speedup_model)
+    from repro_torch.core.screening import assign_clusters
+    from repro_torch.core.train_l2s import kmeans_only_screen
+    from repro_torch.data import BatchLoader, ZipfMarkovCorpus, make_lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.route import cluster_route
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    from repro_torch.optim import adamw_init, clip_by_global_norm
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.tree import tree_flatten
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    corpus = ZipfMarkovCorpus(V, branching=64, seed=0)
+    log(f"[train] ZipfMarkovCorpus({V}, branching=64) built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = get_config("nmt-deen-lstm")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(17),
+                        device="cuda")
+    tcfg = TrainConfig(lr=2e-3, warmup_steps=20, total_steps=TRAIN_STEPS,
+                       remat="none", loss_chunk=None)
+    batches = list(BatchLoader(make_lm_batches(corpus, TRAIN_STEPS, TRAIN_B,
+                                               TRAIN_T, seed=1), "cuda"))
+
+    # one step's gradients, loss and gnorm on the card against the CPU's
+    cpu_params = to_device(params, "cpu")
+    cpu_batch = {k: x.cpu() for k, x in batches[0].items()}
+    side = {}
+    for where, p, bt in (("card", params, batches[0]),
+                         ("cpu", cpu_params, cpu_batch)):
+        loss, grads = loss_and_grads(model, tcfg, p, bt)
+        _, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        side[where] = (float(loss), float(gnorm),
+                     [g.cpu() for g in tree_flatten(grads)])
+    gmax = max(float(g.abs().max()) for g in side["cpu"][2])
+    gerr = max(float((a - c).abs().max())
+               for a, c in zip(side["card"][2], side["cpu"][2]))
+    lrel = abs(side["card"][0] - side["cpu"][0]) / abs(side["cpu"][0])
+    nrel = abs(side["card"][1] - side["cpu"][1]) / abs(side["cpu"][1])
+    check(gerr <= 1e-4 * gmax and lrel <= 1e-5 and nrel <= 1e-5,
+          f"[train] card vs CPU step: max |dg| {gerr:.3g} (limit "
+          f"{1e-4 * gmax:.3g}), loss rel {lrel:.3g}, gnorm rel {nrel:.3g}")
+    log(f"[train] one step on the card vs the CPU from the same params and "
+        f"batch: max |g_card - g_cpu| {gerr:.3g} <= 1e-4 x max |g| "
+        f"{gmax:.3g}; loss {side['card'][0]:.6f} vs {side['cpu'][0]:.6f} "
+        f"(rel {lrel:.2g}), gnorm {side['card'][1]:.6f} vs "
+        f"{side['cpu'][1]:.6f} (rel {nrel:.2g}), each <= 1e-5")
+    del cpu_params, cpu_batch, side
+
+    step = make_train_step(model, tcfg)
+    opt = adamw_init(params)
+    losses, gnorms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for bt in batches:
+        params, opt, m = step(params, opt, bt)
+        losses.append(m["loss"])
+        gnorms.append(m["gnorm"])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    gnorms = torch.stack(gnorms).cpu().numpy()
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    check(np.isfinite(gnorms).all() and np.isfinite(losses).all(),
+          "[train] a loss or gnorm is not finite")
+    check(last < first, f"[train] loss did not fall: first 20 steps "
+          f"{first:.4f}, last 20 {last:.4f}")
+    log(f"[train] nmt-deen-lstm d={D} V={V}: {TRAIN_STEPS} steps of "
+        f"{TRAIN_B}x{TRAIN_T} tokens (lr 2e-3, warmup 20, cosine), mean loss "
+        f"first 20 steps {first:.4f} -> last 20 {last:.4f}, gnorm "
+        f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f} (all finite); "
+        f"{t_train / TRAIN_STEPS:.4f} s/step (synchronised host clock), "
+        f"peak device memory {peak / 2 ** 30:.2f} GiB")
+    del batches, opt
+
+    t0 = time.perf_counter()
+    tokens = [b["tokens"] for b in BatchLoader(make_lm_batches(
+        corpus, -(-N_CTX // (TRAIN_B * TRAIN_T)), TRAIN_B, TRAIN_T, seed=99),
+        "cuda")]
+    H, y = collect_contexts(model, params, tokens, max_vectors=N_CTX, k=5)
+    Hfit, yfit, Hte = H[:N_FIT], y[:N_FIT], H[N_FIT:]
+    log(f"[l2s] harvested {len(H)} contexts (exact top-5) in "
+        f"{time.perf_counter() - t0:.1f} s; {N_FIT} to fit, {len(Hte)} held "
+        f"out")
+
+    lcfg = L2SConfig(num_clusters=R, budget=1024, vocab_block=V_BLK,
+                     outer_iters=4, sgd_steps=200, batch_size=512)
+    t0 = time.perf_counter()
+    state = fit_l2s(Hfit, yfit, V, lcfg, verbose=True, device="cuda")
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    km = kmeans_only_screen(Hfit, yfit, V, lcfg, device="cuda")
+    t_km = time.perf_counter() - t0
+    cov = state.history[-1]["coverage_best"]
+    rounds = state.history[:-1]
+    log(f"[l2s] fit_l2s (r={R}, budget 1024, block {V_BLK}, 4 rounds x 200 "
+        f"v-steps of 512) in {t_fit:.1f} s: best coverage {cov:.6f}; per "
+        f"round (loss, Lbar, coverage, c-step s, v-step ms): " +
+        "; ".join(f"{h['loss']:.4f}, {h['lbar']:.1f}, {h['coverage']:.6f}, "
+                  f"{h['cstep_s']:.3f}, {h['vstep_s'] * 1e3:.3f}"
+                  for h in rounds) +
+        f"; kmeans_only_screen in {t_km:.1f} s")
+
+    W, b = model.softmax_weights(params)
+    screen = state.screen
+    n_blk = -(-V // V_BLK)
+
+    # the route kernel's clusters on the fitting contexts give back the
+    # fit's coverage, up to rows whose top-2 cluster scores nearly tie
+    with torch.inference_mode():
+        hf = torch.as_tensor(Hfit, device="cuda")
+        plain = assign_clusters(screen.v, hf)
+        kern = cluster_route(hf, screen.v)
+        scores = torch.topk(hf @ screen.v.T, 2, dim=-1).values
+        rel = ((scores[:, 0] - scores[:, 1]) /
+               scores[:, 0].abs().clamp(min=1e-30)).cpu().numpy()
+        plain, kern = plain.cpu().numpy(), kern.cpu().numpy()
+    del hf
+    items = yfit // V_BLK
+    hits = state.mask[kern][np.arange(N_FIT)[:, None], items].sum()
+    near = rel < 1e-5
+    moved = kern != plain
+    check(not (moved & ~near).any(),
+          f"[l2s] the route kernel moved {int(moved.sum())} fitting rows, "
+          f"some with top-2 cluster scores apart by >= 1e-5 relative")
+    cov_k = hits / yfit.size
+    check(abs(hits - round(cov * yfit.size)) <= 5 * int(near.sum()),
+          f"[l2s] coverage through the route kernel {cov_k:.6f}, fit_l2s "
+          f"reported {cov:.6f}, {int(near.sum())} near-tie rows")
+    log(f"[l2s] cluster_route on the {N_FIT} fitting contexts: coverage "
+        f"{cov_k:.6f} (fit_l2s reported {cov:.6f}); {int(moved.sum())} rows "
+        f"routed otherwise than torch.argmax, all among the "
+        f"{int(near.sum())} near-ties (< 1e-5 relative)")
+
+    # held-out evaluation: exact, the plain screened head, screened-cuda
+    # fused and unfused, counted from zero with the decode below
+    exact = heads.get("exact", W=W, b=b, device="cuda")
+    fused = heads.get("screened-cuda", W=W, b=b, screen=screen,
+                      device="cuda")
+    unfused = heads.get("screened-cuda", W=W, b=b, screen=screen,
+                        fused=False, device="cuda")
+    hte = torch.as_tensor(Hte, device="cuda")
+    ex = exact_topk(W, b, Hte, 5)
+    plain_ids, gaps = plain_topk_rows(torch, np, W, b, screen, Hte, 5)
+    ops.reset_launches()
+    with torch.inference_mode():
+        f_ids = fused.topk(hte, 5)[0].cpu().numpy()
+        u_ids = unfused.topk(hte, 5)[0].cpu().numpy()
+    check(np.array_equal(f_ids, u_ids),
+          "[l2s] screened-cuda fused and unfused ids differ")
+    mapped = np.where(plain_ids >= V, n_blk * V_BLK, plain_ids)
+    bad = np.nonzero((f_ids != mapped).any(1))[0]
+    check((gaps[bad] < TOP_GAP).all(),
+          f"[l2s] screened-cuda differs from the plain screened head on "
+          f"{len(bad)} rows, some with a top-k gap >= {TOP_GAP}")
+    km_head = heads.get("screened-cuda", W=W, b=b, screen=km.screen,
+                        device="cuda")
+    with torch.inference_mode():
+        km_ids = km_head.topk(hte, 5)[0].cpu().numpy()
+    p = {name: (precision_at_k(ids[:, :1], ex[:, :1]),
+                precision_at_k(ids, ex))
+         for name, ids in (("l2s", f_ids), ("kmeans", km_ids))}
+    lbar = avg_candidate_size(screen, Hte)
+    lbar_km = avg_candidate_size(km.screen, Hte)
+    log(f"[l2s] held-out {len(Hte)}: screened-cuda fused == unfused ids; == "
+        f"the plain screened head (sentinels mapped) except {len(bad)} rows "
+        f"with a top-k gap < {TOP_GAP}; {len(np.unique(ex[:, 0]))} distinct "
+        f"exact top-1 ids, {len(np.unique(ex))} distinct in the top-5")
+    log(f"[l2s] P@1 / P@5 against exact: L2S {p['l2s'][0]:.4f} / "
+        f"{p['l2s'][1]:.4f} (Lbar {lbar:.1f} words, analytic speedup "
+        f"{speedup_model(V, D, R, lbar):.1f}x); k-means only "
+        f"{p['kmeans'][0]:.4f} / {p['kmeans'][1]:.4f} (Lbar {lbar_km:.1f}, "
+        f"{speedup_model(V, D, R, lbar_km):.1f}x)")
+
+    # the fitted screen in the decode engine (graphs), greedy 4 x 16
+    eng = DecodeEngine(model, params, screen=screen, device="cuda")
+    prompts = corpus.sample_batch(4, 8, seed=7)
+    g_exact = eng.generate(prompts, 16, head="exact")
+    g_scr = eng.generate(prompts, 16, head="screened-cuda")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(launches["cluster_route"] > 0 and launches["fused_screened_topk"] > 0,
+          f"[l2s] a kernel never launched: {launches}")
+    agree = float((g_exact.tokens == g_scr.tokens).mean())
+    log(f"[l2s] DecodeEngine greedy 4x16 with the fitted screen: screened-cuda "
+        f"== exact on {agree:.4f} of tokens; launches (evaluation and decode, "
+        f"from zero): {json.dumps(launches)}")
+
+    timer = Timer(torch, reps=10)
+    out = {}
+    for B in (1, len(Hte)):
+        h = hte[:B].contiguous()
+        with torch.inference_mode():
+            t = timer.turns({"exact": lambda: exact.topk(h, 5),
+                             "screened-cuda": lambda: fused.topk(h, 5)})
+        out[B] = t
+        log(f"[l2s] head time, B={B}, k=5 (CUDA events, clean L2): exact "
+            f"{t['exact']:.5f} ms, screened-cuda {t['screened-cuda']:.5f} ms "
+            f"(ratio {t['exact'] / t['screened-cuda']:.2f})")
+    log(f"[l2s] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1569,6 +1838,7 @@ def main() -> int:
                      device="cuda"), ctx["prompts"], 16, 5, sampled=True)
     serve = phase_serve(torch, np, ctx)
     del ctx
+    l2s_fit = phase_train_l2s(torch, np)
     ssm_err, ssm_times = phase_ssm_kernels(torch)
     err.update(ssm_err)
     times.update(ssm_times)
@@ -1590,7 +1860,8 @@ def main() -> int:
     # each kernel's launches on the path it was ported for, and on each path
     launches = {k: (hybrid if k in ssm_err else lstm)[k] for k in lstm}
     paths = {"nmt-deen-lstm": lstm, "nmt-deen-lstm graph": graph_lstm,
-             "serve": serve, "zamba2-2.7b": hybrid,
+             "serve": serve, "nmt-deen-lstm l2s-fit": l2s_fit,
+             "zamba2-2.7b": hybrid,
              "zamba2-2.7b graph": graph_hybrid}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",

@@ -2,7 +2,8 @@
 (the paper's LSTMs, mamba2-1.3b and zamba2-2.7b)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import V_BLK, ModelConfig, SSMConfig
+from repro_torch.configs.base import (V_BLK, L2SConfig, ModelConfig,
+                                      SSMConfig, TrainConfig)
 from repro_torch.configs.mamba2_1p3b import CONFIG as _mamba2_1p3b
 from repro_torch.configs.nmt_deen import CONFIG as _nmt_deen
 from repro_torch.configs.ptb_lstm import PTB_LARGE as _ptb_large
@@ -19,4 +20,5 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ModelConfig", "REGISTRY", "SSMConfig", "V_BLK", "get_config"]
+__all__ = ["L2SConfig", "ModelConfig", "REGISTRY", "SSMConfig", "TrainConfig",
+           "V_BLK", "get_config"]

@@ -1,5 +1,7 @@
 """Model configuration: the reference ``ModelConfig`` fields that the ported
-families (``lstm``, ``ssm``, ``hybrid``) read, and ``SSMConfig``.
+families (``lstm``, ``ssm``, ``hybrid``) read, ``SSMConfig``, and the
+training side's ``L2SConfig`` (Algorithm 1) and ``TrainConfig`` (the LM
+trainer), field for field with the reference's defaults.
 
 The MoE, vision and audio fields come with their families (ROADMAP.md,
 Queue 1). ``reduced()`` gives the same small CPU variant as the reference,
@@ -89,3 +91,35 @@ class ModelConfig:
         if self.family == "hybrid":
             kw["hybrid_shared_period"] = 1
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class L2SConfig:
+    """Hyper-parameters of the paper's technique (Algorithm 1)."""
+    num_clusters: int = 100          # r
+    budget: int = 512                # B: average candidate size (words)
+    top_k: int = 5                   # k used to build ground-truth label sets y
+    lamb: float = 3e-4               # λ in Eq.(6) — paper value
+    gamma: float = 10.0              # γ Lagrange weight — paper value
+    outer_iters: int = 4             # T alternating rounds
+    sgd_steps: int = 200             # SGD steps per v-update round
+    lr: float = 0.05
+    gumbel_temp: float = 1.0
+    batch_size: int = 512
+    # block-candidate variant: items of V_BLK words; block=1 → paper-faithful
+    vocab_block: int = 1
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    microbatch: Optional[int] = None   # gradient accumulation (None = off)
+    remat: str = "block"               # none | block (a no-op in the port)
+    loss_chunk: Optional[int] = 512    # chunked xent (no full B,T,V logits)

@@ -1,4 +1,5 @@
-"""Weights from the reference's layout to the port's, through numpy only.
+"""Weights and screens between the reference's layout and the port's, through
+numpy only, in both directions.
 
 The reference (``src/repro``) keeps params as a pytree of nested dicts and
 lists — LSTM ``{"embed": {embedding, lm_head, lm_bias}, "lstm": {"layers":
@@ -6,8 +7,10 @@ lists — LSTM ``{"embed": {embedding, lm_head, lm_bias}, "lstm": {"layers":
 leading L axis), "final_norm", "shared"}}`` — and a screen as
 ``ScreenParams(v, cand_idx, cand_len, vocab_size, block)``. The caller
 converts those arrays to numpy (``np.asarray``) on its side, so this package
-never imports JAX. The layouts are the same: the LSTM keeps the fused-gate
-(d, 4d) matrices in i, f, g, o order, attention its (d, H, hd) projections.
+never imports JAX; the other way, ``params_to_numpy`` and ``screen_to_numpy``
+give numpy arrays that the reference takes with ``jnp.asarray``. The layouts
+are the same: the LSTM keeps the fused-gate (d, 4d) matrices in i, f, g, o
+order, attention its (d, H, hd) projections.
 """
 from __future__ import annotations
 
@@ -36,3 +39,18 @@ def screen_from_numpy(v, cand_idx, cand_len, vocab_size: int,
                         cand_idx=_tensor(cand_idx, np.int32),
                         cand_len=_tensor(cand_len, np.int32),
                         vocab_size=int(vocab_size), block=int(block))
+
+
+def params_to_numpy(tree):
+    """The port's params tree (tensors on any device) → the same tree of
+    numpy arrays, the reference's layout."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def screen_to_numpy(screen: ScreenParams):
+    """A port ``ScreenParams`` → (v, cand_idx, cand_len, vocab_size, block):
+    numpy arrays and ints, the reference ``ScreenParams``'s fields."""
+    return (screen.v.detach().cpu().numpy(),
+            screen.cand_idx.cpu().numpy().astype(np.int32),
+            screen.cand_len.cpu().numpy().astype(np.int32),
+            int(screen.vocab_size), int(screen.block))

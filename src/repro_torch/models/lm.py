@@ -1,0 +1,61 @@
+"""Training losses for the language models. Twin of ``repro/models/lm.py``."""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.model import Model
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-level mean xent. logits (B, T, V) any float; labels (B, T) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def train_loss(model: Model, params, batch: Dict[str, torch.Tensor],
+               loss_chunk: Optional[int] = None,
+               remat: bool = False) -> torch.Tensor:
+    """Forward + next-token loss.
+
+    ``loss_chunk``: if set, the vocab logits and xent are computed in
+    sequence chunks of this size, each under activation checkpointing, so
+    the full (B, T, V) logits tensor never exists, in the forward pass or
+    in the backward. ``remat`` is accepted for the reference's signature; the
+    ported families have no per-block checkpointing (for the LSTM the
+    reference's flag is a no-op too)."""
+    h, aux = model.forward(params, batch)
+    labels = batch["labels"]
+    if loss_chunk is None:
+        return cross_entropy_loss(model.logits(params, h), labels) + aux
+
+    B, T = labels.shape
+    if T % loss_chunk:
+        loss_chunk = math.gcd(T, loss_chunk)
+    if loss_chunk <= 1:
+        return cross_entropy_loss(model.logits(params, h), labels) + aux
+
+    def chunk_nll(hi, li):
+        logits = model.logits(params, hi).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+        return torch.sum(lse - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, T, loss_chunk):
+        hi, li = h[:, s:s + loss_chunk], labels[:, s:s + loss_chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(chunk_nll, hi, li, use_reentrant=False)
+        else:
+            total = total + chunk_nll(hi, li)
+    return total / (B * T) + aux

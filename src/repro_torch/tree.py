@@ -1,4 +1,5 @@
-"""Nested dict / list / tuple trees of tensors (params and decode caches)."""
+"""Nested dict / list / tuple trees of tensors (params, optimiser states and
+decode caches)."""
 from __future__ import annotations
 
 
@@ -16,3 +17,36 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_flatten(tree) -> list:
+    """Every leaf in ``jax.tree_util``'s order: dict keys sorted, lists and
+    tuples (NamedTuples by field) in order. The reference's pytrees flatten
+    the same way, so the i-th leaf here is the reference's i-th leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_flatten(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """``template``'s structure with its leaves replaced, in
+    ``tree_flatten``'s order, by ``leaves`` (as many as it has)."""
+    leaves = list(leaves)
+    n = len(tree_flatten(template))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a template of {n}")
+    it = iter(leaves)
+
+    def fill(tmpl):
+        if isinstance(tmpl, dict):
+            filled = {k: fill(tmpl[k]) for k in sorted(tmpl)}
+            return {k: filled[k] for k in tmpl}
+        if isinstance(tmpl, tuple) and hasattr(tmpl, "_fields"):
+            return type(tmpl)(*(fill(v) for v in tmpl))
+        if isinstance(tmpl, (list, tuple)):
+            return type(tmpl)(fill(v) for v in tmpl)
+        return next(it)
+
+    return fill(template)

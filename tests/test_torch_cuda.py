@@ -598,3 +598,85 @@ def test_cuda_serve_batch_adds_no_graph_when_repeated(cuda):
         if req.temperature is None:
             solo = eng.generate(req.prompt[None], req.max_new, head=a.head)
             np.testing.assert_array_equal(solo.tokens[0], a.tokens)
+
+
+def test_cuda_train_step_matches_the_cpu(cuda):
+    """One LM train step (loss, gradients, clip) of reduced ptb-small-lstm
+    on the card against the same step on the CPU: gradients within 1e-4 of
+    the largest |g|, loss and gnorm within rtol 1e-5; then a full step
+    (AdamW) runs on the card and the loss falls over a few."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import ZipfMarkovCorpus, make_lm_batches
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    from repro_torch.optim import adamw_init, clip_by_global_norm
+    from repro_torch.tree import tree_flatten
+
+    cfg = get_config("ptb-small-lstm").reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    corpus = ZipfMarkovCorpus(cfg.vocab_size, branching=16, seed=0)
+    batches = [{k: torch.as_tensor(x) for k, x in b.items()}
+               for b in make_lm_batches(corpus, 6, 8, 24, seed=2)]
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=6, remat="none",
+                       loss_chunk=None)
+    got = {}
+    for dev in ("cpu", cuda):
+        p = to_device(params, dev)
+        loss, grads = loss_and_grads(model, tcfg, p, {
+            k: x.to(dev) for k, x in batches[0].items()})
+        _, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        got[str(dev)] = (float(loss), float(gnorm),
+                         [g.cpu() for g in tree_flatten(grads)])
+    cpu, card = got["cpu"], got[str(cuda)]
+    gmax = max(float(g.abs().max()) for g in cpu[2])
+    for a, c in zip(card[2], cpu[2]):
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-4 * gmax)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-5)
+
+    step = make_train_step(model, tcfg)
+    p = to_device(params, cuda)
+    opt = adamw_init(p)
+    losses = []
+    for b in batches:
+        p, opt, m = step(p, opt, {k: x.to(cuda) for k, x in b.items()})
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert int(opt.step) == len(batches) and opt.step.device.type == "cuda"
+
+
+def test_cuda_fit_l2s_screen_routes_to_its_coverage(cuda):
+    """A small block fit on the card: its screen, routed through the
+    cluster_route kernel, gives back the coverage fit_l2s reports (rows
+    whose top-2 cluster scores nearly tie aside), and screened-cuda decodes
+    through it."""
+    from repro_torch import heads
+    from repro_torch.configs import L2SConfig
+    from repro_torch.core import fit_l2s
+
+    rng = np.random.default_rng(0)
+    L, d, N = 1000, 64, 6000
+    modes = rng.standard_normal((8, d)).astype(np.float32) * 3
+    W = rng.standard_normal((L, d)).astype(np.float32)
+    H = (modes[rng.integers(0, 8, N)] +
+         0.3 * rng.standard_normal((N, d))).astype(np.float32)
+    y = np.argsort(-(H @ W.T), axis=1)[:, :5].astype(np.int32)
+    cfg = L2SConfig(num_clusters=8, budget=384, vocab_block=V_BLK,
+                    outer_iters=2, sgd_steps=50, batch_size=256)
+    st = fit_l2s(H, y, L, cfg, device=cuda)
+    assert st.screen.v.device.type == "cuda"
+    cov = st.history[-1]["coverage_best"]
+    h = torch.as_tensor(H, device=cuda)
+    ops.reset_launches()
+    route = cluster_route(h, st.screen.v).cpu().numpy()
+    assert ops.LAUNCHES["cluster_route"] == 1
+    top2 = torch.topk(h @ st.screen.v.T, 2, dim=-1).values
+    near = ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()).cpu().numpy() < 1e-5
+    hits = st.mask[route][np.arange(N)[:, None], y // V_BLK].sum()
+    assert abs(hits - round(cov * y.size)) <= 5 * int(near.sum())
+    head = heads.get("screened-cuda", W=W, b=np.zeros(L, np.float32),
+                     screen=st.screen, device=cuda)
+    ids, _ = head.topk(h[:64], 5)
+    assert ids.shape == (64, 5) and ops.LAUNCHES["fused_screened_topk"] == 1

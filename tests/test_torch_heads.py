@@ -5,7 +5,8 @@ heads (the latter against ``screened-pallas``, fused and unfused, kernels in
 interpret mode). Ids are exactly equal; values within rtol = atol = 1e-5.
 Sampling hands both sides the same Gumbel noise. Also the guards: the
 port's entry points raise without a GPU unless device="cpu" is given, and
-no module of the port imports JAX or the reference package."""
+no module of the port or of ``tools/``, nor ``chip_smoke.py`` or
+``examples/quickstart_torch.py``, imports JAX or the reference package."""
 import re
 from pathlib import Path
 
@@ -220,8 +221,9 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|$)",
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    files += sorted((ROOT / "tools").glob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    assert len(files) > 20 and all(p.is_file() for p in files)
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
