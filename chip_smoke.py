@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU, and
 check it: the L2S screened decode of the paper's LSTM (nmt-deen-lstm), the
-training side (the LM trainer and Algorithm 1, fitting a screen) and the
-Mamba2/Zamba2 decode path (zamba2-2.7b).
+training side (the LM trainer and Algorithm 1, fitting a screen), the
+Mamba2/Zamba2 decode path (zamba2-2.7b), and continuous batching (decode
+streams, the scheduler and the serving launcher) on both.
 
     python3 chip_smoke.py
 
@@ -112,6 +113,32 @@ Phases, one line (or a few) each:
               and decode, counted from zero, with route and fused top-k
               launched; exact against screened-cuda head times (CUDA
               events) at B = 1 and B = 10,000;
+     stream   on the trained LM and fitted screen: one screened-cuda
+              DecodeStream of width 8, 12 requests (prompts of 8 and 12
+              tokens, 4 to 24 new) joining at ticks 0, 0, 1, 3, 3, 5, ...:
+              tokens equal solo generate except after a step whose top-2
+              gap (route or candidate logits) is below 1e-4 (counted); a
+              re-run bit-identical and adding no graph (one per (head,
+              kind) at width 8); a width-1 sampled stream equal to solo
+              sampled generate bit for bit;
+     sched    on the same engine: ContinuousScheduler(max_slots=8,
+              max_streams=4, LogicalClock) over 48 requests, 2 a tick,
+              tiers round-robin (TierPolicy realtime -> screened-cuda,
+              standard -> screened-cuda-unfused, else exact), a quarter
+              sampled (T = 0.9, top-p 0.95), BudgetAdmission at 4x the
+              catalog's largest flops_per_query: greedy results equal solo
+              generate under the gap rule, a second identical run adds no
+              graph and gives the same results bit for bit, the three L2S
+              kernels launched (from zero), a profiled run (device calls ==
+              counted launches; idle share); then 2 transient step faults on
+              screened-cuda retried (retries == 2) bit-identical to the
+              fault-free drain, and a permanent fault tripping the breaker
+              and falling back to exact; prints the ServerStats funnel,
+              p50 / p95 (logical clock) and host-clock tok/s;
+     serve-cli python -m repro_torch.launch.serve --arch nmt-deen-lstm --l2s
+              --scheduler --log-jsonl ... --train-steps 50 --requests 12 on
+              the card returns 0 and every JSONL record parses; bad flags
+              return 2;
   6. ssm      the SSD intra-chunk kernel against its plain version at
               zamba2-2.7b's prefill chunk (B = 4, nc = 2, Q = 256, H = 80,
               P = N = 64, G = 1), mamba2-1.3b's (H = 64, N = 128) and a
@@ -141,14 +168,24 @@ Phases, one line (or a few) each:
               with the same exact launch counts, and each kernel's launch
               cost at its decode shape: one eager launch, a one-launch
               graph and a graph of 9 launches, in turns under the timer;
+     stream   on the same zamba2-2.7b: one screened-cuda stream of width 4,
+              prompts of 512, 384, 256 and 100 tokens joining at ticks 0, 3,
+              7 and 12 (per-row positions), 32 new each: ssd_intra 54 times
+              a join, the K/V cache pair 9 times a step; tokens equal solo
+              generate under the gap rule; one transient fault after every
+              row joined gives the fault-free tokens and cache (K/V, SSM
+              states, conv tails) bit for bit; the time of the step's
+              rollback snapshot and of a join's splice;
      Every profile (e2e, hybrid, graph) holds the device calls the
               profiler counts for each port kernel equal to the launches
               its wrapper counted in the same call (graph replays add
               the count their capture recorded).
   8. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on each
-              path: the two e2e paths, their graph phases, serve and
-              the fitted screen's "nmt-deen-lstm l2s-fit"; its
+              path: the two e2e paths, their graph phases, serve, the
+              fitted screen's "nmt-deen-lstm l2s-fit", the streams
+              ("nmt-deen-lstm stream", "zamba2-2.7b stream") and
+              "nmt-deen-lstm scheduler"; its
               "launch_cost_ms" eager, in a graph and per launch in a graph
               of 9;
               the three L2S kernels also "at_zamba2_width"; the gather
@@ -169,6 +206,7 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -1595,8 +1633,8 @@ def phase_train_l2s(torch, np):
     CPU's), harvest 100,000 contexts, fit a 128-word block screen with
     ``fit_l2s`` (and the k-means-only ablation), then hold it to the exact
     head on 10,000 held-out contexts through the CUDA kernels and decode
-    with it. → launches of the evaluation and decode through the fitted
-    screen (counted from zero)."""
+    with it. → (launches of the evaluation and decode through the fitted
+    screen, counted from zero; the trained model, params and screen)."""
     from repro_torch import heads
     from repro_torch.configs import L2SConfig, TrainConfig, get_config
     from repro_torch.core import collect_contexts, fit_l2s, precision_at_k
@@ -1807,7 +1845,445 @@ def phase_train_l2s(torch, np):
             f"{t['exact']:.5f} ms, screened-cuda {t['screened-cuda']:.5f} ms "
             f"(ratio {t['exact'] / t['screened-cuda']:.2f})")
     log(f"[l2s] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(model=model, params=params, screen=screen)
+
+
+# -- continuous batching: streams, the scheduler, the launcher --------------------
+SCHED_N = 48                    # [sched] requests, tiers round-robin
+LSTM_W, ZSTREAM_W = 8, 4        # stream widths
+
+
+def gap_steps(torch, np, model, params, screen, prompt, tokens, head):
+    """The top-2 gaps that decide each of ``head``'s greedy steps of
+    ``prompt`` into ``tokens`` on the card (model.forward over the
+    sequence): the logit gap (within the routed candidates on a screened
+    head) and, on a screened head, the cluster-score gap; the smaller of
+    the two per step."""
+    from repro_torch.core.screening import screened_topk
+    seq = torch.as_tensor(np.concatenate([prompt, tokens[:-1]])[None],
+                          device="cuda")
+    with torch.inference_mode():
+        h, _ = model.forward(params, {"tokens": seq})
+        h = h[0, len(prompt) - 1:].contiguous()
+        if head == "exact":
+            top = model.logits(params, h).topk(2, dim=-1).values
+            return (top[:, 0] - top[:, 1]).cpu().numpy()
+        W, b = model.softmax_weights(params)
+        _, vals = screened_topk(W, b, screen, h, 2)
+        sc = (h @ screen.v.T).topk(2, dim=-1).values
+        return torch.minimum(vals[:, 0] - vals[:, 1],
+                             sc[:, 0] - sc[:, 1]).cpu().numpy()
+
+
+def gap_rule(torch, np, tag, model, params, screen, prompt, got, want, head):
+    """``got`` == ``want`` (solo generate's tokens), or they first differ
+    after a step whose deciding top-2 gap is below GAP. → 1 for such an
+    exception, else 0; fails otherwise."""
+    check(len(got) == len(want), f"{tag}: {len(got)} tokens, want "
+          f"{len(want)}")
+    bad = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+    if not bad.size:
+        return 0
+    t = int(bad[0])
+    gaps = gap_steps(torch, np, model, params, screen, prompt, want, head)
+    check(gaps[t] < GAP, f"{tag}: differs from solo generate at step {t} "
+          f"with a top-2 gap {gaps[t]:.3g} >= {GAP}")
+    return 1
+
+
+def drive_stream(stream, reqs, plan, injector=None):
+    """Join ``reqs[i]`` at tick ``plan[i]`` (or the first tick after with a
+    free slot), step every tick; a step the guard refuses is stepped again.
+    → ({request index: tokens}, ticks, faults, host seconds per step)."""
+    from repro_torch.serving import HeadFault
+    stream.fault_injector = injector
+    waiting = sorted(range(len(reqs)), key=lambda i: (plan[i], i))
+    done, faults, tick, step_s = {}, 0, 0, []
+    while waiting or stream.n_active:
+        while waiting and plan[waiting[0]] <= tick and stream.free_slots:
+            i = waiting.pop(0)
+            stream.join(reqs[i], tag=i)
+        t0 = time.perf_counter()
+        try:
+            out = stream.step()
+        except HeadFault:
+            faults += 1
+            continue
+        step_s.append(time.perf_counter() - t0)
+        done.update({i: toks for i, _, toks in out + stream.pop_finished()})
+        tick += 1
+    return done, tick, faults, step_s
+
+
+def phase_stream_lstm(torch, np, ctx):
+    """[stream] on full-width nmt-deen-lstm with the LM trained and the
+    screen fitted in [l2s]: one screened-cuda stream of width 8, 12 joins
+    over 15 ticks (prompts of 8 and 12 tokens, 4 to 24 new): tokens ==
+    solo generate under the gap rule, a re-run bit-identical, one graph;
+    a width-1 sampled stream == solo sampled generate bit for bit.
+    → (the engine, launches of the first run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeEngine, ServeRequest
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    eng = DecodeEngine(model, params, screen=screen, device="cuda")
+    rng = np.random.default_rng(18)
+    plan = [0, 0, 1, 3, 3, 5, 6, 8, 9, 11, 12, 14]
+    reqs = [ServeRequest(prompt=rng.integers(0, V, 8 if i % 2 else 12),
+                         max_new=4 + (i * 5) % 21) for i in range(len(plan))]
+    head = "screened-cuda"
+    ops.reset_launches()
+    got, ticks, _, step_s = drive_stream(
+        eng.open_stream(head, width=LSTM_W), reqs, plan)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    counts = eng.compiled_step_counts()
+    check(counts == {(head, "greedy"): 1}, f"[stream] graphs {counts}, "
+          f"expected one (screened-cuda, greedy) at width {LSTM_W}")
+    check(launches["cluster_route"] > 0 and
+          launches["fused_screened_topk"] > 0,
+          f"[stream] a kernel never launched: {launches}")
+    again, _, _, _ = drive_stream(eng.open_stream(head, width=LSTM_W), reqs,
+                                  plan)
+    check(set(again) == set(got) and all(np.array_equal(again[i], got[i])
+                                         for i in got),
+          "[stream] a re-run of the same joins changed a token")
+    check(eng.compiled_step_counts() == counts,
+          "[stream] the re-run added a graph")
+    near = sum(gap_rule(torch, np, f"[stream] request {i}", model, params,
+                        screen, r.prompt, got[i],
+                        eng.generate(r.prompt[None], r.max_new,
+                                     head=head).tokens[0], head)
+               for i, r in enumerate(reqs))
+    req = ServeRequest(prompt=reqs[0].prompt, max_new=16, temperature=0.9,
+                       top_p=0.95, seed=23)
+    s = eng.open_stream(head, width=1, temperature=0.9, top_p=0.95, seed=23)
+    sampled, _, _, _ = drive_stream(s, [req], [0])
+    solo = eng.generate(req.prompt[None], 16, head=head, temperature=0.9,
+                        top_p=0.95, seed=23).tokens[0]
+    check(np.array_equal(sampled[0], solo),
+          "[stream] width-1 sampled stream != solo sampled generate")
+    log(f"[stream] nmt-deen-lstm (trained, fitted screen): one {head} stream "
+        f"of width {LSTM_W}, {len(reqs)} joins at ticks {plan}, {ticks} "
+        f"ticks; tokens == solo generate except {near} request(s) that "
+        f"first differ after a step with a top-2 gap < {GAP}; a re-run is "
+        f"bit-identical and adds no graph (compiled_step_counts "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in counts.items()} }); width-1 "
+        f"sampled (T=0.9, top-p 0.95) == solo sampled generate; host time "
+        f"per stream step (replay, guard sync) median "
+        f"{statistics.median(step_s) * 1e3:.4f} ms (host clock, information "
+        f"only); launches: {json.dumps(launches)}")
+    return eng, launches
+
+
+def sched_traffic(np, rng):
+    """[sched]'s 48 requests: tiers round-robin, prompts of 8 and 12
+    tokens, 4 to 24 new, every fourth sampled (T = 0.9, top-p 0.95, one
+    seed, so one sampled lane per head)."""
+    from repro_torch.serving import ServeRequest
+    tiers = ("realtime", "standard", "batch")
+    return [ServeRequest(prompt=rng.integers(0, V, 8 if i % 2 else 12),
+                         max_new=4 + (i * 5) % 21, latency_tier=tiers[i % 3],
+                         temperature=0.9 if i % 4 == 3 else None,
+                         top_p=0.95 if i % 4 == 3 else 1.0, seed=31)
+            for i in range(SCHED_N)]
+
+
+def run_sched(eng, reqs, policy, admission=None, per_tick=2, **kw):
+    """A fresh ContinuousScheduler (max_slots 8, max_streams 4, a
+    LogicalClock) fed ``per_tick`` requests a tick, then drained.
+    → (results, scheduler, host seconds)."""
+    from repro_torch.serving import ContinuousScheduler, LogicalClock
+    sched = ContinuousScheduler(eng, policy=policy, admission=admission,
+                                max_slots=LSTM_W, max_streams=4,
+                                clock=LogicalClock(0.0, dt_per_read=1e-4),
+                                **kw)
+    t0 = time.perf_counter()
+    for i in range(0, len(reqs), per_tick):
+        for r in reqs[i:i + per_tick]:
+            sched.submit(r)
+        sched.step()
+    out = sched.drain(max_ticks=5000)
+    return out, sched, time.perf_counter() - t0
+
+
+def phase_sched(torch, np, eng, ctx):
+    """[sched] on [stream]'s engine: ContinuousScheduler over 48 requests
+    (TierPolicy realtime -> screened-cuda, standard -> unfused, the rest
+    exact; BudgetAdmission at 4x the largest flops_per_query; a quarter
+    sampled), a second identical run (no graph added, bit-identical), a
+    profiled run (device calls == counted launches, idle share), then the
+    fault runs: two transient step faults retried bit for bit, and a
+    permanent fault tripping the breaker to exact. → launches of the first
+    run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (BudgetAdmission, CircuitBreaker,
+                                     FaultInjector, LogicalClock,
+                                     ServeRequest, ServeResult, StaticPolicy,
+                                     TierPolicy)
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    pol = TierPolicy({"realtime": "screened-cuda", "standard": UNFUSED},
+                     default="exact")
+    cat = eng.head_catalog(pol.candidates)
+    budget = 4.0 * max(m["flops_per_query"] for m in cat.values())
+    reqs = sched_traffic(np, np.random.default_rng(48))
+
+    def admission():
+        return BudgetAdmission(flops_budget=budget)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    first, sched, wall = run_sched(eng, reqs, pol, admission())
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    counts = eng.compiled_step_counts()
+    check(all(launches[k] > 0 for k in L2S_KERNELS),
+          f"[sched] a kernel never launched: {launches}")
+    again, _, wall2 = run_sched(eng, reqs, pol, admission())
+    check(eng.compiled_step_counts() == counts,
+          f"[sched] the second drain added graphs: {counts} -> "
+          f"{eng.compiled_step_counts()}")
+    same = [type(a) is type(b) and a.head == b.head and
+            (a.tokens is None) == (b.tokens is None) and
+            (a.tokens is None or np.array_equal(a.tokens, b.tokens))
+            for a, b in zip(first, again)]
+    check(len(first) == len(again) == SCHED_N and all(same),
+          "[sched] the second drain's results differ from the first's")
+    done = [(r, res) for r, res in zip(reqs, first)
+            if isinstance(res, ServeResult)]
+    check(len(done) >= SCHED_N // 4, f"[sched] only {len(done)} of "
+          f"{SCHED_N} requests completed")
+    near = 0
+    for i, (r, res) in enumerate(done):
+        check(len(res.tokens) == r.max_new and res.tokens.max() < V,
+              f"[sched] request {i}: bad tokens")
+        if not r.sampled:
+            solo = eng.generate(r.prompt[None], r.max_new,
+                                head=res.head).tokens[0]
+            near += gap_rule(torch, np, f"[sched] request {i} on {res.head}",
+                             model, params, screen, r.prompt, res.tokens,
+                             solo, "exact" if res.head == "exact"
+                             else "screened")
+    snap = sched.stats.snapshot()
+    tokens = sum(len(res.tokens) for _, res in done)
+    busy, idle, ours, n_kern = device_profile(
+        torch, "[sched] drain", lambda: run_sched(eng, reqs, pol,
+                                                  admission()), wall2)
+
+    # fault runs on the greedy traffic, all submitted at once, AcceptAll
+    greedy = [r for r in reqs if not r.sampled][:16]
+    clean, _, _ = run_sched(eng, greedy, pol, per_tick=len(greedy))
+    inj = FaultInjector(seed=0)
+    inj.arm("step", "transient", head="screened-cuda", count=2)
+    retried, rs, _ = run_sched(
+        eng, greedy, pol, per_tick=len(greedy), fault_injector=inj,
+        max_retries=3, breaker=CircuitBreaker(failure_threshold=5,
+                                              clock=LogicalClock()))
+    rz = rs.stats.snapshot()["resilience"]
+    check(rz["retries"] == 2 and rz["faults_transient"] == 2 and
+          all(isinstance(a, ServeResult) and a.head == b.head and
+              np.array_equal(a.tokens, b.tokens)
+              for a, b in zip(clean, retried)),
+          f"[sched] 2 transient faults: retries {rz['retries']}, results "
+          f"not bit-identical to the fault-free drain")
+    few = [ServeRequest(prompt=r.prompt, max_new=r.max_new)
+           for r in greedy[:6]]
+    inj = FaultInjector(seed=0)
+    inj.arm("step", "permanent", head="screened-cuda", count=1)
+    br = CircuitBreaker(failure_threshold=3, cooldown_s=1e9,
+                        clock=LogicalClock())
+    fell, fs, _ = run_sched(eng, few, StaticPolicy("screened-cuda"),
+                            per_tick=len(few), fault_injector=inj,
+                            breaker=br)
+    check(br.state("screened-cuda") == "open" and
+          all(isinstance(r, ServeResult) and r.head == "exact" for r in fell),
+          f"[sched] permanent fault: breaker {br.state('screened-cuda')}, "
+          f"heads {[getattr(r, 'head', None) for r in fell]}")
+    for r, res in zip(few, fell):
+        near += gap_rule(torch, np, "[sched] fallback", model, params, screen,
+                         r.prompt, res.tokens,
+                         eng.generate(r.prompt[None], r.max_new,
+                                      head="exact").tokens[0], "exact")
+    log(f"[sched] nmt-deen-lstm: ContinuousScheduler(max_slots={LSTM_W}, "
+        f"max_streams=4, LogicalClock) over {SCHED_N} requests (2 a tick; "
+        f"realtime -> screened-cuda, standard -> {UNFUSED}, else exact; "
+        f"BudgetAdmission at 4x {max(m['flops_per_query'] for m in cat.values()):.4g}"
+        f" flops; {sum(r.sampled for r in reqs)} sampled, T=0.9 top-p "
+        f"0.95): admitted {snap['admitted']}, rejected {snap['rejected']}, "
+        f"downgraded {snap['downgraded']}, preempted {snap['preempted']}, "
+        f"completed {snap['completed']} on "
+        f"{ {h: d['requests'] for h, d in snap['per_head'].items()} }; "
+        f"latency p50 {snap['latency']['p50_s']:.4f} / p95 "
+        f"{snap['latency']['p95_s']:.4f} logical s; {snap['ticks']} ticks")
+    log(f"[sched] greedy results == solo generate except {near} that first "
+        f"differ after a step with a top-2 gap < {GAP}; a second identical "
+        f"drain adds no graph (compiled_step_counts "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in sorted(counts.items())} }) and "
+        f"gives the same results bit for bit; launches (first drain, from "
+        f"zero): {json.dumps(launches)}")
+    log(f"[sched] host clock (information only): first drain {wall:.3f} s "
+        f"(captures included), second {wall2:.3f} s = {tokens / wall2:.1f} "
+        f"tok/s, {wall2 / snap['ticks'] * 1e3:.4f} ms a tick; profile of a "
+        f"third: device busy {busy:.3f} ms of {wall2 * 1e3:.3f} ms (idle "
+        f"share {idle:.3f}), {n_kern} device kernels; per launch: " +
+        "; ".join(f"{k} {ms / n * 1e3:.2f} us x{n}"
+                  for k, (ms, n) in ours.items()))
+    log(f"[sched] faults: 2 transient step faults on screened-cuda retried "
+        f"(retries {rz['retries']}), results bit-identical to the fault-free "
+        f"drain of the same {len(greedy)} greedy requests; a permanent fault "
+        f"tripped the breaker ({fs.stats.snapshot()['resilience']['breaker_trips']}"
+        f" trip) and {len(fell)} requests fell back to exact")
     return launches
+
+
+def phase_stream_hybrid(torch, np, ctx):
+    """[stream] on full-width float32 zamba2-2.7b: one screened-cuda stream
+    of width 4, prompts of 512, 384, 256 and 100 tokens joining at ticks 0,
+    3, 7 and 12, 32 new each: tokens == solo generate under the gap rule;
+    one transient fault after every row joined gives the fault-free tokens
+    and cache (K/V, SSM states, conv tails) bit for bit; 9 cache launches
+    a step; the snapshot's and the join splice's times. → launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeEngine, FaultInjector, ServeRequest
+    from repro_torch.serving.engine import _recurrent_leaves, _splice_cache
+    from repro_torch.tree import tree_leaves
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    cfg = model.cfg
+    n_attn = cfg.num_layers // cfg.hybrid_shared_period
+    eng = DecodeEngine(model, params, screen=screen, max_len=ZMAX,
+                       device="cuda")
+    rng = np.random.default_rng(19)
+    lens, plan = (512, 384, 256, 100), [0, 3, 7, 12]
+    reqs = [ServeRequest(prompt=rng.integers(0, ZV, n), max_new=ZNEW)
+            for n in lens]
+    head = "screened-cuda"
+    # the one stream slab of the width, held here so that its cache can be
+    # read after each run (both runs' streams are lent it)
+    slab = eng._lend_stream_slab(ZSTREAM_W, eng._token_step_key(
+        eng.resolve_head(head), None, 1.0))
+    eng._return_stream_slab(slab)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got, ticks, _, step_s = drive_stream(
+        eng.open_stream(head, width=ZSTREAM_W), reqs, plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    clean = [x.clone() for x in tree_leaves(slab.cache)]
+    check(launches["ssd_intra"] == cfg.num_layers * len(reqs),
+          f"[stream] zamba2: ssd_intra launched {launches['ssd_intra']}, "
+          f"expected {cfg.num_layers} per join")
+    check(launches["cache_slot_update"] == n_attn * ticks,
+          f"[stream] zamba2: cache_slot_update launched "
+          f"{launches['cache_slot_update']}, expected {n_attn} x {ticks} "
+          f"steps")
+    check(launches["cluster_route"] > 0 and
+          launches["fused_screened_topk"] > 0,
+          f"[stream] zamba2: a kernel never launched: {launches}")
+    inj = FaultInjector(seed=0)
+    inj.arm("step", "transient", count=1, after=plan[-1] + 1)
+    retried, _, faults, _ = drive_stream(
+        eng.open_stream(head, width=ZSTREAM_W), reqs, plan, injector=inj)
+    check(faults == 1 and all(np.array_equal(retried[i], got[i])
+                              for i in got),
+          f"[stream] zamba2: {faults} faults; the retried run's tokens differ")
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves(slab.cache),
+                                              clean)]
+    check(all(same), f"[stream] zamba2: the retried run's cache differs "
+          f"from the fault-free run's in {same.count(False)} leaves")
+    del clean
+    near = sum(gap_rule(torch, np, f"[stream] zamba2 request {i}", model,
+                        params, screen, r.prompt, got[i],
+                        eng.generate(r.prompt[None], r.max_new,
+                                     head=head).tokens[0], head)
+               for i, r in enumerate(reqs))
+
+    def event_ms(fn, n):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    with torch.inference_mode():
+        save_ms = event_ms(slab.save, 20)
+        solo, _ = eng._prefill(reqs[0].prompt[None], ZNEW)
+        splice_ms = event_ms(lambda: _splice_cache(slab.cache, solo.cache, 1,
+                                                   cfg), 20)
+        t0 = time.perf_counter()
+        s = eng.open_stream(head, width=ZSTREAM_W)
+        s.join(reqs[0])
+        torch.cuda.synchronize()
+        join_s = time.perf_counter() - t0
+        s.evict(0)
+    saved = sum(x.numel() * x.element_size()
+                for x in _recurrent_leaves(slab.cache))
+    row = sum(x.select(0 if cfg.family == "lstm" else 1, 0).numel() *
+              x.element_size() for x in tree_leaves(slab.cache))
+    log(f"[stream] zamba2-2.7b: one {head} stream of width {ZSTREAM_W}, "
+        f"prompts {lens} joining at ticks {plan}, {ZNEW} new each, "
+        f"{ticks} ticks: tokens == solo generate except {near} request(s) "
+        f"that first differ after a step with a top-2 gap < {GAP}; one "
+        f"transient fault after every row joined: tokens and all "
+        f"{len(same)} cache leaves (K/V, SSM states, conv tails) "
+        f"bit-identical to the fault-free run; cache_slot_update "
+        f"{n_attn} a step; launches: {json.dumps(launches)}")
+    log(f"[stream] zamba2-2.7b rollback snapshot: {saved / 2 ** 20:.1f} MiB "
+        f"of recurrent leaves copied at the start of every step, "
+        f"{save_ms:.4f} ms (CUDA events, mean of 20), "
+        f"{save_ms / statistics.median(step_s[plan[-1]:]) / 1e3:.2%} of the "
+        f"median host-clock stream step "
+        f"{statistics.median(step_s[plan[-1]:]) * 1e3:.3f} ms; join splice "
+        f"(whole rows, {row / 2 ** 20:.1f} MiB): {splice_ms:.4f} ms; a whole "
+        f"join of 512 tokens (B = 1 prefill, first token, splice) "
+        f"{join_s * 1e3:.1f} ms; stream run {wall:.3f} s (host clock)")
+    return launches
+
+
+def phase_serve_cli(torch):
+    """[serve-cli] ``python -m repro_torch.launch.serve`` on the card:
+    --arch nmt-deen-lstm --l2s --scheduler --log-jsonl (50 train steps, 12
+    requests) returns 0 and every JSONL line parses; bad flags return 2."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import serve
+    base = ["--arch", "nmt-deen-lstm", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ticks.jsonl"
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(base + ["--l2s", "--scheduler", "--log-jsonl",
+                                    str(path), "--train-steps", "50",
+                                    "--requests", "12"])
+        secs = time.perf_counter() - t0
+        lines = path.read_text().splitlines()
+        recs = [json.loads(ln) for ln in lines]
+    check(rc == 0, f"[serve-cli] exit code {rc}:\n{out.getvalue()}")
+    check(recs and all("tick" in r and "delta" in r for r in recs),
+          "[serve-cli] a JSONL record lacks tick / delta")
+    bad = {"--head screened without --l2s": ["--head", "screened"],
+           "--log-jsonl without --scheduler": ["--log-jsonl", "x.jsonl"],
+           "--draft-head": ["--scheduler", "--draft-head", "screened",
+                            "--l2s"]}
+    codes = {}
+    for name, argv in bad.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            codes[name] = serve.main(base + argv)
+    check(all(c == 2 for c in codes.values()), f"[serve-cli] bad flags "
+          f"returned {codes}")
+    for ln in out.getvalue().splitlines():
+        log(ln)
+    log(f"[serve-cli] python -m repro_torch.launch.serve {' '.join(base)} "
+        f"--l2s --scheduler --log-jsonl ... --train-steps 50 --requests 12: "
+        f"exit 0 in {secs:.1f} s, {len(recs)} JSONL tick records parse; bad "
+        f"flags exit {codes}")
 
 
 def main() -> int:
@@ -1838,7 +2314,14 @@ def main() -> int:
                      device="cuda"), ctx["prompts"], 16, 5, sampled=True)
     serve = phase_serve(torch, np, ctx)
     del ctx
-    l2s_fit = phase_train_l2s(torch, np)
+    l2s_fit, ctx = phase_train_l2s(torch, np)
+    t0 = time.perf_counter()
+    eng, stream_lstm = phase_stream_lstm(torch, np, ctx)
+    sched = phase_sched(torch, np, eng, ctx)
+    del eng, ctx
+    phase_serve_cli(torch)
+    log(f"[sched] the LSTM stream, scheduler and launcher phases took "
+        f"{time.perf_counter() - t0:.1f} s")
     ssm_err, ssm_times = phase_ssm_kernels(torch)
     err.update(ssm_err)
     times.update(ssm_times)
@@ -1855,6 +2338,10 @@ def main() -> int:
           f"[graph] zamba2-2.7b: launches {graph_hybrid}, expected "
           f"{n_attn} cache and {zcfg.num_layers} SSD launches per decode "
           f"step and per prefill")
+    t0 = time.perf_counter()
+    stream_hybrid = phase_stream_hybrid(torch, np, ctx)
+    log(f"[stream] the zamba2-2.7b stream phase took "
+        f"{time.perf_counter() - t0:.1f} s")
     del ctx
     costs = launch_costs(torch, np)
     # each kernel's launches on the path it was ported for, and on each path
@@ -1862,7 +2349,10 @@ def main() -> int:
     paths = {"nmt-deen-lstm": lstm, "nmt-deen-lstm graph": graph_lstm,
              "serve": serve, "nmt-deen-lstm l2s-fit": l2s_fit,
              "zamba2-2.7b": hybrid,
-             "zamba2-2.7b graph": graph_hybrid}
+             "zamba2-2.7b graph": graph_hybrid,
+             "nmt-deen-lstm stream": stream_lstm,
+             "nmt-deen-lstm scheduler": sched,
+             "zamba2-2.7b stream": stream_hybrid}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),
@@ -1903,6 +2393,8 @@ def main() -> int:
                  "plain_ms": t_["plain_ms"], "bound_ms": t_["bound"][0],
                  "bound_by": t_["bound"][1], "fused_ms": t_["fused_ms"]}
                 for d_, t_ in zip((D, ZD), beam)]
+    log(f"[done] chip_smoke.py took {time.perf_counter() - T_START:.1f} s, "
+        f"the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 """Batched decode engine: prefill → token-by-token generation through a
 pluggable ``SoftmaxHead``. Twin of ``repro/serving/engine.py`` (the lstm,
-ssm and hybrid families; ``DecodeStream`` and the scheduler come later).
+ssm and hybrid families, and ``DecodeStream``; the paged and speculative
+streams come with ROADMAP.md Queue 1 item 8).
 
 The head is the ONE seam: greedy decode, temperature/nucleus sampling, and
 beam search all route next-token selection through ``head.next`` /
@@ -50,6 +51,21 @@ batch adds no graph.
 
 Beam search follows the paper's §4.2 protocol: log-softmax over the head's
 reduced candidate space, probability 0 (−inf log-prob) elsewhere.
+
+Continuous batching: ``open_stream(head, width)`` returns a
+``DecodeStream`` — a FIXED-width batched decode whose pad slots are live
+capacity. ``join`` prefills one request solo and splices its cache rows
+into a free slot mid-decode (per-row positions ride the (W,) ``pos`` of the
+stream's slab through ``attn_decode``); ``step`` advances every active slot
+one token through the same cached steps, as graph replays on the card;
+finished slots retire and free their pad slot for the next join. A
+stream's slab is its own (``pos`` of shape (W,), and copies of the
+recurrent state for rollback), lent by the engine while the stream has an
+occupied slot, so generate and serve_batch between its ticks leave it
+alone; a slab serves one step (head and step kind) only, so the next
+stream of that step and width is lent it and replays the same graphs. The
+``repro_torch.serving.scheduler`` subsystem builds its tick loop on
+exactly these hooks.
 """
 from __future__ import annotations
 
@@ -69,7 +85,9 @@ from repro_torch.heads.base import (MissingScreenError, ScreenBlockError,
                                     SoftmaxHead)
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model, to_device
+from repro_torch.serving.observe.trace import NULL_TRACER
 from repro_torch.serving.request import ServeRequest, ServeResult
+from repro_torch.serving.resilience.faults import HeadFault, guard_tokens
 from repro_torch.tree import tree_leaves
 
 HeadLike = Union[str, SoftmaxHead]
@@ -86,26 +104,52 @@ class GenerationResult:
     steps: int = 0
 
 
-@dataclass
+@dataclass(eq=False)
 class _Slab:
     """The static buffers every cached step of one batch width B decodes
     in: ``cache`` (the model's decode cache at the engine's ``max_len`` and
     cache dtype), ``tok`` (B,) int32 (the token a step reads and the next
-    token it writes), ``pos`` () int32 (the position of ``tok``; a step
+    token it writes), ``pos`` int32 (the position of ``tok``; a step
     advances it), ``src`` (B,) int64 (beam search: the row each beam
     continues, gathered first by a decode step) and ``noise``, the uniform
-    draws of sampled steps by shape. Graphs captured on a slab hold it."""
+    draws of sampled steps by shape. Graphs captured on a slab hold it.
+
+    ``key`` names the slab's graphs in a step: the width B for the slab
+    ``generate`` and ``beam_search`` share (``pos`` 0-dim), ``(B, n)`` for
+    the n-th stream slab (``pos`` (B,), one position per row). A stream
+    slab serves one step, ``owner`` (its step-cache key), and has
+    ``saved``: copies of the cache's recurrent leaves (the LSTM state; the
+    SSM states and conv tails), which every step on it takes first, so a
+    step the guard refuses can be undone."""
     cache: dict
     tok: torch.Tensor
     pos: torch.Tensor
     src: torch.Tensor
+    key: object
     noise: Dict[tuple, torch.Tensor] = field(default_factory=dict)
+    owner: object = None
+    saved: Optional[List[torch.Tensor]] = None
 
     def uniforms(self, shape: tuple) -> torch.Tensor:
         if shape not in self.noise:
             self.noise[shape] = torch.empty(shape, dtype=torch.float32,
                                             device=self.tok.device)
         return self.noise[shape]
+
+    def save(self) -> None:
+        """Copy the recurrent leaves into ``saved`` (stream slabs only)."""
+        if self.saved is not None:
+            for d, s in zip(self.saved, _recurrent_leaves(self.cache)):
+                d.copy_(s)
+
+    def restore(self) -> None:
+        """Undo the last step's writes that a retry would not repeat: the
+        recurrent leaves it overwrote come back from ``saved``. The K/V
+        caches need nothing: a step writes only slot ``pos[i]`` of row i,
+        nothing reads past a row's own position, and the retry writes the
+        same slot with the same values."""
+        for d, s in zip(_recurrent_leaves(self.cache), self.saved):
+            d.copy_(s)
 
 
 class _Graph:
@@ -145,18 +189,17 @@ class _Graph:
 
 class _Step:
     """One step-cache entry: the step's body, ``body(slab) -> outputs``,
-    and on the card its graphs by batch width."""
+    and on the card its graphs by slab key (``_Slab.key``)."""
 
     def __init__(self, body: Callable):
         self.body = body
-        self.graphs: Dict[int, _Graph] = {}
+        self.graphs: Dict[object, _Graph] = {}
 
     def __call__(self, slab: _Slab, stream, pool):
-        """Run the step on ``slab``: a replay, or on the first call at this
-        width the body for real on ``stream`` and then its capture
+        """Run the step on ``slab``: a replay, or on the first call on this
+        slab the body for real on ``stream`` and then its capture
         (``stream`` None, on the CPU: the body)."""
-        width = slab.tok.shape[0]
-        graph = self.graphs.get(width)
+        graph = self.graphs.get(slab.key)
         if graph is not None:
             return graph.replay()
         if stream is None:
@@ -165,7 +208,7 @@ class _Step:
         with torch.cuda.stream(stream):
             out = self.body(slab)
         torch.cuda.current_stream().wait_stream(stream)
-        self.graphs[width] = _Graph(self.body, slab, stream, pool)
+        self.graphs[slab.key] = _Graph(self.body, slab, stream, pool)
         return out
 
 
@@ -200,6 +243,10 @@ class DecodeEngine:
         # {batch width: _Slab}, alive while a graph (or a call) holds it
         self._slabs: "weakref.WeakValueDictionary[int, _Slab]" = \
             weakref.WeakValueDictionary()
+        # stream slabs not lent to a stream, by (width, step-cache key)
+        # (weak: a graph keeps one alive), and the serial naming the next
+        self._free_stream_slabs: Dict[tuple, List[weakref.ref]] = {}
+        self._n_stream_slabs = 0
         self._stream = self._pool = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -239,20 +286,34 @@ class DecodeEngine:
 
     def compiled_step_counts(self) -> Dict[tuple, int]:
         """{(head name, step kind): CUDA graphs held} across the step cache:
-        one per batch width a step ran at on the card, 0 on the CPU. A
-        repeated batch of the same shapes adds none."""
+        one per slab a step ran on on the card, 0 on the CPU — one per
+        batch width for ``generate`` / ``beam_search``, and one per stream
+        slab for streams. A repeated batch of the same shapes adds none,
+        and neither do repeated streams of the same step and width, which
+        are lent the slabs (and so the graphs) of the streams before them.
+        Two streams of one step and width that hold occupied slots at once
+        run on two slabs, and the step holds two graphs."""
         out: Dict[tuple, int] = {}
         for (skey, kind, *_), step in self._step_cache.items():
             k = (skey[0], kind)
             out[k] = out.get(k, 0) + len(step.graphs)
         return out
 
+    @staticmethod
+    def _token_step_key(head: SoftmaxHead, temperature: Optional[float],
+                        top_p: float) -> tuple:
+        """The step-cache key of greedy (``temperature`` None) or sampled
+        decoding through ``head``."""
+        if temperature is None:
+            return (head.step_key(), "greedy")
+        return (head.step_key(), "sample", float(temperature), float(top_p))
+
     def _greedy_step(self, head: SoftmaxHead) -> _Step:
         model, params = self.model, self.params
 
         def body(slab):
             slab.tok.copy_(head.next(_advance(model, params, slab)))
-        return self._cached_step((head.step_key(), "greedy"), body)
+        return self._cached_step(self._token_step_key(head, None, 1.0), body)
 
     def _sample_step(self, head: SoftmaxHead, temperature: float,
                      top_p: float) -> _Step:
@@ -264,8 +325,8 @@ class DecodeEngine:
             gumbel = (None if shape is None else
                       ops.gumbel_from_uniform(slab.uniforms(shape)))
             slab.tok.copy_(head.sample(h, temperature, top_p, gumbel=gumbel))
-        key = (head.step_key(), "sample", float(temperature), float(top_p))
-        return self._cached_step(key, body)
+        return self._cached_step(
+            self._token_step_key(head, temperature, top_p), body)
 
     def _decode_step(self, head: SoftmaxHead) -> _Step:
         """Beam search's step: the cache rows gathered by ``slab.src``, one
@@ -282,19 +343,48 @@ class DecodeEngine:
         return step(slab, self._stream, self._pool)
 
     # -- prefill --------------------------------------------------------------
+    def _new_slab(self, batch: int, key, pos_shape: tuple) -> _Slab:
+        dev = self.device
+        return _Slab(
+            cache=self.model.init_cache(batch, self.max_len,
+                                        dtype=self.cache_dtype, device=dev),
+            tok=torch.zeros((batch,), dtype=torch.int32, device=dev),
+            pos=torch.zeros(pos_shape, dtype=torch.int32, device=dev),
+            src=torch.arange(batch, device=dev), key=key)
+
     def _slab(self, batch: int) -> _Slab:
         """The slab of width ``batch``: the one its graphs hold, else new."""
         slab = self._slabs.get(batch)
         if slab is None:
-            dev = self.device
-            slab = self._slabs[batch] = _Slab(
-                cache=self.model.init_cache(batch, self.max_len,
-                                            dtype=self.cache_dtype,
-                                            device=dev),
-                tok=torch.zeros((batch,), dtype=torch.int32, device=dev),
-                pos=torch.zeros((), dtype=torch.int32, device=dev),
-                src=torch.arange(batch, device=dev))
+            slab = self._slabs[batch] = self._new_slab(batch, batch, ())
         return slab
+
+    def _lend_stream_slab(self, width: int, key: tuple) -> _Slab:
+        """A slab of ``width`` for one stream of the step under ``key``
+        until the stream gives it back (``_return_stream_slab``): a free
+        one that served the step before — it holds the step's graph on the
+        card — else a new one. A slab serves one step only, so the streams
+        of one step never lose their slab (and graph) to another step's.
+        Its contents are whatever the last stream left; a join overwrites
+        the rows it takes."""
+        pool = [s for s in (r() for r in self._free_stream_slabs.get(
+            (width, key), ())) if s is not None]
+        if pool:
+            slab = pool.pop(0)
+        else:
+            self._n_stream_slabs += 1
+            slab = self._new_slab(width, (width, self._n_stream_slabs),
+                                  (width,))
+            slab.owner = key
+            slab.saved = [torch.empty_like(leaf)
+                          for leaf in _recurrent_leaves(slab.cache)]
+        self._free_stream_slabs[(width, key)] = [weakref.ref(s)
+                                                 for s in pool]
+        return slab
+
+    def _return_stream_slab(self, slab: _Slab) -> None:
+        self._free_stream_slabs.setdefault(
+            (slab.tok.shape[0], slab.owner), []).append(weakref.ref(slab))
 
     def _prefill(self, prompts, max_new: int) -> tuple:
         """prompts (B, Tp) → (the slab of width B, its cache primed by the
@@ -482,10 +572,297 @@ class DecodeEngine:
                     head=served, request=requests[i], group_size=len(idxs))
         return results
 
+    # -- continuous batching: fixed-width streams ---------------------------
+    def open_stream(self, head: Optional[HeadLike] = None, width: int = 4,
+                    temperature: Optional[float] = None, top_p: float = 1.0,
+                    seed: int = 0) -> "DecodeStream":
+        """Open a fixed-width continuous decode stream on this engine.
+
+        The stream shares the engine's cached steps (on the card one graph
+        per (head, step kind) and stream slab, captured at the slab's first
+        step, replayed after) and its eager prefill. Greedy tokens produced
+        through a stream equal solo ``generate`` calls; see
+        ``DecodeStream``."""
+        name = head if isinstance(head, str) else None
+        hd = self.resolve_head(head)
+        if name is None:
+            name = getattr(hd, "name", "custom")
+        return DecodeStream(self, hd, width, temperature=temperature,
+                            top_p=top_p, seed=seed, head_name=name)
+
+    def open_paged_stream(self, *args, **kwargs):
+        """A stream over a paged KV pool: not ported yet."""
+        raise NotImplementedError(
+            "repro_torch: paged decode streams (serving/kvpool) are not "
+            "ported yet (ROADMAP.md, Queue 1 item 8)")
+
+    def open_spec_stream(self, *args, **kwargs):
+        """A speculative decode stream: not ported yet."""
+        raise NotImplementedError(
+            "repro_torch: speculative decode streams (serving/spec) are not "
+            "ported yet (ROADMAP.md, Queue 1 item 8)")
+
+
+@dataclass
+class _StreamSlot:
+    """One occupied pad slot of a DecodeStream."""
+    tag: object                      # opaque caller handle (scheduler bookkeeping)
+    request: ServeRequest
+    tokens: list                     # generated ids so far (python ints)
+    remaining: int                   # tokens still to decode
+
+
+class DecodeStream:
+    """A fixed-width continuously-batched decode: join-at-step over pad slots.
+
+    The stream keeps per-slot (token, position) state on the host and, while
+    any slot is occupied, a width-W slab lent by the engine (its own cache,
+    token buffer and (W,) position vector; see ``_Slab``). ``join(request)``
+    prefills the request SOLO (B = 1, eagerly, as ``generate`` does),
+    computes its first token the way ``generate`` does, and splices the
+    prefilled cache rows into a free slot of the slab; ``step()`` writes the
+    host tokens and positions into the slab and advances every slot one
+    token through the SAME cached step ``generate`` / ``serve_batch`` use —
+    a graph replay on the card — with one position per row
+    (``attn_decode``'s per-row branch; the LSTM and SSM states ignore
+    position). Every row of a batched step is computed on its own, so a
+    greedy request's tokens equal a solo ``generate`` call's no matter when
+    it joined or who shares the stream; on the card the GEMMs of a width-W
+    step may round otherwise than a width-1 step's, so the last bits of a
+    hidden state can differ and a near-tied argmax with them.
+
+    Graphs: the width is FIXED at ``width`` — empty slots are padding, so
+    join / retire churn never changes a step's shapes. The slab goes back
+    to the engine when the last slot empties, and the engine lends it to
+    the next stream of the width whose step already holds a graph on it,
+    so repeated streams of the same shape add no graph
+    (``engine.compiled_step_counts()`` is the audit).
+
+    Guarded steps: the token guard (``guard_tokens``) runs after the step
+    on the host. The step has by then written the slab in place (the
+    reference computes into new arrays and commits after the guard), so a
+    refused step is undone before the fault propagates: the recurrent
+    leaves come back from the copy the step took first, the generator's
+    state is restored, and ``tok`` / ``pos`` are rewritten from the host
+    before every step anyway. A retry is then the identical step, bit for
+    bit. A join guards its first token before it touches the slab.
+
+    Sampling: one stream carries ONE sampling static tuple (temperature,
+    top_p, seed) — the scheduler keys streams so this holds. The stream
+    draws from its own ``torch.Generator`` seeded with ``seed``, exactly as
+    ``generate`` does (the first token's draw at the join, then one
+    batch-wide draw of uniforms per step), so an isolated width-1 sampled
+    stream reproduces solo ``generate``; at width > 1 draws depend on
+    stream width and join composition, the same contract ``serve_batch``
+    documents for group composition.
+    """
+
+    def __init__(self, engine: DecodeEngine, head: SoftmaxHead, width: int,
+                 temperature: Optional[float] = None, top_p: float = 1.0,
+                 seed: int = 0, head_name: str = "custom"):
+        if width < 1:
+            raise ValueError(f"stream width must be >= 1: {width}")
+        self.engine = engine
+        self.head = engine.resolve_head(head)
+        self.head_name = head_name
+        # resilience hooks: the scheduler arms an injector on streams it
+        # opens; the vocab bound backs the always-on output guard (a head
+        # emitting sentinel/NaN ids raises a typed HeadFault instead of
+        # feeding garbage back into the decode)
+        self.fault_injector = None
+        # observability: the scheduler arms its tracer here too; kernel
+        # spans time the host-side replay+guard window around the cached
+        # step (the guard's token copy waits for the card)
+        self.tracer = NULL_TRACER
+        self.vocab = int(engine.W.shape[0])
+        self.width = int(width)
+        self.temperature = temperature
+        self.top_p = float(top_p)
+        self.seed = int(seed)
+        self.sampled = temperature is not None
+        self._gen = None
+        if self.sampled:
+            self._gen = torch.Generator(device=engine.device)
+            self._gen.manual_seed(self.seed)
+        self._slab: Optional[_Slab] = None
+        self.tok = np.zeros((self.width,), np.int32)
+        self.pos = np.zeros((self.width,), np.int32)
+        self.slots: List[Optional[_StreamSlot]] = [None] * self.width
+        self._finished: List[tuple] = []
+
+    # -- capacity ------------------------------------------------------------
+    @property
+    def n_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    @property
+    def free_slots(self) -> int:
+        return self.width - self.n_active
+
+    @property
+    def idle(self) -> bool:
+        """No occupied slots and no completions waiting to be drained —
+        safe for a scheduler to close and replace."""
+        return self.n_active == 0 and not self._finished
+
+    @property
+    def cache(self) -> Optional[dict]:
+        """The slab's decode cache while a slot is occupied, else None."""
+        return None if self._slab is None else self._slab.cache
+
+    def occupied(self) -> List[tuple]:
+        """[(slot index, tag)] for every occupied slot — what a scheduler
+        scans when deciding whom to preempt."""
+        return [(i, s.tag) for i, s in enumerate(self.slots) if s is not None]
+
+    def _first_free(self) -> int:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        raise RuntimeError("DecodeStream is full — check free_slots first")
+
+    def _step_entry(self) -> _Step:
+        eng = self.engine
+        if self.sampled:
+            return eng._sample_step(self.head, self.temperature, self.top_p)
+        return eng._greedy_step(self.head)
+
+    def _release_if_empty(self) -> None:
+        """Give the slab back once no slot is occupied."""
+        if self._slab is not None and self.n_active == 0:
+            self.engine._return_stream_slab(self._slab)
+            self._slab = None
+
+    # -- join: solo prefill + cache splice into a pad slot -------------------
+    @torch.inference_mode()
+    def join(self, request: ServeRequest, tag: object = None) -> int:
+        """Admit one request into a free slot mid-decode. Returns the slot.
+
+        The request's first token comes from its own solo prefill (identical
+        to ``generate``'s first-token path); subsequent tokens come from the
+        shared batched ``step``. A ``max_new == 1`` request completes here
+        and surfaces from the next ``step()``/``pop_finished()``."""
+        eng = self.engine
+        Tp = int(request.prompt.shape[0])
+        if Tp + request.max_new > eng.max_len:
+            raise ValueError(
+                f"request needs {Tp + request.max_new} cache slots, stream "
+                f"max_len is {eng.max_len}")
+        slot = self._first_free()
+        solo, h_last = eng._prefill(request.prompt[None], request.max_new)
+        hd = self.head
+        state = None
+        if self.sampled:
+            state = self._gen.get_state()
+            first = hd.sample(h_last, self.temperature, self.top_p,
+                              generator=self._gen)
+        else:
+            first = hd.next(h_last)
+        # guard BEFORE any stream state mutates: a join-boundary fault
+        # (injected or an honestly degenerate first token) leaves the
+        # stream exactly as it was, so the scheduler can retry or re-route
+        try:
+            first = int(guard_tokens(self.fault_injector, "join",
+                                     self.head_name, first,
+                                     self.vocab).ravel()[0])
+        except HeadFault:
+            if state is not None:
+                self._gen.set_state(state)
+            raise
+        entry = _StreamSlot(tag=tag, request=request, tokens=[first],
+                            remaining=request.max_new - 1)
+        if entry.remaining == 0:
+            self._finished.append(
+                (entry.tag, entry.request,
+                 np.asarray(entry.tokens, np.int32)))
+            return slot
+        if self._slab is None:
+            self._slab = eng._lend_stream_slab(
+                self.width, eng._token_step_key(self.head, self.temperature,
+                                                self.top_p))
+        _splice_cache(self._slab.cache, solo.cache, slot, eng.model.cfg)
+        self.tok[slot] = first
+        self.pos[slot] = Tp
+        self.slots[slot] = entry
+        return slot
+
+    # -- step: advance every occupied slot one token -------------------------
+    @torch.inference_mode()
+    def step(self) -> List[tuple]:
+        """One batched decode tick. Returns retired ``(tag, request,
+        tokens)`` triples — requests that hit their ``max_new`` this tick
+        (plus any that completed at join). Idle slots decode padding that is
+        never read and is overwritten by the next join's splice. A
+        ``HeadFault`` from the guard leaves the stream as it was before the
+        step (completions from joins stay queued for ``pop_finished``)."""
+        out = self._finished
+        self._finished = []
+        idx = [i for i, s in enumerate(self.slots) if s is not None]
+        if not idx:
+            return out
+        eng, slab = self.engine, self._slab
+        slab.tok.copy_(torch.from_numpy(self.tok))
+        slab.pos.copy_(torch.from_numpy(self.pos))
+        state = None
+        if self.sampled:
+            state = self._gen.get_state()
+            shape = self.head.noise_shape(self.width, self.temperature)
+            if shape is not None:
+                torch.rand(shape, generator=self._gen,
+                           out=slab.uniforms(shape))
+        tr = self.tracer
+        k_t0 = tr.now() if tr.enabled else 0.0
+        eng._run(self._step_entry(), slab)
+        try:
+            nxt = guard_tokens(self.fault_injector, "step", self.head_name,
+                               slab.tok, self.vocab, rows=idx)
+        except HeadFault:
+            slab.restore()
+            if state is not None:
+                self._gen.set_state(state)
+            self._finished = out
+            raise
+        if tr.enabled:
+            tr.span("kernel.step", "kernel", k_t0,
+                    args={"head": self.head_name, "active": len(idx)})
+        for i in idx:
+            s = self.slots[i]
+            t = int(nxt[i])
+            s.tokens.append(t)
+            s.remaining -= 1
+            self.tok[i] = t
+            self.pos[i] += 1
+            if s.remaining == 0:
+                out.append((s.tag, s.request,
+                            np.asarray(s.tokens, np.int32)))
+                self.slots[i] = None
+        self._release_if_empty()
+        return out
+
+    def pop_finished(self) -> List[tuple]:
+        """Drain completions that happened outside ``step`` (max_new == 1
+        joins) without advancing the decode."""
+        out = self._finished
+        self._finished = []
+        return out
+
+    # -- evict: preemption hook ----------------------------------------------
+    def evict(self, slot: int) -> tuple:
+        """Forcibly retire a slot (scheduler preemption). Returns ``(tag,
+        request, partial_tokens)``; the slot is free for the next join."""
+        s = self.slots[slot]
+        if s is None:
+            raise ValueError(f"slot {slot} is not occupied")
+        self.slots[slot] = None
+        self._release_if_empty()
+        return (s.tag, s.request, np.asarray(s.tokens, np.int32))
+
 
 def _advance(model: Model, params, slab: _Slab) -> torch.Tensor:
     """``model.decode_step`` of ``slab.tok`` at ``slab.pos``, its cache
-    written back into the slab, the position advanced → h (B, d)."""
+    written back into the slab, the position advanced → h (B, d). A stream
+    slab first saves its recurrent leaves (``_Slab.save``)."""
+    slab.save()
     h, cache = model.decode_step(params, slab.tok, slab.cache, slab.pos)
     _write_back(slab.cache, cache)
     slab.pos.add_(1)
@@ -499,6 +876,24 @@ def _write_back(dst, src) -> None:
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
         if d is not s:
             d.copy_(s)
+
+
+def _recurrent_leaves(cache) -> List[torch.Tensor]:
+    """The leaves a decode step overwrites whole: the LSTM state, or the
+    SSM states and conv tails (not the hybrid's K/V caches)."""
+    return tree_leaves(cache["lstm"] if "lstm" in cache else cache["ssm"])
+
+
+def _splice_cache(group, solo, slot: int, cfg) -> None:
+    """Write a solo (B = 1) prefilled cache into row ``slot`` of a width-W
+    stream cache, IN PLACE (the reference returns a new cache): the
+    stream's graphs hold the addresses of ``group``. Every leaf's whole row
+    is copied, the K/V rows past the prompt included. The batch axis is
+    ``_reorder_cache``'s: 0 for the LSTM state, 1 for the stacked SSM /
+    attention caches."""
+    axis = 0 if cfg.family == "lstm" else 1
+    for g, s in zip(tree_leaves(group), tree_leaves(solo)):
+        g.select(axis, slot).copy_(s.select(axis, 0))
 
 
 def _reorder_cache(cache, src_idx, cfg):

@@ -42,6 +42,15 @@ class ServeRequest:
                        demands exact-softmax heads, 0.0 accepts anything.
     ``head``           explicit registry head name — set, it OVERRIDES the
                        policy (escape hatch; policies never see it).
+    ``timeout_s``      per-request wall budget on the scheduler's clock,
+                       submission to last token; None (default) = no
+                       timeout. Expired requests terminate as a typed
+                       ``AdmissionRejected(stage="timeout")`` carrying the
+                       partial decode — independent of the latency tier's
+                       deadline, which is a PREEMPTION signal.
+
+    The reference's ``draft_head`` and ``draft_len`` (speculative decoding)
+    come with the spec layer (ROADMAP.md, Queue 1 item 8).
     """
 
     prompt: np.ndarray
@@ -53,6 +62,7 @@ class ServeRequest:
     latency_tier: str = "standard"
     accuracy_floor: float = 0.0
     head: Optional[str] = None
+    timeout_s: Optional[float] = None
 
     def __post_init__(self):
         # validate EVERYTHING the decode loop consumes up front: a bad k or
@@ -70,14 +80,20 @@ class ServeRequest:
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError(f"ServeRequest.top_p must be in (0, 1], got "
                              f"{self.top_p}")
+        if self.timeout_s is not None and self.timeout_s <= 0:
+            raise ValueError(
+                f"ServeRequest.timeout_s must be > 0 or None, got "
+                f"{self.timeout_s}")
 
     @property
     def sampled(self) -> bool:
         return self.temperature is not None
 
     def sampling_key(self) -> tuple:
-        """The sampling statics ONE cached step can carry: ``("greedy",)``
-        or ``("sample", temperature, top_p, seed)``."""
+        """The sampling statics ONE cached step (and one continuous decode
+        stream) can carry: ``("greedy",)`` or ``("sample", temperature,
+        top_p, seed)``. Shared by ``group_key`` and the scheduler's stream
+        signatures so the two batching layers can never drift."""
         if not self.sampled:
             return ("greedy",)
         return ("sample", float(self.temperature), float(self.top_p),

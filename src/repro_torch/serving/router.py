@@ -57,10 +57,19 @@ def head_eligible(name: str, meta: dict, request: ServeRequest,
                   accuracy: Dict[str, float],
                   memory_budget_bytes: Optional[int] = None,
                   wide_k: Optional[int] = None) -> bool:
-    """The eligibility test of ``CostAwarePolicy``: accuracy floor (raised
-    to exactness for k > ``wide_k`` when given — an approximate head's
-    candidate list may not contain k valid words), sampling support, and
-    the per-device memory fit ``memory_bytes / n_shards``."""
+    """The ONE eligibility test routing and admission share: accuracy floor
+    (raised to exactness for k > ``wide_k`` when given — an approximate
+    head's candidate list may not contain k valid words), sampling support,
+    and the per-device memory fit ``memory_bytes / n_shards``. Keeping it
+    here means a fix to eligibility can never make ``CostAwarePolicy`` and
+    ``BudgetAdmission`` silently disagree.
+
+    A ``breaker_open`` stamp in ``meta`` vetoes the head outright — the
+    scheduler stamps catalog copies for heads whose circuit breaker is
+    open (see serving/resilience), and routing and admission both inherit
+    the veto through this one test."""
+    if meta.get("breaker_open"):
+        return False
     floor = request.accuracy_floor
     if wide_k is not None and request.k > wide_k:
         floor = max(floor, 1.0)

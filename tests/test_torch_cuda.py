@@ -600,6 +600,154 @@ def test_cuda_serve_batch_adds_no_graph_when_repeated(cuda):
             np.testing.assert_array_equal(solo.tokens[0], a.tokens)
 
 
+# -- continuous batching on the card -----------------------------------------------
+
+def _stream_run(eng, prompts, head="screened-cuda", width=3, injector=None,
+                temperature=None):
+    """Three requests (prompts of 20, 15 and 17 tokens, 6 new each) join a
+    stream at ticks 0, 1 and 3; a step or join the guard refuses is run
+    again. → (tokens by tag, the cache leaves after the last step that left
+    a slot occupied, faults)."""
+    from repro_torch.serving import HeadFault, ServeRequest
+    from repro_torch.tree import tree_leaves
+    s = eng.open_stream(head, width=width, temperature=temperature, seed=5)
+    s.fault_injector = injector
+    reqs = [ServeRequest(prompt=prompts[i][:n], max_new=6)
+            for i, n in enumerate((20, 15, 17))]
+    done, faults, leaves, tick = [], 0, None, 0
+    joins = {0: 0, 1: 1, 3: 2}
+    while tick == 0 or s.n_active or joins:
+        if tick in joins:
+            while True:
+                try:
+                    s.join(reqs[joins[tick]], tag=joins[tick])
+                    break
+                except HeadFault:
+                    faults += 1
+            del joins[tick]
+        try:
+            done += s.step()
+        except HeadFault:
+            faults += 1
+            continue
+        if s.cache is not None:
+            leaves = [x.clone() for x in tree_leaves(s.cache)]
+        tick += 1
+    return {t: toks.tolist() for t, _, toks in done}, leaves, faults
+
+
+@pytest.mark.parametrize("family", ["lstm", "hybrid"])
+@pytest.mark.parametrize("name", ["exact", "cuda-fused", "cuda-unfused"])
+def test_cuda_stream_graph_equals_its_eager_body(cuda, family, name):
+    """A stream's graph replays (joins at three ticks, per-row positions)
+    give the tokens, cache and launch counts of the same stream whose steps
+    run their bodies eagerly, bit for bit; greedy and sampled."""
+    for temperature in (None, 0.9):
+        runs = []
+        for eager in (False, True):
+            eng, prompts = _graph_engine(cuda, family)
+            if eager:
+                eng._run = lambda step, slab: step.body(slab)
+            hd = _head(eng, name)
+            ops.reset_launches()
+            runs.append(_stream_run(eng, prompts, hd,
+                                    temperature=temperature)
+                        + (dict(ops.LAUNCHES), eng.compiled_step_counts()))
+        (got, gl, _, gn, gc), (want, wl, _, wn, wc) = runs
+        assert got == want and gn == wn
+        assert all(torch.equal(a, b) for a, b in zip(gl, wl))
+        assert sum(gc.values()) == 1 and sum(wc.values()) == 0
+
+
+def test_cuda_stream_slabs_are_lent_not_leaked(cuda):
+    """A stream gives its slab back when it empties; the next stream of the
+    step and width is lent the same slab and replays the graph captured on
+    it. A generate at the width between them runs on its own slab."""
+    eng, prompts = _graph_engine(cuda, "lstm")
+    first, _, _ = _stream_run(eng, prompts)
+    counts = eng.compiled_step_counts()
+    assert counts == {("screened-cuda", "greedy"): 1}
+    key = (3, (eng.resolve_head("screened-cuda").step_key(), "greedy"))
+    free = [r() for r in eng._free_stream_slabs[key]]
+    assert len(free) == 1 and free[0].pos.shape == (3,)
+    eng.generate(prompts, 4, head="screened-cuda")     # generate's own slab
+    assert eng.compiled_step_counts() == {("screened-cuda", "greedy"): 2}
+    assert eng._slabs[3] is not free[0]
+    again, _, _ = _stream_run(eng, prompts)
+    assert again == first
+    assert eng.compiled_step_counts() == {("screened-cuda", "greedy"): 2}
+    assert [r() for r in eng._free_stream_slabs[key]] == free
+
+
+def test_cuda_second_drain_adds_no_graph(cuda):
+    """A second scheduler draining the same mixed traffic (greedy and
+    sampled, two heads) on the engine adds no graph and gives the first
+    drain's results bit for bit; greedy results equal serve_batch's."""
+    from repro_torch.serving import (ContinuousScheduler, ServeRequest,
+                                     ServeResult, TierPolicy)
+    eng, prompts = _graph_engine(cuda, "lstm")
+    tiers = ("realtime", "standard", "batch")
+    reqs = [ServeRequest(prompt=prompts[i % 3][:12 + 4 * (i % 2)],
+                         max_new=3 + i % 4, latency_tier=tiers[i % 3],
+                         temperature=0.9 if i % 4 == 3 else None, seed=7)
+            for i in range(10)]
+    pol = TierPolicy({"realtime": "screened-cuda"}, default="exact")
+    first = ContinuousScheduler(eng, policy=pol, max_slots=3).serve(reqs)
+    counts = eng.compiled_step_counts()
+    assert sum(counts.values()) > 0
+    again = ContinuousScheduler(eng, policy=pol, max_slots=3).serve(reqs)
+    assert eng.compiled_step_counts() == counts
+    batch = eng.serve_batch(reqs, policy=pol)
+    for req, a, b, c in zip(reqs, first, again, batch):
+        assert isinstance(a, ServeResult) and a.head == b.head == c.head
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        if req.temperature is None:
+            np.testing.assert_array_equal(a.tokens, c.tokens)
+
+
+@pytest.mark.parametrize("family", ["lstm", "hybrid"])
+def test_cuda_retried_stream_step_is_bit_identical(cuda, family):
+    """Transient faults at two steps and one join, and a NaN corruption,
+    each retried: the tokens and every cache leaf (LSTM state; SSM states,
+    conv tails and K/V) equal the fault-free run's bit for bit."""
+    from repro_torch.serving import FaultInjector
+    eng, prompts = _graph_engine(cuda, family)
+    clean, clean_leaves, n = _stream_run(eng, prompts)
+    assert n == 0
+    inj = FaultInjector(seed=0)
+    inj.arm("step", "transient", count=2, after=3)
+    inj.arm("join", "transient", count=1, after=2)
+    inj.arm("step", "nan", count=1, after=7)
+    got, leaves, n = _stream_run(eng, prompts, injector=inj)
+    assert n == 4 and got == clean
+    assert all(torch.equal(a, b) for a, b in zip(leaves, clean_leaves))
+
+
+def test_cuda_stream_replay_device_calls_equal_counted_launches(cuda):
+    """The profiler's device calls of each port kernel over a stream's
+    replays (hybrid: route, fused top-k, the K/V cache pair) equal the
+    launches the replays counted."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {"cluster_route": "route_kernel",
+             "fused_screened_topk": "fused_topk_kernel",
+             "cache_slot_update": "cache_kv_update_kernel",
+             "ssd_intra": "ssd_intra_kernel"}
+    eng, prompts = _graph_engine(cuda, "hybrid")
+    _stream_run(eng, prompts)                         # captures
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _stream_run(eng, prompts)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    seen = {k: sum(e.count for e in kern if sym in e.key)
+            for k, sym in names.items()}
+    counted = {k: ops.LAUNCHES[k] for k in names}
+    assert seen == counted
+    assert counted["cache_slot_update"] > 0 and counted["ssd_intra"] > 0
+
+
 def test_cuda_train_step_matches_the_cpu(cuda):
     """One LM train step (loss, gradients, clip) of reduced ptb-small-lstm
     on the card against the same step on the CPU: gradients within 1e-4 of

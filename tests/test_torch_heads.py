@@ -224,6 +224,13 @@ def test_port_imports_neither_jax_nor_the_reference():
     files += sorted((ROOT / "tools").glob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 20 and all(p.is_file() for p in files)
+    port = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
+            if "repro_torch" in p.parts}
+    assert {"utils/timing.py", "serving/observe/trace.py",
+            "serving/observe/metrics.py", "serving/resilience/faults.py",
+            "serving/resilience/breaker.py", "serving/resilience/watchdog.py",
+            "serving/scheduler/queue.py", "serving/scheduler/stats.py",
+            "serving/scheduler/scheduler.py", "launch/serve.py"} <= port
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
