@@ -56,7 +56,7 @@ def require_screen(screen, head_name: str):
 def screened_flops_per_query(screen, d: int) -> float:
     """Shared L2S cost model O((r + L̄)·d): routing plus the mean candidate
     matmul, with L̄ the uniform-over-clusters mean candidate words."""
-    lbar = float(screen.cand_len.float().mean()) * screen.block
+    lbar = float(screen.cand_len.double().mean()) * screen.block
     return float((screen.r + lbar) * d)
 
 
@@ -66,8 +66,33 @@ def screened_bytes_per_query(screen, d: int, writeback_floats: float = 0.0,
     router and the mean candidate weight tiles stream once, O((r + L̄)·d),
     plus ``writeback_floats`` intermediates written back and re-read
     (counted twice)."""
-    lbar = float(screen.cand_len.float().mean()) * screen.block
+    lbar = float(screen.cand_len.double().mean()) * screen.block
     return float(((screen.r + lbar) * d + 2.0 * writeback_floats) * itemsize)
+
+
+def tiered_flops_per_query(short_words: int, n_gates: int, p_descend: float,
+                           expected_tail_words: float, d: int) -> float:
+    """Adaptive-softmax cost model (Grave et al.): every query pays the
+    short-list matmul plus the tail gates, O((F + C)·d); the tail cluster
+    matmul only when the gate wins, so it enters in expectation under the
+    unigram: ``p_descend`` is the unigram mass beyond the short-list and
+    ``expected_tail_words`` the unigram-weighted mean tail-cluster width."""
+    return float((short_words + n_gates +
+                  p_descend * expected_tail_words) * d)
+
+
+def tiered_bytes_per_query(short_words: int, n_gates: int, p_descend: float,
+                           expected_tail_words: float, d: int,
+                           writeback_floats: float = 0.0,
+                           itemsize: int = 4) -> float:
+    """Device-memory twin of ``tiered_flops_per_query``: short-list tiles
+    and gates stream once per query, tail tiles in expectation, and
+    ``writeback_floats`` intermediates are written back and re-read
+    (counted twice) — O(k) results for the fused per-tier kernel, the full
+    candidate row for the unfused path."""
+    return float(((short_words + n_gates +
+                   p_descend * expected_tail_words) * d +
+                  2.0 * writeback_floats) * itemsize)
 
 
 def exact_flops_per_query(L: int, d: int) -> float:

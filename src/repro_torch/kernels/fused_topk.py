@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import V_BLK
 from repro_torch.kernels.ref import NEG_INF, topk_desc
 from repro_torch.kernels.screen import check_head_inputs, screened_logits_plain
 
@@ -73,16 +74,46 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
         return fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k,
                                          noise)
     return _launch(W_blocks, b_blocks, h, block_ids, k, noise,
-                   fused_parts(B, K, _sm_count(dev)))
+                   fused_parts(B, K, _sm_count(dev), k, d))
 
 
-def fused_parts(B: int, K: int, n_sm: int) -> int:
+# the H100's shared memory for one block (opt-in): the launch refuses more
+SMEM_LIMIT = 227 * 1024
+
+
+def merge_smem_bytes(K: int, parts: int, k: int, d: int) -> int:
+    """Shared memory one launch asks for (``csrc/fused_topk.cu``): phase A
+    holds h and a part's logits, phase B the row's K·P sorted lists of
+    kk = min(k, V_BLK / P) (value, position) pairs plus a head, a max and a
+    sum per list."""
+    rows = V_BLK // parts
+    kk = min(k, rows)
+    words_a = ((d + 3) & ~3) + rows
+    words_b = K * parts * (2 * kk + 3)
+    return 4 * max(words_a, words_b)
+
+
+def fused_parts(B: int, K: int, n_sm: int, k: int, d: int) -> int:
     """Parts P each candidate tile is cut into: the fewest of 1, 2, 4, 8
-    whose grid of B·K·P blocks puts two blocks on every SM (8 if none)."""
-    for parts in (1, 2, 4, 8):
-        if B * K * parts >= 2 * n_sm:
-            return parts
-    return 8
+    whose grid of B·K·P blocks puts two blocks on every SM (8 if none),
+    then halved until the merge's shared memory fits ``SMEM_LIMIT`` (a
+    smaller P merges fewer, longer lists: K·P·(2·kk + 3) words). Raises
+    ``ValueError`` when even P = 1 does not fit."""
+    parts = 8
+    for p in (1, 2, 4, 8):
+        if B * K * p >= 2 * n_sm:
+            parts = p
+            break
+    while parts > 1 and merge_smem_bytes(K, parts, k, d) > SMEM_LIMIT:
+        parts //= 2
+    need = merge_smem_bytes(K, parts, k, d)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"fused_screened_topk: K={K} candidate tiles at k={k} need "
+            f"{need} bytes of shared memory for the merge, past the "
+            f"{SMEM_LIMIT}-byte (227 KB) limit of one block even with the "
+            f"tiles uncut (P = 1)")
+    return parts
 
 
 @functools.lru_cache(maxsize=None)

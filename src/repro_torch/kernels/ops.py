@@ -21,6 +21,9 @@ Two decode hot paths, twins of ``repro/kernels/ops.py``:
   ids/vals are bit-identical to the unfused path. ``screened_fused_sample`` rides the same kernel with
   temperature-scaled Gumbel noise (Gumbel-max ≡ categorical sampling).
 
+``tier_fused_topk`` — the same fused kernel over block ids given directly
+  (no route step): the adaptive head's per-tier entry.
+
 Kernels. Each ``csrc/*.cu`` (route, screen, fused_topk, ssd, cache_update)
 exposes a plain ``extern "C"`` launcher. ``build_kernels`` compiles each
 with its own ``nvcc`` process (all started together) into a shared library
@@ -264,3 +267,17 @@ def screened_fused_sample(W_blocks, b_blocks, v, cand_blocks, h,
     ids, _, _ = fused_screened_topk(W_blocks, b_blocks, h, block_ids, k=1,
                                     noise=(temperature * gumbel).contiguous())
     return ids[:, 0]
+
+
+def tier_fused_topk(W_blocks, b_blocks, h, block_ids, k: int = 5
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-tier fused entry of the adaptive head (``heads/adaptive.py``):
+    the fused kernel over candidate blocks given directly — the frequency
+    tiers are the routing, so there is no ``cluster_route`` step.
+    ``block_ids`` (B, K) int32, sentinel ≥ n_blk; an all-sentinel row (a
+    query whose tail gate lost) gives NEG_INF vals, sentinel ids and
+    logZ = −∞, never NaN.
+    → (packed-row ids (B, k) int32, logits (B, k) f32, logZ (B,) f32);
+    callers map packed rows to vocab ids through their tier id map."""
+    return fused_screened_topk(W_blocks, b_blocks, h,
+                               block_ids.to(torch.int32).contiguous(), k=k)

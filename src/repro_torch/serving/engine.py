@@ -6,9 +6,18 @@ streams come with ROADMAP.md Queue 1 item 8).
 The head is the ONE seam: greedy decode, temperature/nucleus sampling, and
 beam search all route next-token selection through ``head.next`` /
 ``head.sample`` / ``head.topk_logprobs``. A head is a registry name
-("exact", "screened", "screened-cuda") resolved against the engine's
-(W, b, screen) context, or a ready ``SoftmaxHead`` instance, and every
-public method takes ``head=`` overriding the engine default.
+("exact", "screened-cuda", "adaptive", "svd", ...) resolved against the
+engine's (W, b, screen) context and ``head_kwargs``, or a ready
+``SoftmaxHead`` instance, and every public method takes ``head=``
+overriding the engine default.
+
+Host heads: a head that cannot be captured (``is_jittable = False``, the
+numpy baselines and ``screened-cpu``) runs on the host between replays of
+the model's decode step, which stays a graph on the card (``_HostStep``):
+``h`` is copied out after the replay, the head picks the token and it is
+written back into the slab, as the reference runs its ``_jit_decode`` and a
+numpy head. Such a step holds no graph of its own, so
+``compiled_step_counts`` reports 0 for its keys, as the reference's does.
 
 Step cache, the twin of the reference's LRU of jitted steps: at most 32
 cached steps, keyed by ``head.step_key()`` and the step kind —
@@ -212,6 +221,28 @@ class _Step:
         return out
 
 
+class _HostStep:
+    """The step-cache entry of a head that cannot be captured
+    (``is_jittable = False``, the numpy heads): ``model``, this entry's own
+    step of the model's decode alone (a graph replay on the card, its
+    output h read before the next replay), then ``head(slab, h)`` run
+    eagerly, the head on the host — the reference's ``_jit_decode`` and
+    host head. The model's graphs, and the slabs they hold, live and are
+    evicted with the entry. It holds no graph of the head, so
+    ``compiled_step_counts`` reports 0 for it, as the reference does."""
+
+    def __init__(self, model: _Step, head: Callable):
+        self.model = model
+        self.head = head
+        self.graphs: Dict[object, _Graph] = {}
+
+    def body(self, slab: _Slab):
+        return self.head(slab, self.model.body(slab))
+
+    def __call__(self, slab: _Slab, stream, pool):
+        return self.head(slab, self.model(slab, stream, pool))
+
+
 class DecodeEngine:
     def __init__(self, model: Model, params, head: HeadLike = "exact",
                  screen: Optional[ScreenParams] = None, max_len: int = 512,
@@ -267,13 +298,41 @@ class DecodeEngine:
         return head.prepare()
 
     # -- step cache -----------------------------------------------------------
-    def _cached_step(self, key: tuple, body: Callable) -> _Step:
-        """The entry under ``key``, made around ``body`` on a miss."""
+    def _cached_step(self, key: tuple, head: SoftmaxHead, kind: str,
+                     head_fn: Callable) -> _Step:
+        """The entry under ``key``, made on a miss: the model's decode of
+        ``kind`` (``_model_body``) and then ``head_fn(slab, h)``, captured
+        together for a capturable head, else a ``_HostStep``."""
         if key in self._step_cache:
             self._step_cache.move_to_end(key)       # LRU hit → most recent
+        elif head.is_jittable:
+            model_body = self._model_body(kind)
+            self._put_step(key, _Step(
+                lambda slab: head_fn(slab, model_body(slab))))
         else:
-            self._put_step(key, _Step(body))
+            self._put_step(key, _HostStep(_Step(self._model_body(kind)),
+                                          head_fn))
         return self._step_cache[key]
+
+    def _model_body(self, kind: str) -> Callable:
+        """The model's part of a step → h: ``"advance"`` (greedy and
+        sampled), or ``"reorder"`` (beam search: the cache rows gathered by
+        ``slab.src`` first)."""
+        model, params = self.model, self.params
+
+        def body(slab):
+            if kind == "reorder":
+                _reorder_cache(slab.cache, slab.src, model.cfg)
+            return _advance(model, params, slab)
+        return body
+
+    def host_model_graphs(self) -> int:
+        """CUDA graphs of the model's decode alone held by the host heads'
+        entries of the step cache (one per entry and slab; 0 on the CPU),
+        which ``compiled_step_counts`` leaves out, as the reference leaves
+        out its ``_jit_decode``."""
+        return sum(len(s.model.graphs) for s in self._step_cache.values()
+                   if isinstance(s, _HostStep))
 
     def _put_step(self, key, step: _Step):
         while len(self._step_cache) >= self._step_cache_max:
@@ -309,35 +368,28 @@ class DecodeEngine:
         return (head.step_key(), "sample", float(temperature), float(top_p))
 
     def _greedy_step(self, head: SoftmaxHead) -> _Step:
-        model, params = self.model, self.params
-
-        def body(slab):
-            slab.tok.copy_(head.next(_advance(model, params, slab)))
-        return self._cached_step(self._token_step_key(head, None, 1.0), body)
+        def head_fn(slab, h):
+            slab.tok.copy_(head.next(h))
+        return self._cached_step(self._token_step_key(head, None, 1.0), head,
+                                 "advance", head_fn)
 
     def _sample_step(self, head: SoftmaxHead, temperature: float,
                      top_p: float) -> _Step:
-        model, params = self.model, self.params
-
-        def body(slab):
-            h = _advance(model, params, slab)
+        def head_fn(slab, h):
             shape = head.noise_shape(h.shape[0], temperature)
             gumbel = (None if shape is None else
                       ops.gumbel_from_uniform(slab.uniforms(shape)))
             slab.tok.copy_(head.sample(h, temperature, top_p, gumbel=gumbel))
         return self._cached_step(
-            self._token_step_key(head, temperature, top_p), body)
+            self._token_step_key(head, temperature, top_p), head, "advance",
+            head_fn)
 
     def _decode_step(self, head: SoftmaxHead) -> _Step:
         """Beam search's step: the cache rows gathered by ``slab.src``, one
         decode, and the head's top-k log-probs at k = the beam width."""
-        model, params = self.model, self.params
-
-        def body(slab):
-            _reorder_cache(slab.cache, slab.src, model.cfg)
-            h = _advance(model, params, slab)
-            return head.topk_logprobs(h, h.shape[0])
-        return self._cached_step((head.step_key(), "decode"), body)
+        return self._cached_step(
+            (head.step_key(), "decode"), head, "reorder",
+            lambda slab, h: head.topk_logprobs(h, h.shape[0]))
 
     def _run(self, step: _Step, slab: _Slab):
         return step(slab, self._stream, self._pool)

@@ -468,14 +468,21 @@ def _graph_engine(cuda, family):
 
 
 def _head(eng, name):
-    from repro_torch.heads import ScreenedCudaHead
+    from repro_torch.heads import AdaptiveHead, ScreenedCudaHead
     if name == "cuda-unfused":
         return ScreenedCudaHead(eng.W, eng.b, eng.screen, fused=False).prepare()
+    if name.startswith("adaptive"):
+        return AdaptiveHead(eng.W, eng.b, shortlist=200, n_tails=2,
+                            fused=name == "adaptive-fused").prepare()
     return eng.resolve_head("screened-cuda" if name == "cuda-fused" else name)
 
 
+GRAPH_HEADS = ["exact", "cuda-fused", "cuda-unfused", "adaptive-fused",
+               "adaptive-unfused"]
+
+
 @pytest.mark.parametrize("family", ["lstm", "hybrid"])
-@pytest.mark.parametrize("name", ["exact", "cuda-fused", "cuda-unfused"])
+@pytest.mark.parametrize("name", GRAPH_HEADS)
 def test_cuda_graph_tokens_equal_the_eager_step_body(cuda, family, name):
     """Greedy, sampled (top_p 1 and 0.9) and beam tokens of the graph
     replays equal the step bodies' run eagerly, bit for bit; one graph per
@@ -505,7 +512,7 @@ def test_cuda_graph_tokens_equal_the_eager_step_body(cuda, family, name):
 
 
 @pytest.mark.parametrize("family", ["lstm", "hybrid"])
-@pytest.mark.parametrize("name", ["exact", "cuda-fused", "cuda-unfused"])
+@pytest.mark.parametrize("name", GRAPH_HEADS)
 def test_cuda_graph_sampled_tokens_equal_the_heads_own_draw(cuda, family,
                                                              name):
     """Graph-sampled tokens equal those the head's own ``sample(h,
@@ -828,3 +835,164 @@ def test_cuda_fit_l2s_screen_routes_to_its_coverage(cuda):
                      screen=st.screen, device=cuda)
     ids, _ = head.topk(h[:64], 5)
     assert ids.shape == (64, 5) and ops.LAUNCHES["fused_screened_topk"] == 1
+
+
+# -- the adaptive head's tiers and the host heads -----------------------------
+
+@pytest.fixture(scope="module")
+def tier_heads():
+    """Packed heads at nmt-deen-lstm's width (d = 500, V = 25,000: 196
+    blocks) and zamba2-2.7b's (d = 2560, V = 32,000: 250 blocks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    out = {}
+    for d, L in ((500, 25_000), (2560, 32_000)):
+        g = torch.Generator().manual_seed(d)
+        W = torch.randn((L, d), generator=g) * 0.05
+        b = torch.randn((L,), generator=g) * 0.1
+        out[d] = ops.pack_head_blocks(W.cuda(), b.cuda())
+    return out
+
+
+def _tier_ids(n_blk, B, K, g):
+    """(B, K) block ids of a tier: the short tier's blocks broadcast over
+    the rows (K = 16, 196, 250), or a tail tier's (K = 45) with every other
+    row masked to the sentinel (a row whose gate lost)."""
+    if K != 45:
+        return torch.arange(K, dtype=torch.int32).repeat(B, 1).contiguous()
+    ids = torch.randint(0, n_blk, (B, K), generator=g, dtype=torch.int32)
+    ids[::2] = n_blk
+    return ids.contiguous()
+
+
+TIER_GRID = [(B, K, k) for K in (16, 45, 196, 250) for k in (1, 5, 64)
+             for B in (1, 4)]
+
+
+@pytest.mark.parametrize("B,K,k", TIER_GRID)
+def test_cuda_tier_fused_topk_at_tier_shapes(cuda, tier_heads, B, K, k):
+    """``tier_fused_topk`` at the adaptive head's tier shapes against its
+    plain version (values and logZ within 1e-5) and bit for bit against the
+    masked gather kernel + stable top-k; all-sentinel rows give sentinel
+    ids, NEG_INF values and logZ = -inf."""
+    d = 2560 if K == 250 else 500
+    Wb, bb = tier_heads[d]
+    n_blk = Wb.shape[0]
+    g = torch.Generator().manual_seed(B * 1000 + K * 10 + k)
+    h = torch.randn((B, d), generator=g).to(cuda)
+    ids = _tier_ids(n_blk, B, K, g).to(cuda)
+    ops.reset_launches()
+    ki, kv, kz = ops.tier_fused_topk(Wb, bb, h, ids, k=k)
+    assert ops.LAUNCHES["fused_screened_topk"] == 1
+    pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+    torch.testing.assert_close(kv, pv, **TOL)
+    fin = torch.isfinite(pz)
+    assert torch.equal(fin, torch.isfinite(kz))
+    torch.testing.assert_close(kz[fin], pz[fin], **TOL)
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    row = torch.where(valid, screened_logits(Wb, bb, h, ids),
+                      NEG_INF).reshape(B, -1)
+    lane = torch.arange(V_BLK, device=cuda, dtype=torch.int32)
+    word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    uv, upos = topk_desc(row, k)
+    assert torch.equal(kv, uv) and torch.equal(ki, torch.gather(word, 1, upos))
+    dead = ~valid[..., 0].any(1)
+    assert bool((ki[dead] == n_blk * V_BLK).all())
+    assert bool((kv[dead] == NEG_INF).all()) and bool(torch.isneginf(
+        kz[dead]).all())
+
+
+def test_cuda_fused_parts_fall_back_to_one_part(cuda, tier_heads):
+    """zamba2-2.7b, B = 1, the short tier of all 250 blocks, k = 64: the
+    grid rule's P = 2 would need more than 227 KB for the merge, so the
+    wrapper launches at P = 1 (it used to be refused), and k = 128 raises
+    a ValueError naming the limit."""
+    from repro_torch.kernels.fused_topk import (SMEM_LIMIT, _sm_count,
+                                                fused_parts, merge_smem_bytes)
+    Wb, bb = tier_heads[2560]
+    h = torch.randn((1, 2560), generator=torch.Generator().manual_seed(3))
+    h = h.to(cuda)
+    ids = torch.arange(250, dtype=torch.int32, device=cuda)[None]
+    n_sm = _sm_count(h.device)
+    assert merge_smem_bytes(250, 2, 64, 2560) > SMEM_LIMIT
+    assert fused_parts(1, 250, n_sm, 64, 2560) == 1
+    ki, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=64)
+    pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, 64)
+    torch.testing.assert_close(kv, pv, **TOL)
+    torch.testing.assert_close(kz, pz, **TOL)
+    with pytest.raises(ValueError, match="227 KB"):
+        fused_screened_topk(Wb, bb, h, ids, k=128)
+
+
+@pytest.mark.parametrize("family", ["lstm", "hybrid"])
+def test_cuda_adaptive_fused_equals_unfused_in_graphs(cuda, family):
+    """Through the engine's graphs the adaptive head's fused path (two
+    fused top-k launches a step) and its unfused path (the gather kernel)
+    decode the same greedy tokens and beam; the fused greedy step launches
+    the fused kernel twice a replay."""
+    eng, prompts = _graph_engine(cuda, family)
+    fused = _head(eng, "adaptive-fused")
+    unfused = _head(eng, "adaptive-unfused")
+    eng.generate(prompts, 2, head=fused)               # capture
+    ops.reset_launches()
+    a = eng.generate(prompts, 6, head=fused)
+    assert ops.LAUNCHES["fused_screened_topk"] == 2 * 6
+    b = eng.generate(prompts, 6, head=unfused)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    ba = eng.beam_search(prompts[0], 4, 6, head=fused)
+    bb = eng.beam_search(prompts[0], 4, 6, head=unfused)
+    np.testing.assert_array_equal(ba.tokens, bb.tokens)
+
+
+def test_cuda_host_head_slabs_freed_with_their_entries(cuda):
+    """A host head's entries own the model's graphs and the slabs those
+    hold, generate's and a stream's: once the LRU has evicted the entries,
+    the graphs are gone, no slab is left and the free stream slab's weak
+    reference is dead."""
+    from repro_torch.heads import GreedyMIPSHead
+    eng, prompts = _graph_engine(cuda, "lstm")
+    hd = GreedyMIPSHead(eng.W, eng.b, budget=96)
+    for B in (1, 2):
+        eng.generate(prompts[:B], 3, head=hd)
+    assert sorted(eng._slabs) == [1, 2]
+    _stream_run(eng, prompts, head=hd)
+    assert eng.host_model_graphs() == 3
+    key = (3, (hd.step_key(), "greedy"))
+    assert [r() is None for r in eng._free_stream_slabs[key]] == [False]
+    sc = eng.resolve_head("screened-cuda")
+    for i in range(32):                             # steps with no graph
+        eng._sample_step(sc, 0.5 + 0.05 * i, 1.0)
+    assert eng.host_model_graphs() == 0 and len(eng._slabs) == 0
+    assert [r() is None for r in eng._free_stream_slabs[key]] == [True]
+
+
+def test_cuda_host_head_between_graph_replays(cuda):
+    """A host head (full-rank svd, greedy-mips) in a graph-backed
+    generate: tokens equal the eager step bodies', the host head's steps
+    hold no graph while the model's decode holds one per width, a second
+    run adds none, sampled decoding is reproducible from its seed, and a
+    stream through greedy-mips gives each request's solo tokens."""
+    from repro_torch.heads import GreedyMIPSHead, SVDHead
+    from repro_torch.testing import eager_beam_search, eager_generate
+    eng, prompts = _graph_engine(cuda, "lstm")
+    L, d = eng.W.shape
+    for hd in (SVDHead(eng.W, eng.b, rho=d, n_top=L),
+               GreedyMIPSHead(eng.W, eng.b, budget=96)):
+        got = [eng.generate(prompts, 6, head=hd) for _ in range(2)]
+        want = eager_generate(eng, prompts, 6, head=hd)
+        for g in got:
+            np.testing.assert_array_equal(g.tokens, want.tokens)
+        s = [eng.generate(prompts, 6, head=hd, temperature=0.8, seed=2)
+             for _ in range(2)]
+        np.testing.assert_array_equal(s[0].tokens, s[1].tokens)
+        gb = eng.beam_search(prompts[0], 3, 5, head=hd)
+        eb = eager_beam_search(eng, prompts[0], 3, 5, head=hd)
+        np.testing.assert_array_equal(gb.tokens, eb.tokens)
+    counts = eng.compiled_step_counts()
+    assert all(n == 0 for n in counts.values()), counts
+    assert eng.host_model_graphs() == 6        # greedy, sample, decode × 2
+    got, _, _ = _stream_run(eng, prompts, head=hd)
+    for tag, n in enumerate((20, 15, 17)):
+        solo = eng.generate(prompts[tag][None, :n], 6, head=hd)
+        assert got[tag] == solo.tokens[0].tolist()

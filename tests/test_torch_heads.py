@@ -190,7 +190,15 @@ def test_cost_models_match(fx):
 
 
 def test_registry_guards(fx):
-    assert heads.names() == ["exact", "screened", "screened-cuda"]
+    # the reference's heads, ``screened-pallas`` as ``screened-cuda``, less
+    # the sharded ones (ROADMAP.md Queue 1 item 10)
+    sharded = {"exact-sharded", "screened-sharded", "adaptive-sharded"}
+    assert heads.names() == sorted(
+        set(jheads.names()) - sharded - {"screened-pallas"} |
+        {"screened-cuda"})
+    assert heads.names() == [
+        "adaptive", "exact", "greedy-mips", "lsh-mips", "pca-mips",
+        "screened", "screened-cpu", "screened-cuda", "shortlist", "svd"]
     with pytest.raises(KeyError, match="unknown head"):
         _thead(fx, "screened-pallas")
     with pytest.raises(heads.MissingScreenError):
@@ -230,7 +238,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "serving/observe/metrics.py", "serving/resilience/faults.py",
             "serving/resilience/breaker.py", "serving/resilience/watchdog.py",
             "serving/scheduler/queue.py", "serving/scheduler/stats.py",
-            "serving/scheduler/scheduler.py", "launch/serve.py"} <= port
+            "serving/scheduler/scheduler.py", "launch/serve.py",
+            "heads/adaptive.py", "heads/adapters.py", "heads/sharded.py",
+            "core/baselines.py", "core/lowrank.py"} <= port
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
