@@ -3,8 +3,9 @@
 check it: the L2S screened decode of the paper's LSTM (nmt-deen-lstm), the
 training side (the LM trainer and Algorithm 1, fitting a screen), the
 Mamba2/Zamba2 decode path (zamba2-2.7b), continuous batching (decode
-streams, the scheduler and the serving launcher) on both, and the other
-heads (adaptive on the fused kernel, the §4.1 baselines on the host).
+streams, the scheduler and the serving launcher) on both, the other heads
+(adaptive on the fused kernel, the §4.1 baselines on the host), and
+speculative decoding and the LSTM page pool.
 
     python3 chip_smoke.py
 
@@ -158,10 +159,32 @@ Phases, one line (or a few) each:
               run adds no graph; one step's head (next(h), B = 4) of
               exact, screened-cuda and adaptive timed in turns with its
               bound;
+     spec     on the trained LM and fitted screen: a SpecDecodeStream of
+              width 8 (draft screened-cuda, verify exact, draft_len 4) over
+              [stream]'s 12 joins: greedy tokens == a plain width-8 exact
+              stream under the gap rule; a second stream of the same shape
+              adds no graph and repeats bit for bit; [e2e]'s random screen
+              as the draft (drafted - accepted > 0); a sampled stream (T =
+              1) twice from one seed, bit-identical; screened-cuda's
+              dist_logits == its plain version (rtol = atol = 1e-5), its
+              finite support == the routed candidate words < V, sampled ids
+              inside it; a profiled round (device calls == counted
+              launches); acceptance, emitted tokens per round, host time
+              per round;
+     pool     a width-8 PagedDecodeStream (page 16) over 16 requests on 2
+              shared prompts of 48 tokens == a plain width-8 stream bit for
+              bit, radix hits and prefill tokens skipped; a
+              ContinuousScheduler drain on a 13-page pool (PoolExhausted,
+              preemption, every request ends with a result, completed ones
+              bit-identical); a drain with kv_pool= and spec=SpecPolicy()
+              == the same drain without them (gap rule), its ServerStats
+              pool and spec fields;
      serve-cli python -m repro_torch.launch.serve --arch nmt-deen-lstm --l2s
               --scheduler --log-jsonl ... --train-steps 50 --requests 12 on
-              the card returns 0 and every JSONL record parses; bad flags
-              return 2;
+              the card returns 0 and every JSONL record parses, and so does
+              --scheduler --draft-head screened-cuda (a block screen, spec
+              lanes, the page pool); bad flags (--draft-head exact among
+              them) return 2;
   6. ssm      the SSD intra-chunk kernel against its plain version at
               zamba2-2.7b's prefill chunk (B = 4, nc = 2, Q = 256, H = 80,
               P = N = 64, G = 1), mamba2-1.3b's (H = 64, N = 128) and a
@@ -199,6 +222,12 @@ Phases, one line (or a few) each:
               row joined gives the fault-free tokens and cache (K/V, SSM
               states, conv tails) bit for bit; the time of the step's
               rollback snapshot and of a join's splice;
+     spec     on the same zamba2-2.7b: a SpecDecodeStream of width 4
+              (draft screened-cuda on the random screen, verify exact,
+              draft_len 4), 4 prompts of 512, 32 new: tokens == a plain
+              width-4 exact stream under the gap rule, drafted - accepted >
+              0 (the SSM states restored from the snapshot ring, K/V left
+              unrestored); the ring's bytes and one slot's copy time;
      heads    adaptive on the same zamba2-2.7b (tiers by weight-row norm,
               shortlist 2048, 4 tails): greedy 4 x 512 + 32 through graphs,
               fused == unfused tokens, launches counted from zero (two
@@ -214,8 +243,10 @@ Phases, one line (or a few) each:
               path: the two e2e paths, their graph phases, serve, the
               fitted screen's "nmt-deen-lstm l2s-fit", the streams
               ("nmt-deen-lstm stream", "zamba2-2.7b stream"),
-              "nmt-deen-lstm scheduler", "nmt-deen-lstm heads" and
-              "zamba2-2.7b adaptive"; its
+              "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
+              "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
+              paged" and "zamba2-2.7b spec", each counted from zero over
+              that path's own runs; its
               "launch_cost_ms" eager, in a graph and per launch in a graph
               of 9;
               the three L2S kernels also "at_zamba2_width"; the gather
@@ -2318,22 +2349,376 @@ def phase_serve_cli(torch):
     check(rc == 0, f"[serve-cli] exit code {rc}:\n{out.getvalue()}")
     check(recs and all("tick" in r and "delta" in r for r in recs),
           "[serve-cli] a JSONL record lacks tick / delta")
+    spec_argv = ["--l2s", "--scheduler", "--draft-head", "screened-cuda",
+                 "--budget", "1024", "--train-steps", "20", "--requests",
+                 "8", "--max-new", "16"]
+    spec_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(spec_out):
+        spec_rc = serve.main(base + spec_argv)
+    spec_secs = time.perf_counter() - t0
+    check(spec_rc == 0 and "spec[screened-cuda]" in spec_out.getvalue(),
+          f"[serve-cli] --draft-head screened-cuda: exit code {spec_rc}:\n"
+          f"{spec_out.getvalue()}")
     bad = {"--head screened without --l2s": ["--head", "screened"],
            "--log-jsonl without --scheduler": ["--log-jsonl", "x.jsonl"],
-           "--draft-head": ["--scheduler", "--draft-head", "screened",
-                            "--l2s"]}
+           "--draft-head exact": ["--scheduler", "--draft-head", "exact"],
+           "--draft-head without --scheduler": ["--draft-head", "screened",
+                                                "--l2s"]}
     codes = {}
     for name, argv in bad.items():
         with contextlib.redirect_stdout(io.StringIO()):
             codes[name] = serve.main(base + argv)
     check(all(c == 2 for c in codes.values()), f"[serve-cli] bad flags "
           f"returned {codes}")
-    for ln in out.getvalue().splitlines():
+    for ln in out.getvalue().splitlines() + spec_out.getvalue().splitlines():
         log(ln)
     log(f"[serve-cli] python -m repro_torch.launch.serve {' '.join(base)} "
         f"--l2s --scheduler --log-jsonl ... --train-steps 50 --requests 12: "
-        f"exit 0 in {secs:.1f} s, {len(recs)} JSONL tick records parse; bad "
-        f"flags exit {codes}")
+        f"exit 0 in {secs:.1f} s, {len(recs)} JSONL tick records parse; "
+        f"{' '.join(spec_argv)}: exit 0 in {spec_secs:.1f} s; bad flags "
+        f"exit {codes}")
+
+
+# -- speculative decoding and the page pool -------------------------------------
+SPEC_N = 4                       # [spec] draft length (n_max)
+POOL_PAGE = 16                   # [pool] page size
+
+
+def counted(torch, acc, fn):
+    """Run ``fn`` with the launch counters from zero and add its launches to
+    ``acc``: a path's counts gather its own runs only, never the check
+    runs between them. → fn's result."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, n in ops.LAUNCHES.items():
+        acc[k] = acc.get(k, 0) + n
+    return out
+
+
+def spec_summary(s, step_s):
+    """A spec stream's acceptance, emitted tokens per round (per slot) and
+    median host time per round."""
+    c = s.spec_counters()
+    return (f"acceptance {c['accepted'] / max(c['drafted'], 1):.4f} "
+            f"({c['accepted']}/{c['drafted']} drafts), "
+            f"{c['emitted'] / max(c['rounds'], 1):.4f} emitted per round "
+            f"({c['emitted']} in {c['rounds']} slot rounds, "
+            f"{c['draft_steps']} draft steps), "
+            f"{s.restored_rows} rows restored from the ring, host time per "
+            f"round median {statistics.median(step_s) * 1e3:.4f} ms (host "
+            f"clock, information only)")
+
+
+def random_lstm_screen(np):
+    """[e2e]'s random screen (r = 100, K = 16 over 196 tiles)."""
+    from repro_torch.interop import screen_from_numpy
+    rng = np.random.default_rng(0)
+    n_blk = -(-V // V_BLK)
+    v = rng.standard_normal((R, D)).astype(np.float32)
+    cand = make_screen_blocks(np, 6, n_blk)
+    return screen_from_numpy(v, cand, (cand < n_blk).sum(1), V, V_BLK)
+
+
+def check_dist_logits(torch, np, eng, tag):
+    """``screened-cuda.dist_logits`` on the card against its plain version
+    (the head on CPU copies): values within TOL, the same finite support,
+    equal to the routed cluster's candidate words < V (rows whose top-2
+    cluster scores differ by < 1e-5 relative aside), every sampled id
+    inside it (fused, and top-p 0.9 through the gather). → rows checked."""
+    from repro_torch.heads import ScreenedCudaHead
+    from repro_torch.heads.base import NEG_INF
+    from repro_torch.kernels.route import cluster_route
+    hd = eng.resolve_head("screened-cuda")
+    scr = eng.screen
+    g = torch.Generator(device="cuda").manual_seed(12)
+    h = torch.randn((SPEC_N * LSTM_W, D), generator=g, device="cuda")
+    with torch.inference_mode():
+        got = hd.dist_logits(h)
+        plain = ScreenedCudaHead(eng.W.cpu(), eng.b.cpu(),
+                                 scr.to("cpu")).dist_logits(h.cpu())
+        scores = (h.cpu() @ scr.v.cpu().T).double()
+        top = scores.topk(2, dim=-1).values
+        tie = ((top[:, 0] - top[:, 1]) <
+               1e-5 * top[:, 0].abs().clamp(min=1.0)).numpy()
+        on, pon = got > NEG_INF / 2, plain > NEG_INF / 2
+        keep = torch.as_tensor(~tie)
+        check(torch.equal(on.cpu()[keep], pon[keep]),
+              f"{tag}: dist_logits support differs from its plain version")
+        err = float((torch.where(on, got, 0.0).cpu() -
+                     torch.where(pon, plain, 0.0))[keep].abs().max())
+        check(torch.allclose(torch.where(on, got, 0.0).cpu()[keep],
+                             torch.where(pon, plain, 0.0)[keep], **TOL),
+              f"{tag}: dist_logits differ from the plain version by {err}")
+        cluster = cluster_route(h, scr.v).long()
+        blocks = scr.cand_idx[cluster]                      # (B, K)
+        n_blk = -(-V // V_BLK)
+        lane = torch.arange(V_BLK, device="cuda")
+        wid = (blocks[..., None].long() * V_BLK + lane).reshape(len(h), -1)
+        ok = ((blocks < n_blk)[..., None].expand(-1, -1, V_BLK)
+              .reshape(len(h), -1)) & (wid < V)
+        dump = n_blk * V_BLK                 # sentinel slots land past V
+        words = torch.zeros((len(h), dump + 1), dtype=torch.bool,
+                            device="cuda")
+        words.scatter_(1, torch.where(ok, wid, dump), True)
+        words = words[:, :V]
+        check(torch.equal(on, words), f"{tag}: the finite support is not "
+              f"the routed candidate words < V")
+        rows = torch.arange(len(h), device="cuda")
+        for top_p in (1.0, 0.9):
+            for _ in range(25):
+                ids = hd.sample(h, 1.0, top_p, generator=g).long()
+                check(bool(on[rows, ids].all()), f"{tag}: a sampled id lies "
+                      f"outside dist_logits' support (top-p {top_p})")
+    log(f"{tag} screened-cuda dist_logits on {len(h)} rows (route + gather "
+        f"kernels, scattered to V = {V}): == its plain version (max |diff| "
+        f"{err:.3g}, rtol = atol = 1e-5; {int(tie.sum())} rows with a route "
+        f"tie aside), finite support == the routed candidate words < V "
+        f"({int(on.sum())} words), 2 x 25 sampled draws (fused; top-p 0.9) "
+        f"inside it")
+    return err
+
+
+def phase_spec_lstm(torch, np, ctx):
+    """[spec] on the trained nmt-deen-lstm and its fitted screen: a width-8
+    SpecDecodeStream (draft screened-cuda, verify exact, draft_len 4), 12
+    joins: greedy tokens == a plain width-8 exact stream under the gap
+    rule; a second stream adds no graph and repeats bit for bit; the random
+    [e2e] screen as the draft (rejections > 0); a sampled stream (T = 1)
+    twice from one seed, bit-identical; dist_logits on the card; a
+    profiled round. → (launches of the path's runs, dist_logits error)."""
+    from repro_torch.heads import ScreenedCudaHead
+    from repro_torch.serving import DecodeEngine, ServeRequest
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    t_phase = time.perf_counter()
+    eng = DecodeEngine(model, params, screen=screen, device="cuda")
+    rng = np.random.default_rng(20)
+    plan = [0, 0, 1, 3, 3, 5, 6, 8, 9, 11, 12, 14]
+    reqs = [ServeRequest(prompt=rng.integers(0, V, 8 if i % 2 else 12),
+                         max_new=4 + (i * 5) % 21) for i in range(len(plan))]
+    plain, _, _, plain_s = drive_stream(eng.open_stream("exact",
+                                                        width=LSTM_W),
+                                        reqs, plan)
+    acc = {}
+
+    def run(draft, **kw):
+        s = eng.open_spec_stream(draft, "exact", width=LSTM_W,
+                                 draft_len=SPEC_N, **kw)
+        got, ticks, _, step_s = counted(torch, acc, lambda: drive_stream(
+            s, reqs, plan))
+        return s, got, step_s
+
+    def held(tag, got):
+        return sum(gap_rule(torch, np, f"{tag} request {i}", model, params,
+                            screen, r.prompt, got[i], plain[i], "exact")
+                   for i, r in enumerate(reqs))
+
+    s1, got, step1 = run("screened-cuda")
+    near = held("[spec] fitted", got)
+    counts = eng.compiled_step_counts()
+    check(counts.get(("exact", "spec-verify")) == 1 and
+          counts.get(("screened-cuda", "greedy")) == 1,
+          f"[spec] graphs {counts}")
+    s2, again, _ = run("screened-cuda")
+    check(eng.compiled_step_counts() == counts and
+          all(np.array_equal(again[i], got[i]) for i in got),
+          "[spec] a second stream of the same shape added a graph or "
+          "changed a token")
+    rand = ScreenedCudaHead(eng.W, eng.b,
+                            random_lstm_screen(np).to("cuda")).prepare()
+    s3, rgot, step3 = run(rand)
+    near_r = held("[spec] random draft", rgot)
+    c3 = s3.spec_counters()
+    check(c3["drafted"] - c3["accepted"] > 0 and s3.restored_rows > 0,
+          f"[spec] the random draft was never rejected: {c3}")
+    samp = [run("screened-cuda", temperature=1.0, seed=7) for _ in range(2)]
+    check(all(np.array_equal(samp[0][1][i], samp[1][1][i]) and
+              samp[0][1][i].max() < V for i in samp[0][1]),
+          "[spec] two sampled runs from one seed differ")
+    counts = eng.compiled_step_counts()
+    err = check_dist_logits(torch, np, eng, "[spec]")
+    few = reqs[:4]
+    profile_counted(torch, "[spec] round", lambda: drive_stream(
+        eng.open_spec_stream(rand, "exact", width=LSTM_W, draft_len=SPEC_N),
+        few, [0] * len(few)))
+    log(f"[spec] nmt-deen-lstm (trained, fitted screen): SpecDecodeStream "
+        f"width {LSTM_W}, draft screened-cuda, verify exact, draft_len "
+        f"{SPEC_N}, {len(reqs)} joins at ticks {plan}: greedy tokens == a "
+        f"plain width-{LSTM_W} exact stream except {near} request(s) that "
+        f"first differ after a step with a top-2 gap < {GAP}; "
+        f"{spec_summary(s1, step1)}; plain exact stream host time per step "
+        f"median {statistics.median(plain_s) * 1e3:.4f} ms; a second stream "
+        f"adds no graph and repeats bit for bit (compiled_step_counts "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in sorted(counts.items())} })")
+    log(f"[spec] the random [e2e] screen as the draft: tokens == the plain "
+        f"exact stream except {near_r} near tie(s); {spec_summary(s3, step3)}"
+        f"; live draft length at the end {s3.controller.n}")
+    log(f"[spec] sampled (T = 1, seed 7) twice: bit-identical; "
+        f"{spec_summary(samp[0][0], samp[0][2])}")
+    log(f"[spec] launches of the path's own runs (5 streams, from zero): "
+        f"{json.dumps(acc)}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return acc, err
+
+
+def pool_traffic(np):
+    """[pool]'s 16 requests: 2 prompts of 48 tokens, each with distinct
+    suffixes of 4-20 tokens, 12-20 new."""
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(21)
+    bases = rng.integers(0, V, (2, 48))
+    return [ServeRequest(prompt=np.concatenate(
+        [bases[i % 2], rng.integers(0, V, 4 + (i * 7) % 17)]),
+        max_new=12 + (i * 3) % 9) for i in range(16)]
+
+
+def phase_pool_lstm(torch, np, ctx):
+    """[pool] on the same LM: a width-8 PagedDecodeStream (page 16) over
+    16 requests sharing 2 prompts == a plain width-8 stream bit for bit,
+    radix hits and prefill tokens skipped; a ContinuousScheduler drain on a
+    pool too small for the traffic (PoolExhausted, preemption, every
+    request ends with a result, completed ones bit-identical); a drain
+    with kv_pool= and spec=SpecPolicy() == the same drain without them
+    (gap rule), its ServerStats pool and spec fields. → launches of the
+    path's runs."""
+    from repro_torch.serving import (ContinuousScheduler, DecodeEngine,
+                                     PagePool, ServeResult, SpecPolicy,
+                                     StaticPolicy)
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    t_phase = time.perf_counter()
+    eng = DecodeEngine(model, params, screen=screen, device="cuda")
+    reqs = pool_traffic(np)
+    plan = [0] * len(reqs)
+    head = "screened-cuda"
+    plain, _, _, _ = drive_stream(eng.open_stream(head, width=LSTM_W), reqs,
+                                  plan)
+    acc = {}
+    pool = PagePool(256, POOL_PAGE)
+    got, ticks, _, step_s = counted(torch, acc, lambda: drive_stream(
+        eng.open_paged_stream(pool, head=head, width=LSTM_W), reqs, plan))
+    check(all(np.array_equal(got[i], plain[i]) for i in plain),
+          "[pool] paged tokens differ from the plain stream's")
+    rx = pool.radix.telemetry()
+    check(rx["tokens_hit"] > 0, f"[pool] no radix hit: {rx}")
+    log(f"[pool] nmt-deen-lstm: PagedDecodeStream width {LSTM_W}, page "
+        f"{POOL_PAGE}, {len(reqs)} requests on 2 shared prompts of 48 "
+        f"tokens (+ 4-20 distinct): tokens == a plain width-{LSTM_W} "
+        f"{head} stream bit for bit; radix lookups {rx['lookups']}, hits "
+        f"{rx['lookup_hits']}, prefill tokens skipped {rx['tokens_hit']} of "
+        f"{rx['tokens_total']} (hit rate {rx['hit_rate']:.4f}), nodes "
+        f"{rx['nodes']}, COW copies {pool.cow_copies}, pages in use "
+        f"{pool.pages_in_use} (peak {pool.peak_in_use}); host time per step "
+        f"median {statistics.median(step_s) * 1e3:.4f} ms (host clock)")
+
+    small = PagePool(14, POOL_PAGE)                # 13 pages for 16 requests
+    out, sched, _ = counted(torch, acc, lambda: run_sched(
+        eng, reqs, StaticPolicy(head), per_tick=len(reqs), kv_pool=small))
+    snap = sched.stats.snapshot()
+    done = [i for i, r in enumerate(out) if isinstance(r, ServeResult)]
+    check(len(out) == len(reqs) and snap["pool"]["stalled_ticks"] > 0 and
+          snap["preempted"] > 0 and done,
+          f"[pool] the small pool's drain: {len(out)} results, stalled "
+          f"{snap['pool']['stalled_ticks']} ticks, preempted "
+          f"{snap['preempted']}, {len(done)} completed")
+    check(all(np.array_equal(out[i].tokens, plain[i]) for i in done),
+          "[pool] a completed request of the small pool's drain differs")
+    log(f"[pool] ContinuousScheduler(max_slots={LSTM_W}, kv_pool="
+        f"PagePool(14, {POOL_PAGE})) over the {len(reqs)} requests at once: "
+        f"PoolExhausted stalled {snap['pool']['stalled_ticks']} ticks, "
+        f"preempted {snap['preempted']}, completed {len(done)} (== the plain "
+        f"stream bit for bit), every request ended with a result in "
+        f"{snap['ticks']} ticks; pool {json.dumps(snap['pool'])}")
+
+    plain_sched, _, _ = run_sched(eng, reqs, StaticPolicy("exact"),
+                                  per_tick=len(reqs))
+    big = PagePool(512, POOL_PAGE)
+    spec_out, ss, wall = counted(torch, acc, lambda: run_sched(
+        eng, reqs, StaticPolicy("exact"), per_tick=len(reqs), kv_pool=big,
+        spec=SpecPolicy()))
+    near = 0
+    for i, (a, b) in enumerate(zip(spec_out, plain_sched)):
+        check(isinstance(a, ServeResult) and isinstance(b, ServeResult) and
+              a.head == "exact+spec[screened-cuda]",
+              f"[pool] request {i}: {type(a).__name__} on "
+              f"{getattr(a, 'head', None)}")
+        near += gap_rule(torch, np, f"[pool] spec+pool request {i}", model,
+                         params, screen, reqs[i].prompt, a.tokens, b.tokens,
+                         "exact")
+    snap = ss.stats.snapshot()
+    log(f"[pool] ContinuousScheduler(kv_pool=PagePool(512, {POOL_PAGE}), "
+        f"spec=SpecPolicy()) == the same drain without them except {near} "
+        f"request(s) after a top-2 gap < {GAP}; {wall:.3f} s host clock; "
+        f"spec {json.dumps(snap['spec'])}; pool {json.dumps(snap['pool'])}")
+    log(f"[pool] launches of the path's own runs (from zero): "
+        f"{json.dumps(acc)}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return acc
+
+
+def phase_spec_hybrid(torch, np, ctx):
+    """[spec] on full-width float32 zamba2-2.7b: a width-4 spec stream
+    (draft screened-cuda on the random screen, verify exact, draft_len 4),
+    4 prompts of 512, 32 new: tokens == a plain width-4 exact stream under
+    the gap rule, rejections > 0; the snapshot ring's bytes and copy time.
+    → launches of the path's run."""
+    from repro_torch.serving import DecodeEngine, ServeRequest
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    t_phase = time.perf_counter()
+    eng = DecodeEngine(model, params, screen=screen, max_len=ZMAX,
+                       device="cuda")
+    rng = np.random.default_rng(22)
+    reqs = [ServeRequest(prompt=rng.integers(0, ZV, 512), max_new=ZNEW)
+            for _ in range(ZSTREAM_W)]
+    plan = [0] * len(reqs)
+    plain, _, _, plain_s = drive_stream(eng.open_stream("exact",
+                                                        width=ZSTREAM_W),
+                                        reqs, plan)
+    acc = {}
+    s = eng.open_spec_stream("screened-cuda", "exact", width=ZSTREAM_W,
+                             draft_len=SPEC_N)
+    t0 = time.perf_counter()
+    got, ticks, _, step_s = counted(torch, acc, lambda: drive_stream(
+        s, reqs, plan))
+    wall = time.perf_counter() - t0
+    near = sum(gap_rule(torch, np, f"[spec] zamba2 request {i}", model,
+                        params, screen, r.prompt, got[i], plain[i], "exact")
+               for i, r in enumerate(reqs))
+    c = s.spec_counters()
+    check(c["drafted"] - c["accepted"] > 0 and s.restored_rows > 0,
+          f"[spec] zamba2: no draft was rejected: {c}")
+    cfg = model.cfg
+    check(acc["ssd_intra"] == cfg.num_layers * len(reqs),
+          f"[spec] zamba2: ssd_intra launched {acc['ssd_intra']}")
+    slab = eng._lend_stream_slab(ZSTREAM_W, s._slab_key(),
+                                 spec_depth=SPEC_N)
+    ring = slab.spec.ring_nbytes
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for j in range(20):
+            slab.spec.snapshot(slab.cache, j % SPEC_N)
+        b.record()
+        b.synchronize()
+    copy_ms = a.elapsed_time(b) / 20
+    eng._return_stream_slab(slab)
+    log(f"[spec] zamba2-2.7b: SpecDecodeStream width {ZSTREAM_W}, draft "
+        f"screened-cuda (random screen), verify exact, draft_len {SPEC_N}, "
+        f"{len(reqs)} prompts of 512, {ZNEW} new, max_len {ZMAX}: tokens == "
+        f"a plain width-{ZSTREAM_W} exact stream except {near} request(s) "
+        f"that first differ after a step with a top-2 gap < {GAP}; "
+        f"{spec_summary(s, step_s)}; live draft length at the end "
+        f"{s.controller.n}; {ticks} rounds in {wall:.3f} s against the "
+        f"plain stream's {len(plain_s)} steps at median "
+        f"{statistics.median(plain_s) * 1e3:.3f} ms (host clock)")
+    log(f"[spec] zamba2-2.7b snapshot ring: {ring / 2 ** 20:.1f} MiB "
+        f"({SPEC_N} slots of the recurrent leaves), one slot's copy "
+        f"{copy_ms:.4f} ms (CUDA events, mean of 20); launches of the run "
+        f"(from zero): {json.dumps(acc)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return acc
 
 
 # -- the other heads: adaptive, the §4.1 baselines, host heads ---------------
@@ -2844,10 +3229,17 @@ def main() -> int:
     t0 = time.perf_counter()
     eng, stream_lstm = phase_stream_lstm(torch, np, ctx)
     sched = phase_sched(torch, np, eng, ctx)
-    del eng, ctx
+    del eng
+    t1 = time.perf_counter()
+    spec_lstm, dist_err = phase_spec_lstm(torch, np, ctx)
+    err["screened_logits"] = max(err["screened_logits"], dist_err)
+    pool_lstm = phase_pool_lstm(torch, np, ctx)
+    log(f"[spec] the LSTM [spec] and [pool] phases took "
+        f"{time.perf_counter() - t1:.1f} s")
+    del ctx
     phase_serve_cli(torch)
-    log(f"[sched] the LSTM stream, scheduler and launcher phases took "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[sched] the LSTM stream, scheduler, spec, pool and launcher "
+        f"phases took {time.perf_counter() - t0:.1f} s")
     ssm_err, ssm_times = phase_ssm_kernels(torch)
     err.update(ssm_err)
     times.update(ssm_times)
@@ -2868,6 +3260,7 @@ def main() -> int:
     stream_hybrid = phase_stream_hybrid(torch, np, ctx)
     log(f"[stream] the zamba2-2.7b stream phase took "
         f"{time.perf_counter() - t0:.1f} s")
+    spec_hybrid = phase_spec_hybrid(torch, np, ctx)
     adaptive_z, steps_z = phase_adaptive_hybrid(torch, np, ctx)
     del ctx
     costs = launch_costs(torch, np)
@@ -2881,7 +3274,10 @@ def main() -> int:
              "nmt-deen-lstm scheduler": sched,
              "zamba2-2.7b stream": stream_hybrid,
              "nmt-deen-lstm heads": heads_lstm,
-             "zamba2-2.7b adaptive": adaptive_z}
+             "zamba2-2.7b adaptive": adaptive_z,
+             "nmt-deen-lstm spec": spec_lstm,
+             "nmt-deen-lstm paged": pool_lstm,
+             "zamba2-2.7b spec": spec_hybrid}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),

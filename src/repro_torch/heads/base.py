@@ -115,6 +115,10 @@ class SoftmaxHead:
     device_kind: str = "torch"
     is_jittable: bool = True
     supports_sampling: bool = True
+    # True iff the head implements ``dist_logits``: speculative decoding's
+    # rejection rule needs the draft (q) and target (p) laws over one
+    # coordinate system, so spec policies keep sampled traffic off heads
+    # that cannot give one
     supports_dist: bool = False
     mesh = None
 
@@ -136,6 +140,19 @@ class SoftmaxHead:
                generator: Optional[torch.Generator] = None,
                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
+
+    def dist_logits(self, h) -> torch.Tensor:
+        """(B, V) distribution logits over the FULL vocabulary: softmax of a
+        row is exactly the law ``sample(h, 1.0, 1.0)`` draws from, with
+        ``NEG_INF`` at every word outside the head's own candidate space
+        (the §4.2 probability-0 convention). Temperature / nucleus
+        adjustments are applied downstream through ``adjust_logits``, the
+        transform ``sample_from_logits`` draws through, so speculative
+        rejection sampling can score any sampling configuration. Heads that
+        implement it set ``supports_dist = True``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not expose a full-vocab "
+            f"distribution (supports_dist is False)")
 
     def noise_shape(self, batch: int, temperature: float
                     ) -> Optional[Tuple[int, ...]]:
@@ -253,3 +270,16 @@ def sample_from_logits(logits: torch.Tensor, temperature: float, top_p: float,
     logits = adjust_logits(logits, temperature, top_p)
     return torch.argmax(gumbel.reshape(logits.shape) + logits,
                         dim=-1).to(torch.int32)
+
+
+def scatter_to_vocab(logits: torch.Tensor, word_ids: torch.Tensor,
+                     top_id: int, vocab: int) -> torch.Tensor:
+    """(B, C) candidate logits at word ids (B, C), every id ≤ ``top_id`` →
+    (B, vocab) float32 logits in vocab coordinates, NEG_INF off the
+    candidates. Ids at or past ``vocab`` (a head's sentinel, and the padded
+    rows of a last vocab tile) land in columns that are cut off."""
+    B = logits.shape[0]
+    full = torch.full((B, max(top_id, vocab) + 1), NEG_INF,
+                      dtype=torch.float32, device=logits.device)
+    full.scatter_(1, word_ids.long(), logits.float())
+    return full[:, :vocab]

@@ -28,6 +28,7 @@ from repro_torch.configs.base import V_BLK
 from repro_torch.core.screening import ScreenParams
 from repro_torch.heads.base import (NEG_INF, ScreenBlockError, SoftmaxHead,
                                     require_screen, sample_from_logits,
+                                    scatter_to_vocab,
                                     screened_bytes_per_query,
                                     screened_flops_per_query)
 from repro_torch.kernels import ops
@@ -36,6 +37,7 @@ from repro_torch.kernels.ref import topk_desc
 
 class ScreenedCudaHead(SoftmaxHead):
     name = "screened-cuda"
+    supports_dist = True
 
     def __init__(self, W: torch.Tensor, b: torch.Tensor, screen: ScreenParams,
                  fused: bool = True):
@@ -115,6 +117,20 @@ class ScreenedCudaHead(SoftmaxHead):
         logits, word_ids = ops.screened_candidate_logits(*self._args(h))
         choice = sample_from_logits(logits, temperature, top_p, gumbel)
         return torch.gather(word_ids, 1, choice[:, None].long())[:, 0]
+
+    def dist_logits(self, h) -> torch.Tensor:
+        """The routed candidates' logits in vocab coordinates, NEG_INF
+        elsewhere: the ``cluster_route`` kernel, then the ``screened_logits``
+        gather kernel (sentinel slots masked to NEG_INF), scattered into a
+        (B, n_blk·V_BLK + 1) buffer and cut to the vocabulary. This head's
+        sentinel word id is n_blk·V_BLK (not ``vocab_size``), and the padded
+        rows of the last tile lie past the vocabulary, so the cut drops
+        both. Its support is the set ``sample`` draws from (fused or not:
+        the fused draw is an exact categorical over the same candidates)."""
+        logits, word_ids = ops.screened_candidate_logits(*self._args(h))
+        n_blk = self._Wb.shape[0]
+        return scatter_to_vocab(logits, word_ids, n_blk * V_BLK,
+                                self.screen.vocab_size)
 
     def noise_shape(self, batch: int, temperature: float):
         return None if temperature <= 0 else (batch, self.screen.c_max, V_BLK)

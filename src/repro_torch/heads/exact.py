@@ -12,6 +12,7 @@ from repro_torch.kernels.ref import topk_desc
 
 class ExactHead(SoftmaxHead):
     name = "exact"
+    supports_dist = True
 
     def __init__(self, W: torch.Tensor, b: torch.Tensor):
         self.W = W
@@ -19,6 +20,12 @@ class ExactHead(SoftmaxHead):
 
     def logits(self, h) -> torch.Tensor:
         return (h @ self.W.T + self.b).float()
+
+    def dist_logits(self, h) -> torch.Tensor:
+        """Full-vocab logits: the exact head's sampling law is the raw
+        softmax, the target distribution p speculative decoding verifies
+        drafts against."""
+        return self.logits(h)
 
     def topk(self, h, k: int):
         vals, ids = topk_desc(self.logits(h), k)

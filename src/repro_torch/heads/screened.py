@@ -9,7 +9,7 @@ import torch
 from repro_torch.core.screening import (ScreenParams, assign_clusters,
                                         screened_logits, screened_topk)
 from repro_torch.heads.base import (NEG_INF, SoftmaxHead, require_screen,
-                                    sample_from_logits,
+                                    sample_from_logits, scatter_to_vocab,
                                     screened_bytes_per_query,
                                     screened_flops_per_query)
 from repro_torch.kernels.ref import topk_desc
@@ -17,6 +17,7 @@ from repro_torch.kernels.ref import topk_desc
 
 class ScreenedHead(SoftmaxHead):
     name = "screened"
+    supports_dist = True
 
     def __init__(self, W: torch.Tensor, b: torch.Tensor, screen: ScreenParams):
         require_screen(screen, "ScreenedHead")
@@ -45,6 +46,18 @@ class ScreenedHead(SoftmaxHead):
 
     def next(self, h):
         return self.topk(h, 1)[0][:, 0]
+
+    def dist_logits(self, h) -> torch.Tensor:
+        """Candidate logits scattered to vocab coordinates: NEG_INF off the
+        routed candidate set. The padding sentinel word id is
+        ``vocab_size``, so scattering into a (B, V+1) buffer and dropping
+        the last column discards it (padded candidate logits are NEG_INF
+        anyway, so duplicate sentinel writes all agree); a block screen's
+        padded rows past the vocabulary are cut off with it, where the
+        reference's scatter drops them."""
+        logits, word_ids = self._candidate_logits(h)
+        V, blk = self.screen.vocab_size, self.screen.block
+        return scatter_to_vocab(logits, word_ids, -(-V // blk) * blk, V)
 
     def sample(self, h, temperature: float = 1.0, top_p: float = 1.0,
                generator=None, gumbel=None):

@@ -12,9 +12,13 @@ token agreement. ``--device`` is ``cuda`` (the default) or ``cpu``.
 ``ContinuousScheduler`` instead: mixed latency tiers, a ``BudgetAdmission``
 policy against the head catalog's flops numbers, and a ``ServerStats``
 report (admit/reject/downgrade counts, per-head tokens/s, p50/p95
-latency). It serves with no paged KV pool on every family: the pool is
-not ported yet (ROADMAP.md, Queue 1 item 8), and neither is speculative
-decoding, so ``--draft-head`` exits 2.
+latency), over a ``PagePool`` (logical LSTM pages with a shared-prefix
+radix cache). ``--draft-head NAME`` adds speculative decoding: every
+request carries the draft head, and exact-routed traffic decodes on
+``SpecDecodeStream`` lanes (the same tokens, fewer exact-head weight
+streams). A kernel head (``screened-cuda``, as ``--head`` or
+``--draft-head``) needs a 128-word block screen, so ``--l2s`` fits one
+then.
 
 A fast head that needs a screen (``--head screened`` without ``--l2s``)
 fails BEFORE training with exit code 2 and the fix-it message — the
@@ -39,9 +43,11 @@ from repro_torch.heads import MissingScreenError
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model
 from repro_torch.optim import adamw_init
+from repro_torch.configs.base import V_BLK
 from repro_torch.serving import (BudgetAdmission, ContinuousScheduler,
-                                 DecodeEngine, ServeRequest, ServeResult,
-                                 StaticPolicy, TierPolicy)
+                                 DecodeEngine, PagePool, ServeRequest,
+                                 ServeResult, SpecPolicy, StaticPolicy,
+                                 TierPolicy)
 
 
 def main(argv=None):
@@ -58,8 +64,9 @@ def main(argv=None):
                          "against exact (screened, screened-cuda); "
                          "defaults to screened when --l2s fits a screen")
     ap.add_argument("--draft-head", default=None,
-                    help="speculative decoding's draft head: not ported yet "
-                         "(exits 2)")
+                    help="--scheduler only: speculative decoding's draft "
+                         "head (screened, screened-cuda, adaptive); "
+                         "exact-routed requests decode on spec lanes")
     ap.add_argument("--log-jsonl", default=None, metavar="PATH",
                     help="--scheduler only: write one structured JSON "
                          "record per scheduler tick (numeric stats deltas "
@@ -111,10 +118,35 @@ def main(argv=None):
             return 2
         except Exception:
             pass
+    # --draft-head combos are all conclusive BEFORE training: unknown names,
+    # drafting with the verify head itself, serving modes that have no spec
+    # lane, and screening drafts without a screen to fit
     if args.draft_head is not None:
-        print("[serve] --draft-head: speculative decoding is not ported to "
-              "repro_torch yet (ROADMAP.md, Queue 1 item 8)")
-        return 2
+        if args.draft_head not in heads_registry.names():
+            print(f"[serve] unknown draft head {args.draft_head!r}; "
+                  f"registered: {heads_registry.names()}")
+            return 2
+        if not args.scheduler:
+            print("[serve] --draft-head needs --scheduler: speculative "
+                  "decoding runs on the scheduler's SpecDecodeStream lanes")
+            return 2
+        if args.draft_head == "exact":
+            print("[serve] --draft-head 'exact' IS the verify head — "
+                  "drafting with the head that verifies speculates "
+                  "nothing; pick a cheaper draft (screened, "
+                  "screened-cuda, adaptive)")
+            return 2
+        if not args.l2s:
+            W0, b0 = model.softmax_weights(params)
+            try:
+                heads_registry.get(args.draft_head, W=W0[:8], b=b0[:8],
+                                   screen=None, device=dev)
+            except MissingScreenError as e:
+                print(f"[serve] cannot build draft head "
+                      f"{args.draft_head!r}: {e} (pass --l2s to fit one)")
+                return 2
+            except Exception:
+                pass
     if args.log_jsonl is not None and not args.scheduler:
         print("[serve] --log-jsonl needs --scheduler: the per-tick records "
               "come from the ContinuousScheduler's tick loop")
@@ -140,22 +172,32 @@ def main(argv=None):
         batches = [b["tokens"] for b in BatchLoader(
             make_lm_batches(corpus, 16, 16, 64, seed=7), dev)]
         H, y = collect_contexts(model, params, batches, max_vectors=15_000)
+        # the kernel head gathers 128-word tiles: fit a block screen for it
+        block = V_BLK if "screened-cuda" in (head_name, args.draft_head) \
+            else 1
         state = fit_l2s(H, y, cfg.vocab_size,
                         L2SConfig(num_clusters=args.clusters,
                                   budget=args.budget, outer_iters=2,
-                                  sgd_steps=100), device=dev)
+                                  sgd_steps=100, vocab_block=block),
+                        device=dev)
         screen = state.screen
         print(f"[serve] L2S fitted: r={args.clusters} "
               f"C_max={screen.c_max} block={screen.block}")
 
+    # spec decode can transiently write draft_len − 1 rejected positions
+    # past a request's final token (SpecPolicy default draft_len = 4);
+    # without this slack the policy's headroom check would always decline
+    spec_slack = 3 if args.draft_head is not None else 0
     engine = DecodeEngine(model, params, screen=screen,
-                          max_len=args.prompt_len + args.max_new, device=dev)
+                          max_len=args.prompt_len + args.max_new + spec_slack,
+                          device=dev)
     prompts = corpus.sample_batch(args.requests, args.prompt_len, seed=42)
     requests = [ServeRequest(prompt=p, max_new=args.max_new)
                 for p in prompts]
 
     if args.scheduler:
         return _serve_scheduler(engine, requests, head_name,
+                                draft=args.draft_head,
                                 log_jsonl=args.log_jsonl)
 
     t0 = time.time()
@@ -197,31 +239,49 @@ def _tick_delta(prev: dict, cur: dict) -> dict:
     return out
 
 
-def _serve_scheduler(engine, requests, head_name, log_jsonl=None):
+def _serve_scheduler(engine, requests, head_name, draft=None,
+                     log_jsonl=None):
     """--scheduler mode: continuous batching with admission control.
 
     Traffic is the launcher's request set re-tiered round-robin
     (realtime / standard / batch); the fast head (when available) serves
     the realtime tier, "exact" everything else. The flops budget is sized
     to the catalog so a burst sheds load through the typed reject path.
-    Every family serves without a paged KV pool (not ported yet)."""
+    The LSTM families (the only ones the launcher trains) serve over a
+    ``PagePool`` (shared-prefix radix cache + COW pages) and report pool
+    utilization in the log. With ``draft`` set (--draft-head) every
+    request carries it explicitly and exact-routed traffic decodes
+    speculatively on ``SpecDecodeStream`` lanes — same tokens, fewer
+    exact-head weight streams."""
     import dataclasses
 
     fast = head_name if head_name not in (None, "exact") else None
-    candidates = tuple(dict.fromkeys(filter(None, (fast, "exact"))))
+    candidates = tuple(dict.fromkeys(filter(None, (fast, draft, "exact"))))
     catalog = engine.head_catalog(candidates)
     if fast is not None and fast not in catalog:
         fast = None                      # unbuildable in this engine
+    if draft is not None and draft not in catalog:
+        print(f"[serve] draft head {draft!r} is not buildable in this "
+              f"engine (no fitted screen?) — serving plain")
+        draft = None
     policy = TierPolicy({"realtime": fast or "exact"}, default="exact")
     budget = 4.0 * max(m["flops_per_query"] for m in catalog.values())
     tiers = ["realtime", "standard", "batch"]
-    traffic = [dataclasses.replace(r, latency_tier=tiers[i % 3])
+    traffic = [dataclasses.replace(r, latency_tier=tiers[i % 3],
+                                   draft_head=draft)
                for i, r in enumerate(requests)]
-    print("[serve] scheduler: no paged KV pool (serving/kvpool is not "
-          "ported yet: ROADMAP.md, Queue 1 item 8)")
+    spec = SpecPolicy(drafts=(draft,)) if draft is not None else None
+
+    kv_pool = None
+    if engine.model.cfg.family == "lstm":
+        page = 8 if engine.max_len % 8 == 0 else 4
+        while engine.max_len % page:
+            page //= 2                     # max_len is even in practice
+        kv_pool = PagePool(num_pages=4 * (engine.max_len // page),
+                           page_size=page)
     sched = ContinuousScheduler(engine, policy=policy,
                                 admission=BudgetAdmission(flops_budget=budget),
-                                max_slots=4)
+                                max_slots=4, kv_pool=kv_pool, spec=spec)
     t0 = time.time()
     if log_jsonl is None:
         results = sched.serve(traffic)
@@ -257,6 +317,13 @@ def _serve_scheduler(engine, requests, head_name, log_jsonl=None):
           f"p95 {snap['latency']['p95_s']:.3f}s | per-head "
           + ", ".join(f"{h}: {d['requests']} req {d['tokens_per_s']:.0f} "
                       f"tok/s" for h, d in snap["per_head"].items()))
+    if snap.get("spec"):
+        sp = snap["spec"]
+        print(f"[serve] scheduler: spec {sp['rounds']} rounds | "
+              f"{sp['accepted_tokens_per_step']:.2f} accepted tok/step | "
+              f"draft acceptance {sp['draft_acceptance']:.3f} | "
+              f"{sp['verify_queries']} verify queries "
+              f"({sp['verify_flops']:.3g} flops)")
     if snap.get("resilience"):
         rz = snap["resilience"]
         states = ", ".join(f"{h}: {s}" for h, s in
@@ -268,6 +335,14 @@ def _serve_scheduler(engine, requests, head_name, log_jsonl=None):
               f"{rz['timed_out']} timed out | breakers {states} "
               f"(trips {rz['breaker_trips']}, half-opens "
               f"{rz['breaker_half_opens']}, closes {rz['breaker_closes']})")
+    if snap.get("pool"):
+        p = snap["pool"]
+        print(f"[serve] scheduler: kv pool {p['pages_in_use']}/"
+              f"{p['pages_total']} pages in use (peak "
+              f"{p['peak_pages_in_use']}, {p['pages_free']} free) | "
+              f"prefix hit rate {p['prefix']['hit_rate']:.3f} | "
+              f"cow {p['cow_copies']} ({p['cow_copies_per_tick']:.2f}/tick) "
+              f"| resident {p['hbm_resident_bytes']} B")
     return 0
 
 

@@ -1,11 +1,14 @@
 """Serving: the batched decode engine (CUDA-graph step cache) and its
 continuous-batching streams, requests and routing policies, the
 ``ContinuousScheduler`` with admission, preemption and resilience, and the
-observability it reports through. Twin of ``repro/serving`` without the
-paged KV pool, speculative decoding and ``audit_cost_drift`` (ROADMAP.md,
-Queue 1 item 8)."""
+observability it reports through, the paged KV pool (LSTM logical pages
+with a shared-prefix radix cache) and speculative decoding. Twin of
+``repro/serving`` without ``audit_cost_drift`` (ROADMAP.md, Queue 1 item
+8) and the attention families' page store (item 9.1)."""
 from repro_torch.serving.engine import (DecodeEngine, DecodeStream,
                                         GenerationResult)
+from repro_torch.serving.kvpool import (PagedDecodeStream, PagePool,
+                                        PoolExhausted, RadixCache)
 from repro_torch.serving.observe import (NULL_TRACER, Counter, Gauge,
                                          Histogram, MetricsRegistry,
                                          NullTracer, Tracer)
@@ -20,13 +23,18 @@ from repro_torch.serving.router import (DEFAULT_ACCURACY, CostAwarePolicy,
 from repro_torch.serving.scheduler import (AdmissionRejected, BudgetAdmission,
                                            ContinuousScheduler,
                                            SchedulerStalled, ServerStats)
+from repro_torch.serving.spec import (DraftLenController, SpecDecodeStream,
+                                      SpecPolicy, spec_step_flops)
 
 __all__ = ["DecodeEngine", "DecodeStream", "GenerationResult",
+           "PagePool", "PagedDecodeStream", "PoolExhausted", "RadixCache",
            "ServeRequest", "ServeResult",
            "RoutingPolicy", "StaticPolicy", "TierPolicy", "CostAwarePolicy",
            "DEFAULT_ACCURACY", "head_eligible", "route_requests",
            "ContinuousScheduler", "SchedulerStalled", "ServerStats",
            "BudgetAdmission", "AdmissionRejected",
+           "SpecPolicy", "SpecDecodeStream", "DraftLenController",
+           "spec_step_flops",
            "FaultInjector", "FaultSpec", "HeadFault", "LogicalClock",
            "CircuitBreaker", "StreamWatchdog",
            "Tracer", "NullTracer", "NULL_TRACER",

@@ -1,7 +1,8 @@
 """Batched decode engine: prefill → token-by-token generation through a
 pluggable ``SoftmaxHead``. Twin of ``repro/serving/engine.py`` (the lstm,
-ssm and hybrid families, and ``DecodeStream``; the paged and speculative
-streams come with ROADMAP.md Queue 1 item 8).
+ssm and hybrid families, ``DecodeStream``, and the speculative and paged
+LSTM streams; the attention families' paged steps come with ROADMAP.md
+Queue 1 item 9.1).
 
 The head is the ONE seam: greedy decode, temperature/nucleus sampling, and
 beam search all route next-token selection through ``head.next`` /
@@ -23,9 +24,12 @@ Step cache, the twin of the reference's LRU of jitted steps: at most 32
 cached steps, keyed by ``head.step_key()`` and the step kind —
 ``(key, "greedy")``, ``(key, "sample", temperature, top_p)`` and
 ``(key, "decode")``, beam search's decode composed with
-``head.topk_logprobs`` at k = the beam width. On the card an entry holds
-one captured ``torch.cuda.CUDAGraph`` per batch width, as a jit holds one
-executable per shape, and ``compiled_step_counts`` counts them. A graph
+``head.topk_logprobs`` at k = the beam width, and the speculative streams'
+``(key, "spec-verify", n_max)`` / ``(key, "spec-dist", ...)``, steps of
+the head alone over a spec slab's stacked hidden states. On the card an
+entry holds one captured ``torch.cuda.CUDAGraph`` per batch width, as a
+jit holds one executable per shape, and ``compiled_step_counts`` counts
+them. A graph
 replays ``model.decode_step`` and the head's call on static buffers (a
 ``_Slab``: token, 0-dim device position, cache): it writes the next token
 into the token buffer and advances the position itself, so a step of
@@ -91,7 +95,7 @@ from repro_torch import heads as heads_registry
 from repro_torch.core.screening import ScreenParams
 from repro_torch.device import resolve_device
 from repro_torch.heads.base import (MissingScreenError, ScreenBlockError,
-                                    SoftmaxHead)
+                                    SoftmaxHead, adjust_logits)
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model, to_device
 from repro_torch.serving.observe.trace import NULL_TRACER
@@ -129,7 +133,8 @@ class _Slab:
     slab serves one step, ``owner`` (its step-cache key), and has
     ``saved``: copies of the cache's recurrent leaves (the LSTM state; the
     SSM states and conv tails), which every step on it takes first, so a
-    step the guard refuses can be undone."""
+    step the guard refuses can be undone. A speculative stream's slab also
+    has ``spec``, the buffers of a draft/verify round (``_SpecBuffers``)."""
     cache: dict
     tok: torch.Tensor
     pos: torch.Tensor
@@ -138,6 +143,7 @@ class _Slab:
     noise: Dict[tuple, torch.Tensor] = field(default_factory=dict)
     owner: object = None
     saved: Optional[List[torch.Tensor]] = None
+    spec: Optional["_SpecBuffers"] = None
 
     def uniforms(self, shape: tuple) -> torch.Tensor:
         if shape not in self.noise:
@@ -159,6 +165,42 @@ class _Slab:
         same slot with the same values."""
         for d, s in zip(_recurrent_leaves(self.cache), self.saved):
             d.copy_(s)
+
+
+@dataclass(eq=False)
+class _SpecBuffers:
+    """The static buffers of one speculative stream slab of width W and
+    draft depth n_max: ``H`` (n_max, W, d), the draft steps' hidden states,
+    which the verify graph reads in one call (a live draft length below
+    n_max repeats the last one); ``drafts`` (n_max, W) int32, the drafted
+    ids; and ``ring``, per recurrent leaf of the cache a (n_max, ...) copy:
+    slot 0 the state at the round's start, slot j ≥ 1 the state after draft
+    step j − 1. The port's caches are updated in place, so a snapshot is a
+    copy (the reference keeps references to immutable arrays); a rejected
+    draft's row is restored from the ring in place."""
+    H: torch.Tensor
+    drafts: torch.Tensor
+    ring: List[torch.Tensor]
+
+    def snapshot(self, cache, j: int) -> None:
+        """Copy the cache's recurrent leaves into ring slot ``j``."""
+        for r, leaf in zip(self.ring, _recurrent_leaves(cache)):
+            r[j].copy_(leaf)
+
+    def restore_row(self, cache, axis: int, row: int, j: int) -> None:
+        """Row ``row`` of every recurrent leaf back from ring slot ``j``
+        (``axis``: the leaves' batch axis)."""
+        for r, leaf in zip(self.ring, _recurrent_leaves(cache)):
+            leaf.select(axis, row).copy_(r[j].select(axis, row))
+
+    def restore(self, cache, j: int) -> None:
+        """Every row back from ring slot ``j``."""
+        for r, leaf in zip(self.ring, _recurrent_leaves(cache)):
+            leaf.copy_(r[j])
+
+    @property
+    def ring_nbytes(self) -> int:
+        return sum(r.numel() * r.element_size() for r in self.ring)
 
 
 class _Graph:
@@ -198,10 +240,13 @@ class _Graph:
 
 class _Step:
     """One step-cache entry: the step's body, ``body(slab) -> outputs``,
-    and on the card its graphs by slab key (``_Slab.key``)."""
+    and on the card its graphs by slab key (``_Slab.key``). With
+    ``capture`` False (a verify step of a host head) the body always runs
+    eagerly and the entry holds no graph."""
 
-    def __init__(self, body: Callable):
+    def __init__(self, body: Callable, capture: bool = True):
         self.body = body
+        self.capture = capture
         self.graphs: Dict[object, _Graph] = {}
 
     def __call__(self, slab: _Slab, stream, pool):
@@ -211,7 +256,7 @@ class _Step:
         graph = self.graphs.get(slab.key)
         if graph is not None:
             return graph.replay()
-        if stream is None:
+        if stream is None or not self.capture:
             return self.body(slab)
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
@@ -370,6 +415,7 @@ class DecodeEngine:
     def _greedy_step(self, head: SoftmaxHead) -> _Step:
         def head_fn(slab, h):
             slab.tok.copy_(head.next(h))
+            return h
         return self._cached_step(self._token_step_key(head, None, 1.0), head,
                                  "advance", head_fn)
 
@@ -380,6 +426,7 @@ class DecodeEngine:
             gumbel = (None if shape is None else
                       ops.gumbel_from_uniform(slab.uniforms(shape)))
             slab.tok.copy_(head.sample(h, temperature, top_p, gumbel=gumbel))
+            return h
         return self._cached_step(
             self._token_step_key(head, temperature, top_p), head, "advance",
             head_fn)
@@ -390,6 +437,52 @@ class DecodeEngine:
         return self._cached_step(
             (head.step_key(), "decode"), head, "reorder",
             lambda slab, h: head.topk_logprobs(h, h.shape[0]))
+
+    # -- speculative decode steps (serving/spec) ----------------------------
+    def _spec_verify_step(self, head: SoftmaxHead, n_max: int) -> _Step:
+        """Batched multi-position VERIFY: greedy ids (n_max, W) of ``head``
+        over the n_max stacked draft hidden states of a spec slab
+        (``slab.spec.H``, (n_max·W, d)) in ONE head call — the (V, d)
+        softmax weights stream from device memory once per round instead
+        of once per token. Cached under ``(head.step_key(), "spec-verify",
+        n_max)``; on the card a graph of the head alone per spec slab (the
+        adaptive controller shrinking the live draft length pads the tail
+        by repeating the last hidden, so nothing is captured again); a host
+        head runs eagerly."""
+        def body(slab):
+            H = slab.spec.H
+            return head.next(H.reshape(-1, H.shape[-1])).reshape(H.shape[:2])
+        return self._head_step((head.step_key(), "spec-verify", int(n_max)),
+                               body, head.is_jittable)
+
+    def _spec_dist_step(self, draft: SoftmaxHead, verify: SoftmaxHead,
+                        n_max: int, temperature: float, top_p: float
+                        ) -> _Step:
+        """Sampled-verify companion: one call yields BOTH heads'
+        temperature/nucleus-adjusted full-vocab distribution logits over
+        the stacked draft hiddens — q (draft law) and p (target law) as
+        (n_max, W, V) — for the host-side rejection rule
+        (``serving/spec/acceptance.py``). A graph on the card."""
+        def body(slab):
+            H = slab.spec.H
+            flat = H.reshape(-1, H.shape[-1])
+            q = adjust_logits(draft.dist_logits(flat), temperature, top_p)
+            p = adjust_logits(verify.dist_logits(flat), temperature, top_p)
+            return (q.reshape(H.shape[0], H.shape[1], -1),
+                    p.reshape(H.shape[0], H.shape[1], -1))
+        key = (draft.step_key(), "spec-dist", verify.step_key(), int(n_max),
+               float(temperature), float(top_p))
+        return self._head_step(key, body,
+                               draft.is_jittable and verify.is_jittable)
+
+    def _head_step(self, key: tuple, body: Callable, capture: bool) -> _Step:
+        """The entry under ``key`` of a step with no model body, made on a
+        miss."""
+        if key in self._step_cache:
+            self._step_cache.move_to_end(key)       # LRU hit → most recent
+        else:
+            self._put_step(key, _Step(body, capture=capture))
+        return self._step_cache[key]
 
     def _run(self, step: _Step, slab: _Slab):
         return step(slab, self._stream, self._pool)
@@ -411,14 +504,16 @@ class DecodeEngine:
             slab = self._slabs[batch] = self._new_slab(batch, batch, ())
         return slab
 
-    def _lend_stream_slab(self, width: int, key: tuple) -> _Slab:
+    def _lend_stream_slab(self, width: int, key: tuple,
+                          spec_depth: int = 0) -> _Slab:
         """A slab of ``width`` for one stream of the step under ``key``
         until the stream gives it back (``_return_stream_slab``): a free
         one that served the step before — it holds the step's graph on the
         card — else a new one. A slab serves one step only, so the streams
         of one step never lose their slab (and graph) to another step's.
         Its contents are whatever the last stream left; a join overwrites
-        the rows it takes."""
+        the rows it takes. ``spec_depth`` n_max > 0: a speculative stream's
+        slab, with its round buffers (``_SpecBuffers``) made with it."""
         pool = [s for s in (r() for r in self._free_stream_slabs.get(
             (width, key), ())) if s is not None]
         if pool:
@@ -430,6 +525,16 @@ class DecodeEngine:
             slab.owner = key
             slab.saved = [torch.empty_like(leaf)
                           for leaf in _recurrent_leaves(slab.cache)]
+            if spec_depth:
+                dev = self.device
+                slab.spec = _SpecBuffers(
+                    H=torch.zeros((spec_depth, width, self.W.shape[1]),
+                                  dtype=self.W.dtype, device=dev),
+                    drafts=torch.zeros((spec_depth, width),
+                                       dtype=torch.int32, device=dev),
+                    ring=[torch.empty((spec_depth,) + tuple(leaf.shape),
+                                      dtype=leaf.dtype, device=dev)
+                          for leaf in slab.saved])
         self._free_stream_slabs[(width, key)] = [weakref.ref(s)
                                                  for s in pool]
         return slab
@@ -642,17 +747,59 @@ class DecodeEngine:
         return DecodeStream(self, hd, width, temperature=temperature,
                             top_p=top_p, seed=seed, head_name=name)
 
-    def open_paged_stream(self, *args, **kwargs):
-        """A stream over a paged KV pool: not ported yet."""
-        raise NotImplementedError(
-            "repro_torch: paged decode streams (serving/kvpool) are not "
-            "ported yet (ROADMAP.md, Queue 1 item 8)")
+    def open_paged_stream(self, pool, head: Optional[HeadLike] = None,
+                          width: int = 4,
+                          temperature: Optional[float] = None,
+                          top_p: float = 1.0, seed: int = 0):
+        """Open a continuous decode stream backed by a ``PagePool``: per-slot
+        logical LSTM pages with shared-prefix radix reuse (a prefix hit
+        resumes the prefill from a cached recurrent state) and
+        copy-on-write. Same contract as ``open_stream`` — greedy tokens
+        equal a plain stream's, and LSTM streams reuse the dense steps
+        outright. The attention families' page store is not ported
+        (ROADMAP.md, Queue 1 item 9.1). See
+        ``repro_torch.serving.kvpool.PagedDecodeStream``."""
+        from repro_torch.serving.kvpool.stream import PagedDecodeStream
+        name = head if isinstance(head, str) else None
+        hd = self.resolve_head(head)
+        if name is None:
+            name = getattr(hd, "name", "custom")
+        return PagedDecodeStream(self, hd, width, pool,
+                                 temperature=temperature, top_p=top_p,
+                                 seed=seed, head_name=name)
 
-    def open_spec_stream(self, *args, **kwargs):
-        """A speculative decode stream: not ported yet."""
-        raise NotImplementedError(
-            "repro_torch: speculative decode streams (serving/spec) are not "
-            "ported yet (ROADMAP.md, Queue 1 item 8)")
+    def open_spec_stream(self, draft_head: HeadLike,
+                         verify_head: Optional[HeadLike] = None,
+                         width: int = 4, draft_len: int = 4,
+                         temperature: Optional[float] = None,
+                         top_p: float = 1.0, seed: int = 0,
+                         kv_pool=None, adaptive: bool = True):
+        """Open a continuous SPECULATIVE decode stream: ``draft_head``
+        drafts up to ``draft_len`` tokens per round through the engine's
+        cached decode steps, ``verify_head`` (default: the engine's default
+        head) verifies the whole draft in one batched call, and only tokens
+        the verify head would itself have produced are emitted — greedy
+        output equals a plain ``verify_head`` stream's. With ``adaptive`` a
+        per-stream ``DraftLenController`` shrinks the live draft length
+        when measured acceptance drops (shapes stay padded to
+        ``draft_len``; no graph is captured again). See
+        ``repro_torch.serving.spec.SpecDecodeStream``."""
+        from repro_torch.serving.spec.policy import DraftLenController
+        from repro_torch.serving.spec.stream import SpecDecodeStream
+        draft_name = draft_head if isinstance(draft_head, str) else \
+            getattr(draft_head, "name", "custom")
+        if verify_head is None:
+            verify_name = getattr(self.head, "name", "custom")
+        else:
+            verify_name = verify_head if isinstance(verify_head, str) else \
+                getattr(verify_head, "name", "custom")
+        controller = DraftLenController(draft_len) if adaptive else None
+        return SpecDecodeStream(self, draft_head, verify_head, width=width,
+                                draft_len=draft_len, temperature=temperature,
+                                top_p=top_p, seed=seed,
+                                draft_name=draft_name,
+                                verify_name=verify_name,
+                                controller=controller, kv_pool=kv_pool)
 
 
 @dataclass
@@ -888,6 +1035,7 @@ class DecodeStream:
                 out.append((s.tag, s.request,
                             np.asarray(s.tokens, np.int32)))
                 self.slots[i] = None
+                self._on_free(i)
         self._release_if_empty()
         return out
 
@@ -906,8 +1054,13 @@ class DecodeStream:
         if s is None:
             raise ValueError(f"slot {slot} is not occupied")
         self.slots[slot] = None
+        self._on_free(slot)
         self._release_if_empty()
         return (s.tag, s.request, np.asarray(s.tokens, np.int32))
+
+    def _on_free(self, slot: int) -> None:
+        """A slot retired or was evicted (the paged stream releases its
+        page chain here)."""
 
 
 def _advance(model: Model, params, slab: _Slab) -> torch.Tensor:

@@ -1,0 +1,27 @@
+"""Paged KV-cache pool: refcounted pages with a copy-on-write shared-prefix
+radix cache. Twin of ``repro/serving/kvpool`` for the LSTM family, whose
+pages are logical and whose radix nodes carry recurrent-state snapshots;
+the attention families' device page store (``store.py``) waits for
+``attn_decode_paged`` (ROADMAP.md, Queue 1 item 9.1).
+
+Layout:
+  * pool.py   — ``PagePool``: refcounted fixed-size page allocator,
+                ``PoolExhausted``, COW primitives, telemetry.
+  * radix.py  — ``RadixCache``: token-prefix tree mapping page-grid
+                chunks of prompts to shared pages (LSTM nodes also carry
+                recurrent-state snapshots), LRU leaf reclamation.
+  * stream.py — ``PagedDecodeStream``: the ``DecodeStream``-compatible
+                continuous-batching stream running over pool pages.
+"""
+from repro_torch.serving.kvpool.pool import TRASH_PAGE, PagePool, PoolExhausted
+from repro_torch.serving.kvpool.radix import PrefixMatch, RadixCache
+from repro_torch.serving.kvpool.stream import PagedDecodeStream
+
+__all__ = [
+    "TRASH_PAGE",
+    "PagePool",
+    "PoolExhausted",
+    "PrefixMatch",
+    "RadixCache",
+    "PagedDecodeStream",
+]

@@ -48,9 +48,15 @@ class ServeRequest:
                        ``AdmissionRejected(stage="timeout")`` carrying the
                        partial decode — independent of the latency tier's
                        deadline, which is a PREEMPTION signal.
-
-    The reference's ``draft_head`` and ``draft_len`` (speculative decoding)
-    come with the spec layer (ROADMAP.md, Queue 1 item 8).
+    ``draft_head``     explicit SPECULATIVE draft head name — set, it
+                       overrides the ``SpecPolicy`` pick (the scheduler
+                       still drops it when incompatible: same head as the
+                       verify head, not buildable, or a sampled request on
+                       a head without ``dist_logits``). Emitted tokens are
+                       always the VERIFY head's — a draft head never
+                       changes output, only speed.
+    ``draft_len``      tokens drafted per verify round for this request;
+                       None → the policy's default.
     """
 
     prompt: np.ndarray
@@ -62,6 +68,8 @@ class ServeRequest:
     latency_tier: str = "standard"
     accuracy_floor: float = 0.0
     head: Optional[str] = None
+    draft_head: Optional[str] = None
+    draft_len: Optional[int] = None
     timeout_s: Optional[float] = None
 
     def __post_init__(self):
@@ -77,6 +85,9 @@ class ServeRequest:
                 f"ServeRequest.max_new must be >= 1, got {self.max_new}")
         if self.k < 1:
             raise ValueError(f"ServeRequest.k must be >= 1, got {self.k}")
+        if self.draft_len is not None and self.draft_len < 1:
+            raise ValueError(
+                f"ServeRequest.draft_len must be >= 1, got {self.draft_len}")
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError(f"ServeRequest.top_p must be in (0, 1], got "
                              f"{self.top_p}")
@@ -84,6 +95,11 @@ class ServeRequest:
             raise ValueError(
                 f"ServeRequest.timeout_s must be > 0 or None, got "
                 f"{self.timeout_s}")
+        if self.draft_head is not None and self.draft_head == self.head:
+            raise ValueError(
+                f"ServeRequest.draft_head must differ from the verify head "
+                f"(both {self.draft_head!r}): drafting with the verify head "
+                f"verifies nothing")
 
     @property
     def sampled(self) -> bool:

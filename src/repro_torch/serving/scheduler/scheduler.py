@@ -1,7 +1,5 @@
 """The continuous-batching scheduler: admission → microbatch → retire.
-Twin of ``repro/serving/scheduler/scheduler.py``, without the paged KV pool
-and speculative decoding (``kv_pool=`` and ``spec=`` raise
-NotImplementedError; ROADMAP.md, Queue 1 item 8).
+Twin of ``repro/serving/scheduler/scheduler.py``.
 
 ``ContinuousScheduler`` turns ``DecodeEngine`` from a batch-decode library
 into a server. Requests arrive one at a time (``submit``); each is routed
@@ -28,17 +26,17 @@ then:
 submission order; ``serve(requests)`` is submit-all + drain, the drop-in
 continuous counterpart to ``engine.serve_batch``.
 
-RESILIENCE (``repro.serving.resilience``): with a ``fault_injector`` /
+RESILIENCE (``repro_torch.serving.resilience``): with a ``fault_injector`` /
 ``breaker`` / ``watchdog`` attached, the tick additionally absorbs typed
 ``HeadFault``s from the stream guards — transient faults retry in place
 with bounded tick-backoff (the stream rolls the refused step back, so
-greedy retries are bit-identical), permanent or retry-exhausted faults
-offload the stream (via the same eviction machinery preemption uses) and
-re-route each request to the cheapest healthy head clearing its
+greedy retries are bit-identical), permanent or retry-exhausted faults offload the
+stream (full KV-page rollback via the same eviction machinery preemption
+uses) and re-route each request to the cheapest healthy head clearing its
 ``accuracy_floor`` (exact as last resort), else terminate it as a typed
 ``AdmissionRejected(stage="fault")`` with partial tokens. The server
-degrades; it never crashes, never loops forever (``drain`` raises typed
-``SchedulerStalled``).
+degrades; it never crashes, never leaks a page, never loops forever
+(``drain`` raises typed ``SchedulerStalled``).
 """
 from __future__ import annotations
 
@@ -48,16 +46,17 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence
 
 from repro_torch.serving.engine import DecodeEngine, DecodeStream
+from repro_torch.serving.kvpool.pool import PoolExhausted
 from repro_torch.serving.observe.trace import NULL_TRACER
 from repro_torch.serving.request import ServeRequest, ServeResult
 from repro_torch.serving.resilience.breaker import OPEN
 from repro_torch.serving.resilience.faults import HeadFault
 from repro_torch.serving.router import DEFAULT_ACCURACY, head_eligible
 from repro_torch.serving.scheduler.queue import (AcceptAll, AdmissionPolicy,
-                                                 AdmissionRejected,
-                                                 QueuedRequest, RequestQueue,
-                                                 SchedulerLoad, head_flops,
-                                                 head_flops_modeled)
+                                           AdmissionRejected, QueuedRequest,
+                                           RequestQueue, SchedulerLoad,
+                                           head_flops, head_flops_modeled,
+                                           tier_priority)
 from repro_torch.serving.scheduler.stats import ServerStats
 
 
@@ -89,14 +88,32 @@ class ContinuousScheduler:
     ``clock``       injectable monotonic clock for arrival/deadline/latency
                     bookkeeping (tests pass a fake; throughput telemetry
                     always uses the real wall clock).
-    ``kv_pool``, ``spec``  the reference's paged KV pool and speculative
-                    decoding: not ported yet; anything but None raises
-                    NotImplementedError (ROADMAP.md, Queue 1 item 8).
+    ``kv_pool``     optional ``repro_torch.serving.kvpool.PagePool``: streams
+                    become ``PagedDecodeStream``s sharing the pool's pages
+                    and shared-prefix radix cache; admission prices each
+                    request by its MARGINAL pages (prompt + max_new pages
+                    minus radix-resident prefix pages); ``PoolExhausted``
+                    at placement or step becomes a first-class pressure
+                    signal — the radix cache reclaims LRU prefixes first,
+                    then stage 3 preempts expendable lower-tier work, and
+                    after two consecutive stalled ticks the lowest-tier
+                    running slot is force-evicted so the pool can never
+                    livelock a full stream set.
+    ``spec``        optional ``repro_torch.serving.spec.SpecPolicy``: requests
+                    ACCEPTED on their routed head may additionally get a
+                    cheap draft head and run on a ``SpecDecodeStream``
+                    (emitted tokens stay the verify head's — speculation
+                    never changes output). Admission prices the draft
+                    head's extra per-step flops
+                    (``SchedulerLoad.request_extra_flops``) and, under a
+                    pool, the ``draft_len − 1`` rollback pages a round can
+                    transiently write; a DOWNGRADE drops the spec
+                    assignment along with the routed head.
     ``fault_injector`` optional ``resilience.FaultInjector`` armed on every
                     stream the scheduler opens (chaos testing; the guards
                     run regardless and catch honest degeneration too).
     ``breaker``     optional ``resilience.CircuitBreaker``: fault signals
-                    feed it, open heads drop out of routing/admission
+                    feed it, open heads drop out of routing/admission/spec
                     (``head_eligible``'s ``breaker_open`` stamp) and their
                     running streams are offloaded to fallbacks.
     ``watchdog``    optional ``resilience.StreamWatchdog``: per-request
@@ -125,13 +142,10 @@ class ContinuousScheduler:
             raise ValueError("max_slots and max_streams must be >= 1")
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0: {max_retries}")
-        for name, arg in (("kv_pool", kv_pool), ("spec", spec)):
-            if arg is not None:
-                raise NotImplementedError(
-                    f"repro_torch: ContinuousScheduler({name}=...) is not "
-                    f"ported yet (the paged KV pool and speculative "
-                    f"decoding: ROADMAP.md, Queue 1 item 8)")
         self.engine = engine
+        self.kv_pool = kv_pool
+        self.spec = spec
+        self._pool_stalled_ticks = 0    # consecutive ticks blocked on pages
         self.policy = policy
         self.admission = admission if admission is not None else AcceptAll()
         self.max_slots = int(max_slots)
@@ -165,16 +179,29 @@ class ContinuousScheduler:
                 if _user is not None:
                     _user(head, old, new)
             breaker.on_transition = _on_transition
-        # live-source collector: watchdog tracking refreshes into the
-        # stats' typed-metrics registry at every exposition (ServerStats'
-        # own counters are mirrored by its own collector)
+        # live-source collectors: watchdog tracking + per-lane adaptive
+        # draft length refresh into the stats' typed-metrics registry at
+        # every exposition (ServerStats' own counters are mirrored by its
+        # own collector; these two sources live outside it)
         self.stats.metrics.register_collector(self._collect_live_metrics)
 
     def _collect_live_metrics(self) -> None:
+        m = self.stats.metrics
         if self.watchdog is not None:
-            self.stats.metrics.gauge(
-                "serve_watchdog_tracked",
-                "requests under stall tracking").set(self.watchdog.tracked)
+            m.gauge("serve_watchdog_tracked",
+                    "requests under stall tracking").set(
+                self.watchdog.tracked)
+        for stream in self._streams.values():
+            ctl = getattr(stream, "controller", None)
+            if ctl is None:
+                continue
+            lane = f"{stream.draft_name}->{stream.verify_name}"
+            m.gauge("serve_spec_draft_len",
+                    "adaptive draft length per spec lane",
+                    ("lane",)).set(ctl.n, lane=lane)
+            m.gauge("serve_spec_draft_acceptance",
+                    "EMA draft acceptance per spec lane",
+                    ("lane",)).set(ctl.acceptance, lane=lane)
 
     # -- tracing -------------------------------------------------------------
     def _trace_terminal(self, rid: int, outcome: str,
@@ -210,7 +237,7 @@ class ContinuousScheduler:
     def _health_view(self, catalog: Dict[str, dict]) -> Dict[str, dict]:
         """Catalog filtered through the circuit breaker: heads whose
         breaker is open get a ``breaker_open`` stamp on a COPY of their
-        meta, which ``head_eligible`` (routing + admission)
+        meta, which ``head_eligible`` (routing + admission + spec policy)
         treats as a veto. ``allow()`` doubles as the half-open transition
         probe — an open head past its cooldown un-stamps itself here."""
         if self.breaker is None:
@@ -235,10 +262,37 @@ class ContinuousScheduler:
 
     def _load(self) -> SchedulerLoad:
         running = sum(qr.cost for qr in self._inflight.values())
-        return SchedulerLoad(
+        load = SchedulerLoad(
             flops_in_flight=self.queue.flops_pending + running,
             queued=len(self.queue),
             active=sum(s.n_active for s in self._streams.values()))
+        pool = self.kv_pool
+        if pool is not None:
+            load.pages_free = pool.pages_free
+            load.pages_evictable = pool.radix.evictable_pages() \
+                if pool.radix is not None else 0
+            load.pages_queued = sum(qr.pages for qr in self.queue)
+        return load
+
+    def _marginal_pages(self, request: ServeRequest,
+                        draft_slack: int = 0) -> int:
+        """Pages this request will newly allocate: its full footprint
+        (prompt + decode budget) minus fully-shared prefix pages already
+        resident in the radix cache (a peek — no LRU side effects).
+
+        ``draft_slack`` (speculative requests: ``draft_len − 1``) is the
+        rollback overshoot a draft/verify round can transiently write past
+        the final token; spec streams reserve it up front and never dedupe
+        through the radix cache, so shared-prefix credit does not apply."""
+        pool = self.kv_pool
+        P = pool.page_size
+        total = int(request.prompt.shape[0]) + int(request.max_new) \
+            + int(draft_slack)
+        shared = 0
+        if draft_slack == 0 and pool.radix is not None:
+            m = pool.radix.match([int(t) for t in request.prompt], peek=True)
+            shared = sum(1 for _, nv in m.chain if nv == P)
+        return max(0, (total + P - 1) // P - shared)
 
     # -- submission (admission happens HERE, against current load) -----------
     def submit(self, request: ServeRequest) -> int:
@@ -267,14 +321,43 @@ class ContinuousScheduler:
         # that happen to sit in the accumulated catalog
         cand = tuple(getattr(self.policy, "candidates", ())) \
             if self.policy is not None else ()
+        spec_cand = tuple(getattr(self.spec, "candidates", ())) \
+            if self.spec is not None else ()
         names = tuple(dict.fromkeys(
-            cand + (() if routed is None else (routed,))))
+            cand + spec_cand + (() if routed is None else (routed,))))
         self._ensure_catalog(names)
         catalog = {n: self._catalog[n] for n in names if n in self._catalog}
         if routed is None:
             catalog[name] = self.engine.head.describe()
         catalog = self._health_view(catalog)
-        decision = self.admission.admit(request, name, catalog, self._load())
+        # provisional spec assignment BEFORE admission, so admission prices
+        # the draft head's extra per-step flops and the rollback pages; a
+        # downgrade drops it again below
+        draft = None
+        draft_len = 0
+        if self.spec is not None:
+            draft = self.spec.draft_for(request, name, catalog,
+                                        max_len=self.engine.max_len)
+            if draft is not None:
+                draft_len = self.spec.draft_len_for(request,
+                                                    self.engine.max_len)
+        load = self._load()
+        if self.kv_pool is not None:
+            load.request_pages = self._marginal_pages(
+                request, draft_slack=draft_len - 1 if draft else 0)
+        if draft is not None:
+            load.request_extra_flops = head_flops(catalog, draft)
+        decision = self.admission.admit(request, name, catalog, load)
+        if decision.action != "accept" and draft is not None:
+            # speculation is OPTIONAL: before letting the draft's extra
+            # flops/pages downgrade (or reject) the routed head, retry the
+            # admission PLAIN — dropping the draft must always be preferred
+            # to dropping the head the router chose
+            draft, draft_len = None, 0
+            load.request_extra_flops = 0.0
+            if self.kv_pool is not None:
+                load.request_pages = self._marginal_pages(request)
+            decision = self.admission.admit(request, name, catalog, load)
         if decision.action == "reject":
             self._results[rid] = AdmissionRejected(
                 request=request, reason=decision.reason, stage="admission")
@@ -294,9 +377,15 @@ class ContinuousScheduler:
             head = routed        # None keeps the engine default instance
         if tr.enabled:
             tr.instant("admit", "admission", tid=rid,
-                       args={"head": decision.head or name})
+                       args={"head": decision.head or name,
+                             **({"draft": draft} if draft else {})})
         cost = head_flops(catalog, decision.head or name)
-        self.queue.push(request, head, cost=cost, req_id=rid)
+        if draft is not None:
+            cost += head_flops(catalog, draft)
+        qr = self.queue.push(request, head, cost=cost, req_id=rid)
+        qr.pages = load.request_pages
+        qr.draft = draft
+        qr.draft_len = draft_len
         self.stats.admitted += 1
         self.stats.observe_queue(len(self.queue))
         return rid
@@ -307,8 +396,13 @@ class ContinuousScheduler:
         """Stream signature: head + the request's ``sampling_key()`` (the
         same statics serve_batch's group_key carries, minus the prompt
         length — streams prefill per request, so mixed-length traffic
-        shares a lane, unlike serve_batch's batched prefill groups)."""
-        return (qr.head,) + qr.request.sampling_key()
+        shares a lane, unlike serve_batch's batched prefill groups).
+        Speculative requests carry their (draft head, draft length) too —
+        a spec lane's round shape is a stream-wide static."""
+        sig = (qr.head,) + qr.request.sampling_key()
+        if qr.draft is not None:
+            sig += ("spec", qr.draft, qr.draft_len)
+        return sig
 
     def _stream_for(self, qr: QueuedRequest) -> Optional[DecodeStream]:
         sig = self._sig(qr)
@@ -324,15 +418,35 @@ class ContinuousScheduler:
             else:
                 return None
         req = qr.request
-        stream = self.engine.open_stream(
-            head=qr.head, width=self.max_slots,
-            temperature=req.temperature, top_p=req.top_p, seed=req.seed)
+        if qr.draft is not None:
+            stream = self.engine.open_spec_stream(
+                draft_head=qr.draft, verify_head=qr.head,
+                width=self.max_slots, draft_len=qr.draft_len,
+                temperature=req.temperature, top_p=req.top_p, seed=req.seed,
+                kv_pool=self.kv_pool,
+                adaptive=getattr(self.spec, "adaptive", True))
+        elif self.kv_pool is not None:
+            stream = self.engine.open_paged_stream(
+                self.kv_pool, head=qr.head, width=self.max_slots,
+                temperature=req.temperature, top_p=req.top_p, seed=req.seed)
+        else:
+            stream = self.engine.open_stream(
+                head=qr.head, width=self.max_slots,
+                temperature=req.temperature, top_p=req.top_p, seed=req.seed)
         stream.fault_injector = self.fault_injector
         stream.tracer = self.tracer
         self._streams[sig] = stream
         return stream
 
     # -- resilience helpers ---------------------------------------------------
+    @staticmethod
+    def _stream_heads(stream) -> tuple:
+        """The registry head name(s) a stream's health hangs on: (draft,
+        verify) for spec lanes, the serving head otherwise."""
+        if hasattr(stream, "draft_name"):
+            return (stream.draft_name, stream.verify_name)
+        return (stream.head_name,)
+
     def _fallback_head(self, qr: QueuedRequest) -> Optional[str]:
         """Cheapest healthy head this request can still run on: policy
         candidates + everything cataloged + "exact" (the last resort —
@@ -366,13 +480,24 @@ class ContinuousScheduler:
     def _redispatch(self, qr: QueuedRequest, failed_head: str,
                     partial=None) -> int:
         """One offloaded request after a permanent/exhausted fault or
-        stall: re-route to the cheapest healthy head, else terminate typed.
+        stall: strip a faulting DRAFT and requeue plain (emitted tokens
+        were always the verify head's — degrading costs nothing), else
+        re-route to the cheapest healthy head, else terminate typed.
         Returns 1 when the request reached a terminal state."""
         self.fault_rids.add(qr.id)
         self._inflight.pop(qr.id, None)
         if self.watchdog is not None:
             self.watchdog.forget(qr.id)
         tr = self.tracer
+        if qr.draft is not None and failed_head == qr.draft:
+            qr.draft, qr.draft_len = None, 0
+            qr.retries = 0
+            self.stats.record_spec_degraded()
+            if tr.enabled:
+                tr.instant("spec_degrade", "resilience", tid=qr.id,
+                           args={"draft": failed_head})
+            self.queue.requeue(qr)
+            return 0
         qr.tried_heads.add(failed_head)
         fallback = self._fallback_head(qr)
         if fallback is not None:
@@ -382,6 +507,7 @@ class ContinuousScheduler:
                            args={"from": failed_head, "to": fallback})
             qr.head = fallback
             qr.cost = head_flops(self._catalog, fallback)
+            qr.draft, qr.draft_len = None, 0
             qr.retries = 0
             self.queue.requeue(qr)
             return 0
@@ -396,8 +522,9 @@ class ContinuousScheduler:
         return 1
 
     def _offload_stream(self, sig: tuple, stream, failed_head: str) -> int:
-        """Evict every occupant of a sick stream (``evict``, exactly like
-        preemption) and re-route each through ``_redispatch``."""
+        """Evict every occupant of a sick stream (full KV-page rollback —
+        ``evict`` releases page chains exactly like preemption) and
+        re-route each through ``_redispatch``."""
         terminal = 0
         for slot, tag in list(stream.occupied()):
             _, _, partial = stream.evict(slot)
@@ -440,9 +567,10 @@ class ContinuousScheduler:
         terminal = self._offload_stream(sig, stream, e.head)
         if tripped:
             # the breaker took the whole HEAD out, not just this stream:
-            # offload every other lane it serves too
+            # offload every other lane it serves (or drafts for) too
             for other_sig, other in list(self._streams.items()):
-                if other is stream or e.head != other.head_name:
+                if other is stream or e.head not in \
+                        self._stream_heads(other):
                     continue
                 if other.n_active:
                     terminal += self._offload_stream(other_sig, other,
@@ -456,6 +584,7 @@ class ContinuousScheduler:
         tick."""
         self.stats.ticks += 1
         terminal = 0
+        pool_blocked = False    # a PoolExhausted fired somewhere this tick
         tr = self.tracer
         tick_t0 = tr.now() if tr.enabled else 0.0
         # 0. injected tick delays (chaos): advances the shared logical
@@ -471,8 +600,17 @@ class ContinuousScheduler:
         #    waiter that justified the eviction.
         for qr in sorted(self.queue, key=lambda q: (q.priority, q.id)):
             if self.breaker is not None:
-                # tripped serving head: re-route before placing (a healthy
-                # stand-in beats waiting out the cooldown)
+                # tripped VERIFY/serving head: re-route before placing (a
+                # healthy stand-in beats waiting out the cooldown); tripped
+                # DRAFT head: strip the draft, decode plain
+                if qr.draft is not None and \
+                        not self.breaker.allow(qr.draft):
+                    if tr.enabled:
+                        tr.instant("spec_degrade", "resilience", tid=qr.id,
+                                   args={"draft": qr.draft})
+                    qr.draft, qr.draft_len = None, 0
+                    self.stats.record_spec_degraded()
+                    self.fault_rids.add(qr.id)
                 if not self.breaker.allow(qr.head or self._default_name()):
                     fallback = self._fallback_head(qr)
                     if fallback is not None and fallback != qr.head:
@@ -484,6 +622,7 @@ class ContinuousScheduler:
                         self.fault_rids.add(qr.id)
                         qr.head = fallback
                         qr.cost = head_flops(self._catalog, fallback)
+                        qr.draft, qr.draft_len = None, 0
                     else:
                         continue    # queued until the breaker half-opens
             sig = self._sig(qr)
@@ -496,8 +635,9 @@ class ContinuousScheduler:
             try:
                 stream.join(qr.request, tag=qr)
             except HeadFault as e:
-                # the guard fired BEFORE any stream state mutated (the
-                # generator's state restored), so the request simply
+                # the guard fired BEFORE any stream state mutated (pages
+                # rolled back, the generator's state restored), so the
+                # request simply
                 # stays queued: transient faults back off and retry,
                 # anything else re-routes or terminates typed
                 self.stats.record_fault(e.kind, e.transient)
@@ -525,6 +665,24 @@ class ContinuousScheduler:
                     self.queue.remove(qr)
                     terminal += self._redispatch(qr, e.head)
                 continue
+            except PoolExhausted as e:
+                # join rolled back every page it took; the request stays
+                # queued and stage 3 applies pool pressure. With nothing
+                # in flight there is nothing left to preempt and the radix
+                # cache already reclaimed all it could inside alloc — the
+                # request can NEVER place, so it terminates typed instead
+                # of stalling drain()
+                pool_blocked = True
+                if not self._inflight:
+                    self.queue.remove(qr)
+                    self._results[qr.id] = AdmissionRejected(
+                        request=qr.request, stage="placement",
+                        head=stream.head_name, reason=str(e))
+                    self.stats.preempted += 1
+                    terminal += 1
+                    self._trace_terminal(qr.id, "preempted",
+                                         head=stream.head_name)
+                continue
             dt = time.perf_counter() - t0
             self.queue.remove(qr)
             self._retry_at.pop(sig, None)
@@ -538,33 +696,53 @@ class ContinuousScheduler:
                 tr.instant("join", "queue", tid=qr.id,
                            args={"head": stream.head_name,
                                  "join_s": dt})
-        # 2. advance streams, retire finished sequences
+        # 2. advance streams, retire finished sequences. A spec stream's
+        #    tick is a whole draft/verify ROUND: it emits a VARIABLE number
+        #    of tokens (1..draft_len per slot), so its token credit is the
+        #    emitted-counter delta, not n_active, and the same delta feeds
+        #    the server-wide speculative telemetry.
         for sig, stream in list(self._streams.items()):
+            spec_before = stream.spec_counters() \
+                if hasattr(stream, "spec_counters") else None
             skip = self._retry_at.get(sig, 0) > self.stats.ticks
             if not skip and stream.n_active and \
                     self.fault_injector is not None:
                 # injected stall: the stream makes no progress this tick —
                 # from the outside exactly what a hung device looks like;
                 # the watchdog is what DETECTS it
-                skip = self.fault_injector.stalled(stream.head_name)
+                skip = any(self.fault_injector.stalled(h)
+                           for h in self._stream_heads(stream))
             if stream.n_active and not skip:
                 n_tok = stream.n_active
                 t0 = time.perf_counter()
                 try:
                     finished = stream.step()
+                except PoolExhausted:
+                    # nothing advanced or was consumed; completions from
+                    # earlier joins still surface, stage 3 frees pages,
+                    # and the next tick retries the identical step
+                    pool_blocked = True
+                    finished = stream.pop_finished()
                 except HeadFault as e:
                     # the stream rolled the step back: retry with backoff,
-                    # or offload + re-route
+                    # or offload + re-route (full page rollback)
                     terminal += self._on_stream_fault(sig, stream, e)
                     finished = stream.pop_finished()
                 else:
                     dt = time.perf_counter() - t0
                     self._fail_count.pop(sig, None)
                     if self.breaker is not None:
-                        self.breaker.record_success(stream.head_name)
+                        for h in self._stream_heads(stream):
+                            self.breaker.record_success(h)
                         if self.breaker.latency_spike_s is not None:
                             self.breaker.record_latency(stream.head_name,
                                                         dt)
+                    if spec_before is not None:
+                        after = stream.spec_counters()
+                        delta = {k: after[k] - spec_before[k]
+                                 for k in after}
+                        self.stats.record_spec(**delta)
+                        n_tok = delta["emitted"]
                     self.stats.record_decode(stream.head_name, n_tok, dt)
             else:
                 finished = stream.pop_finished()
@@ -633,6 +811,48 @@ class ContinuousScheduler:
                                  head=victim_stream.head_name)
             if own is None:
                 lane_freed_for.add(sig)
+        # 3b. POOL pressure: a PoolExhausted this tick means page capacity —
+        #     not slots — is the bottleneck, and evicting ANY running slot
+        #     helps (its whole page chain releases). Victim choice: prefer
+        #     expendable work (past deadline, or deadline-less batch),
+        #     lowest tier first; when the tick's waiters have a tier,
+        #     victims must sit strictly below the most urgent one. Two
+        #     consecutive stalled ticks ESCALATE: the deadline and tier
+        #     guards drop, and the globally lowest-tier slot is evicted —
+        #     pages must come from somewhere or the server livelocks.
+        if pool_blocked:
+            self._pool_stalled_ticks += 1
+            force = self._pool_stalled_ticks >= 2
+            waiter_pri = min((q.priority for q in self.queue), default=None)
+            best = None                  # (not expendable, -priority) min-key
+            for cand in self._streams.values():
+                for slot, tag in cand.occupied():
+                    expendable = now > tag.deadline or math.isinf(tag.deadline)
+                    if not expendable and not force:
+                        continue
+                    if waiter_pri is not None and not force \
+                            and tag.priority <= waiter_pri:
+                        continue
+                    key = (not expendable, -tag.priority)
+                    if best is None or key < best[0]:
+                        best = (key, slot, tag, cand)
+            if best is not None:
+                _, slot, tag, victim_stream = best
+                _, request, partial = victim_stream.evict(slot)
+                self._results[tag.id] = AdmissionRejected(
+                    request=request, stage="preempt",
+                    head=victim_stream.head_name, tokens=partial,
+                    reason=f"pool exhausted: {tag.tier} work evicted to "
+                           f"free its KV pages (stalled "
+                           f"{self._pool_stalled_ticks} tick(s))")
+                self._inflight.pop(tag.id, None)
+                self.stats.preempted += 1
+                terminal += 1
+                self._trace_terminal(tag.id, "preempted",
+                                     head=victim_stream.head_name)
+                self._pool_stalled_ticks = 0
+        else:
+            self._pool_stalled_ticks = 0
         # 4. watchdog + per-request timeouts, on stage 3's ``now`` (no
         #    extra clock reads — a fake-clock test ticks identically
         #    whether or not resilience is wired)
@@ -690,6 +910,9 @@ class ContinuousScheduler:
                 self.stats.record_timeout()
                 terminal += 1
                 self._trace_terminal(qr.id, "timed_out", head=qr.head)
+        if self.kv_pool is not None:
+            self.stats.observe_pool(self.kv_pool.telemetry(),
+                                    stalled=pool_blocked)
         self.stats.observe_queue(len(self.queue))
         if tr.enabled:
             tr.span("tick", "scheduler", tick_t0,
@@ -728,6 +951,7 @@ class ContinuousScheduler:
         while self.busy:
             before = len(self._results)
             tok0 = self.stats.tokens
+            pool0 = self.stats.pool_stalled_ticks
             self.step()
             ticks += 1
             # REAL progress is tokens decoded or results produced — a
@@ -735,13 +959,15 @@ class ContinuousScheduler:
             # a wedged device) must not read as healthy. States that
             # legitimately idle a tick are PATIENCE, each bounded by a
             # mechanism that eventually produces progress or a typed
-            # result: a transient-fault backoff window, an open breaker a
-            # queued request waits out (cooldown → half-open probe), and
-            # an armed watchdog over in-flight work (its stall timeout
-            # evicts to fallback/typed-reject).
+            # result: a transient-fault backoff window, a pool-pressure
+            # tick (stage 3b escalates to a forced eviction), an open
+            # breaker a queued request waits out (cooldown → half-open
+            # probe), and an armed watchdog over in-flight work (its
+            # stall timeout evicts to fallback/typed-reject).
             backing_off = any(t > self.stats.ticks
                               for t in self._retry_at.values())
             waiting = backing_off \
+                or self.stats.pool_stalled_ticks > pool0 \
                 or (self.breaker is not None and len(self.queue) > 0
                     and bool(self.breaker.open_heads())) \
                 or (self.watchdog is not None and self.watchdog.armed

@@ -4,9 +4,8 @@
 ``ServerStats`` is the one object every serving surface reads: the
 scheduler updates it in place each tick, ``launch/serve.py --scheduler``
 prints it, and ``chip_smoke.py`` prints ``snapshot()``. The ``pool`` and
-``spec`` sections keep the reference's keys and stay ``None``: the paged
-KV pool and speculative decoding are not ported yet (ROADMAP.md, Queue 1
-item 8).
+``spec`` sections are ``None`` until a scheduler with a ``kv_pool`` or a
+``spec`` policy feeds them.
 
 Two clocks feed it, deliberately: arrival/deadline/latency quantities come
 from the scheduler's INJECTABLE clock (deterministic under test / simulated

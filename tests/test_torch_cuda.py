@@ -996,3 +996,170 @@ def test_cuda_host_head_between_graph_replays(cuda):
     for tag, n in enumerate((20, 15, 17)):
         solo = eng.generate(prompts[tag][None, :n], 6, head=hd)
         assert got[tag] == solo.tokens[0].tolist()
+
+
+# -- speculative decoding and the page pool on the card ------------------------
+
+def _spec_run(eng, prompts, draft="screened-cuda", width=3, draft_len=3,
+              temperature=None):
+    """Three requests (prompts of 20, 15 and 17 tokens, 8 new each) on a
+    spec stream, all joined at once. → (tokens by tag, the stream)."""
+    from repro_torch.serving import ServeRequest
+    s = eng.open_spec_stream(draft, "exact", width=width, draft_len=draft_len,
+                             temperature=temperature, seed=5)
+    for i, n in enumerate((20, 15, 17)):
+        s.join(ServeRequest(prompt=prompts[i][:n], max_new=8), tag=i)
+    done = {}
+    while not s.idle:
+        done.update({t: toks.tolist() for t, _, toks in s.step()})
+    return done, s
+
+
+def _near_tie_steps(eng, prompt, tokens, gap=1e-4):
+    """The steps of the exact greedy decode of ``prompt`` into ``tokens``
+    whose top-2 logit gap is below ``gap`` (model.forward on the card)."""
+    seq = torch.as_tensor(np.concatenate([prompt, tokens[:-1]])[None],
+                          device="cuda")
+    with torch.inference_mode():
+        h, _ = eng.model.forward(eng.params, {"tokens": seq})
+        top = eng.model.logits(eng.params, h[0, len(prompt) - 1:]).topk(
+            2, dim=-1).values
+    return set(np.nonzero((top[:, 0] - top[:, 1]).cpu().numpy() < gap)[0])
+
+
+@pytest.mark.parametrize("family", ["lstm", "hybrid"])
+def test_cuda_spec_greedy_matches_a_plain_exact_stream(cuda, family):
+    """Greedy spec tokens (verify over 3 × 3 rows at once) equal a plain
+    width-3 exact stream's except after a step whose top-2 gap is below
+    1e-4; rejections happen on the random screen; the spec graphs replay
+    what their eager bodies do, bit for bit, with equal launch counts."""
+    from repro_torch.serving import ServeRequest
+    eng, prompts = _graph_engine(cuda, family)
+    got, s = _spec_run(eng, prompts)
+    c = s.spec_counters()
+    assert c["drafted"] > c["accepted"] and s.restored_rows > 0
+    plain = eng.open_stream("exact", width=3)
+    for i, n in enumerate((20, 15, 17)):
+        plain.join(ServeRequest(prompt=prompts[i][:n], max_new=8), tag=i)
+    want = {}
+    while plain.n_active:
+        want.update({t: toks.tolist() for t, _, toks in plain.step()})
+    for i, n in enumerate((20, 15, 17)):
+        bad = [j for j, (a, b) in enumerate(zip(got[i], want[i])) if a != b]
+        assert not bad or bad[0] in _near_tie_steps(
+            eng, prompts[i][:n], np.asarray(want[i]))
+    runs = []
+    for eager in (False, True):
+        e, ps = _graph_engine(cuda, family)
+        if eager:
+            e._run = lambda step, slab: step.body(slab)
+        _spec_run(e, ps)                                 # capture
+        ops.reset_launches()
+        runs.append((_spec_run(e, ps)[0], dict(ops.LAUNCHES),
+                     e.compiled_step_counts()))
+    (g, gn, gc), (w, wn, wc) = runs
+    assert g == w and gn == wn
+    assert gc == {("screened-cuda", "greedy"): 1, ("exact", "spec-verify"): 1}
+    assert sum(wc.values()) == 0
+
+
+def test_cuda_spec_second_stream_and_sampled_runs_add_no_graph(cuda):
+    """A second spec stream of the same shape is lent the first's slab and
+    adds no graph, greedy and sampled (T = 1); a sampled run from one seed
+    repeats bit for bit."""
+    eng, prompts = _graph_engine(cuda, "lstm")
+    first, _ = _spec_run(eng, prompts)
+    s1, _ = _spec_run(eng, prompts, temperature=1.0)
+    counts = eng.compiled_step_counts()
+    assert counts[("screened-cuda", "spec-dist")] == 1
+    assert _spec_run(eng, prompts)[0] == first
+    assert _spec_run(eng, prompts, temperature=1.0)[0] == s1
+    assert eng.compiled_step_counts() == counts
+
+
+def test_cuda_spec_graphs_freed_when_evicted(cuda):
+    """The spec slab (its round buffers and snapshot ring) lives while a
+    graph captured on it does: once the LRU has evicted the draft and
+    verify steps, the slab is gone and its memory with it."""
+    import gc
+    import weakref
+    eng, prompts = _graph_engine(cuda, "hybrid")
+    _, s = _spec_run(eng, prompts)
+    key = (3, s._slab_key())
+    slab = weakref.ref(eng._free_stream_slabs[key][0]())
+    assert slab() is not None and slab().spec.ring_nbytes > 0
+    hd = eng.resolve_head("screened-cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for i in range(32):                             # steps with no graph
+        eng._sample_step(hd, 0.5 + 0.05 * i, 1.0)
+    gc.collect()
+    assert slab() is None
+    assert eng.compiled_step_counts() == {("screened-cuda", "sample"): 0}
+    assert torch.cuda.memory_allocated() < before
+
+
+def test_cuda_screened_cuda_dist_logits_match_plain(cuda):
+    """``screened-cuda.dist_logits`` on the card (route and gather kernels)
+    against its plain version on the CPU, at V = 600 (a padded last tile):
+    values within 1e-5, the same finite support, equal to the routed
+    cluster's candidate words < V, and every sampled id inside it."""
+    from repro_torch.heads import ScreenedCudaHead
+    from repro_torch.heads.base import NEG_INF as H_NEG_INF
+    eng, _ = _graph_engine(cuda, "lstm")
+    hd = eng.resolve_head("screened-cuda")
+    g = torch.Generator().manual_seed(3)
+    h = torch.randn((40, eng.W.shape[1]), generator=g).cuda()
+    ops.reset_launches()
+    got = hd.dist_logits(h)
+    assert ops.LAUNCHES["cluster_route"] == 1
+    assert ops.LAUNCHES["screened_logits"] == 1
+    scr = eng.screen
+    plain = ScreenedCudaHead(eng.W.cpu(), eng.b.cpu(),
+                             scr.to("cpu")).dist_logits(h.cpu())
+    on = got > H_NEG_INF / 2
+    assert torch.equal(on.cpu(), plain > H_NEG_INF / 2)
+    torch.testing.assert_close(torch.where(on, got, 0.0).cpu(),
+                               torch.where(plain > H_NEG_INF / 2, plain, 0.0),
+                               **TOL)
+    cluster = cluster_route(h, scr.v).long()
+    blocks = scr.cand_idx[cluster]
+    words = torch.zeros_like(on)
+    n_blk = -(-eng.W.shape[0] // V_BLK)
+    for i in range(h.shape[0]):
+        for blk in blocks[i].tolist():
+            if blk < n_blk:
+                words[i, blk * V_BLK:(blk + 1) * V_BLK] = True
+    assert torch.equal(on, words)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = torch.arange(h.shape[0], device="cuda")
+    for top_p in (1.0, 0.9):
+        for _ in range(10):
+            ids = hd.sample(h, 1.0, top_p, generator=gen).long()
+            assert on[rows, ids].all()
+
+
+def test_cuda_paged_lstm_stream_matches_a_plain_stream(cuda):
+    """A paged LSTM stream (shared prompt prefixes, resumed prefill from
+    radix snapshots) gives a plain stream's tokens bit for bit on the
+    card, and reuses the plain stream's graph."""
+    from repro_torch.serving import PagePool, ServeRequest
+    eng, prompts = _graph_engine(cuda, "lstm")
+    base = prompts[0][:16]
+    reqs = [ServeRequest(prompt=np.concatenate([base, prompts[1][:3 + i]]),
+                         max_new=6) for i in range(6)]
+
+    def run(stream):
+        done, pending = {}, list(enumerate(reqs))
+        while pending or stream.n_active:
+            while pending and stream.free_slots:
+                i, r = pending.pop(0)
+                stream.join(r, tag=i)
+            done.update({t: toks.tolist() for t, _, toks in stream.step()})
+        return done
+    want = run(eng.open_stream("screened-cuda", width=3))
+    pool = PagePool(64, 8)
+    got = run(eng.open_paged_stream(pool, head="screened-cuda", width=3))
+    assert got == want
+    assert pool.radix.tokens_hit >= 5 * 16
+    assert eng.compiled_step_counts() == {("screened-cuda", "greedy"): 1}

@@ -246,3 +246,61 @@ def test_scheduler_lifecycle_spans_equal_the_reference(lstm):
     assert ticks and all(e["tid"] == SCHED_TID for e in ticks)
     kern = [e for e in evs if e["name"] == "kernel.step"]
     assert {e["args"]["head"] for e in kern} == {"screened-pallas", "exact"}
+
+
+def _record_spec_and_pool(st):
+    st.record_spec(rounds=4, draft_steps=6, drafted=20, accepted=13,
+                   emitted=17, verify_queries=32, verify_flops=1.5e6)
+    st.record_spec(rounds=2, draft_steps=3, drafted=6, accepted=2,
+                   emitted=4, verify_queries=16, verify_flops=7.5e5)
+    st.record_spec_degraded()
+    tele = {"page_size": 4, "pages_total": 15, "pages_in_use": 6,
+            "pages_free": 9, "peak_pages_in_use": 8, "cow_copies": 2,
+            "bytes_per_page": 2048, "hbm_resident_bytes": 6 * 2048,
+            "store_bytes": 0, "prefix": {"nodes": 4, "hit_rate": 0.5}}
+    st.observe_pool(tele, stalled=True)
+    st.observe_pool(dict(tele, cow_copies=5, pages_in_use=3), stalled=False)
+
+
+def test_server_stats_spec_and_pool_fields_equal_the_reference():
+    """``record_spec``, ``record_spec_degraded`` and ``observe_pool`` give
+    the reference's ``spec`` and ``pool`` sections and exposition."""
+    st, jst = ServerStats(), JStats()
+    _record_spec_and_pool(st)
+    _record_spec_and_pool(jst)
+    snap, jsnap = st.snapshot(), jst.snapshot()
+    assert _nan_safe(snap) == _nan_safe(jsnap)
+    assert snap["spec"]["rounds"] == 6 and snap["spec"]["emitted"] == 21
+    assert snap["pool"]["stalled_ticks"] == 1
+    assert snap["pool"]["cow_copies_per_tick"] == 2.5
+    assert snap["resilience"]["spec_degraded"] == 1
+    assert st.metrics.prometheus_text() == jst.metrics.prometheus_text()
+
+
+def test_scheduler_spec_gauges_equal_the_reference(lstm):
+    """A drain on a spec lane leaves the reference's per-lane
+    ``serve_spec_draft_len`` / ``serve_spec_draft_acceptance`` gauges."""
+    from repro.serving import SpecPolicy as JSpecPolicy
+    from repro.serving import StaticPolicy as JStatic
+    from repro_torch.serving import SpecPolicy, StaticPolicy
+    ps = prompts(lstm, 3, 6, seed=33)
+    gauges = []
+    for eng, sched_cls, req, static, pol in (
+            (DecodeEngine(lstm["tmodel"], lstm["tparams"],
+                          screen=lstm["tscreen"], max_len=30, device="cpu"),
+             ContinuousScheduler, ServeRequest, StaticPolicy, SpecPolicy),
+            (JEngine(lstm["jmodel"], lstm["jparams"], screen=lstm["jscreen"],
+                     max_len=30), JSched, JRequest, JStatic, JSpecPolicy)):
+        sched = sched_cls(eng, policy=static("exact"), max_slots=3,
+                          spec=pol(drafts=("screened",), draft_len=4,
+                                   min_ratio=1.0))
+        for p in ps:
+            sched.submit(req(prompt=p, max_new=7))
+        while sched.busy:
+            sched.step()
+            snap = sched.stats.metrics.snapshot()
+            gauges.append({k: v for k, v in snap.items()
+                           if k.startswith("serve_spec_draft")})
+    half = len(gauges) // 2
+    assert gauges[:half] == gauges[half:]
+    assert any(g.get("serve_spec_draft_len") for g in gauges)

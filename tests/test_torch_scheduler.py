@@ -312,14 +312,25 @@ def test_pop_results_and_monotonic_ids(lstm):
     assert isinstance(rest[-1], ServeResult)
 
 
-def test_scheduler_refuses_pool_and_spec(lstm):
-    teng, _ = _engines(lstm)
-    for kw in ({"kv_pool": object()}, {"spec": object()}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            ContinuousScheduler(teng, **kw)
-    for fn in (teng.open_paged_stream, teng.open_spec_stream):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            fn("exact")
+def test_scheduler_refuses_pool_and_spec(lstm, hybrid):
+    """The page pool serves the LSTM family only (the attention page store
+    is Queue 1 item 9.1), so a hybrid engine's paged stream, and the
+    scheduler lane that opens one, refuse; a spec stream refuses a draft
+    that is its verify head. The LSTM takes both (tests/test_torch_spec.py,
+    tests/test_torch_kvpool.py)."""
+    from repro_torch.serving import PagePool, SpecPolicy
+    teng, _ = _engines(hybrid)
+    with pytest.raises(NotImplementedError, match="lstm"):
+        teng.open_paged_stream(PagePool(8, 4))
+    sched = ContinuousScheduler(teng, kv_pool=PagePool(8, 4))
+    sched.submit(ServeRequest(prompt=prompts(hybrid, 1, 6, seed=1)[0],
+                              max_new=2))
+    with pytest.raises(NotImplementedError, match="lstm"):
+        sched.step()
+    lteng, _ = _engines(lstm)
+    with pytest.raises(ValueError, match="DISTINCT"):
+        lteng.open_spec_stream("exact")
+    ContinuousScheduler(lteng, kv_pool=PagePool(8, 4), spec=SpecPolicy())
 
 
 @pytest.mark.parametrize("argv", [
