@@ -42,7 +42,15 @@ Phases, one line (or a few) each:
               and the full cover: against
               its plain version (rtol = atol = 1e-5), bit for bit against
               the fused kernel's masked logits (k = K*128), the same bits
-              at P = 1, 2, 4, 8, two calls bit-identical;
+              at P = 1, 2, 4, 8, two calls bit-identical. Then the bf16
+              bodies of the route, gather and fused kernels (bf16 head and
+              h, float32 v) against their plain versions at d = 500, 2560
+              and mamba2-1.3b's 2048 (V = 50,280: 393 tiles, the last
+              padded), B in 1, 4, 8 (rtol = atol = 1e-5; fused == unfused
+              bit for bit), and the fused kernel at the shapes its merge once
+              refused (K = 225 and 250 tiles, k = 115, 128, 129; float32
+              and bf16) on 0.5-grid weights: ids and values == plain ==
+              unfused bit for bit;
   4. timing   CUDA-event median times of each kernel, its plain version
               and, where one PyTorch call computes the same function, that
               call, timed in turns (library, kernel, plain, plain, kernel,
@@ -60,7 +68,9 @@ Phases, one line (or a few) each:
               for screened_logits at every shape it is timed (P = 1 is its
               grid before the split) and at a beam's shape (B = 20 rows in
               4 groups of 5, one cluster each, K = 16, d = 500 and 2560,
-              timed with its bound);
+              timed with its bound); the three L2S kernels' bf16 bodies at
+              d = 2560 (bound at 2 bytes a weight), and the bf16 fused
+              kernel over all 250 of zamba2's tiles at k = 128;
   5. e2e      full-width nmt-deen-lstm (random weights from a seeded
               torch.Generator) on DecodeEngine(device="cuda"), whose decode
               steps are CUDA graph replays: greedy
@@ -195,26 +205,47 @@ Phases, one line (or a few) each:
               for the K and V pair written in one launch; both kernels
               timed like phase 4 (the pair launch beside two single
               launches and beside cache[rows, slot] = upd done twice);
-  7. hybrid   full-width zamba2-2.7b in float32 (2.3 B parameters drawn on
-              the card from a seeded CUDA generator) on DecodeEngine(
-              device="cuda", max_len=640): greedy 4 prompts x 512 tokens
-              (2 SSD chunks), 32 new, through exact and screened-cuda (fused
-              and unfused; r = 100, K = 16 over 250 blocks), beam search
-              (beam 4), and a full-cover screen whose tokens must equal
-              exact's except after a step whose exact top-2 gap is below
-              1e-4. Counters are reset just before and read just after:
-              ssd_intra must launch 54 times per prefill and the cache
-              update 9 times (once per shared-attention application) per
-              decode step. Then a self-check: the hidden states of
+  7. hybrid f32  full-width zamba2-2.7b drawn in float32 (2.3 B parameters
+              from a seeded CUDA generator) for the phases below that keep
+              it ([graph], [stream], [spec], adaptive): the hidden states of
               prefill over 512 tokens and 4 decode steps equal one prefill
-              over 516 (max relative error <= 1e-3), and a profile of one
-              greedy screened-cuda decode (each profile also gives the fused
-              kernel's share of device time); then the graph phase on a
-              fresh engine (greedy 4 x 512 + 32 and beam 4, no sampling),
-              with the same exact launch counts, and each kernel's launch
-              cost at its decode shape: one eager launch, a one-launch
-              graph and a graph of 9 launches, in turns under the timer;
-     stream   on the same zamba2-2.7b: one screened-cuda stream of width 4,
+              over 516 (max relative error <= 1e-3); its prefill of 4 x 512
+              and decode step on the host clock, for [hybrid];
+     graph    the graph phase on that model on a fresh engine (greedy 4 x
+              512 + 16 and beam 4, no sampling), 54 SSD launches a prefill
+              and 9 cache launches a decode step;
+     hybrid   zamba2-2.7b in its config's bfloat16 (4.63 GB drawn on the
+              card from the same seed) on DecodeEngine(device="cuda",
+              max_len=640, cache_dtype=bfloat16): greedy 4 prompts x 512
+              tokens (2 SSD chunks), 32 new, through exact, the plain
+              screened head and screened-cuda (fused and unfused; r = 100,
+              K = 16 over 250 blocks): fused == unfused tokens,
+              screened-cuda == plain screened under the bf16 gap rule
+              (GAP_BF16 on the plain head's bf16 logits and cluster scores
+              along its own path); beam search (beam 4); a full-cover
+              screen whose tokens equal exact's under the same rule (on the
+              exact head's bf16 logits); one prompt of 4,096 tokens (the
+              chunked attention path; max_len 4,160, 32 new) whose
+              screened-cuda tokens == the plain screened head's under the
+              rule. Counters are reset just before and read just after:
+              ssd_intra 54 launches a prefill, the cache update 9 (once per
+              shared-attention application) a decode step, the bf16 L2S
+              bodies launched and the float32 ones not. Then a self-check
+              (prefill 512 + 4 decode steps against one prefill of 516, <=
+              0.1 relative), a profile of one greedy screened-cuda decode
+              (with the fused kernel's share of device time), and on the
+              host clock the bf16 decode step and prefill tokens/s beside
+              float32's and the cost of _sdpa's float32 copies of the K/V
+              caches (CUDA events); then each kernel's launch cost at its
+              decode shape: one eager launch, a one-launch graph and a
+              graph of 9 launches, in turns under the timer;
+     ssm bf16 full-width mamba2-1.3b in its config's bfloat16: greedy 4 x
+              512 + 32 through exact, the plain screened head and
+              screened-cuda fused and unfused (fused == unfused tokens, ==
+              plain under the bf16 gap rule), 48 SSD launches a prefill (its
+              chunk shape), no cache launch, only the bf16 L2S bodies; the
+              bf16 decode step and prefill on the host clock;
+     stream   on the float32 zamba2-2.7b: one screened-cuda stream of width 4,
               prompts of 512, 384, 256 and 100 tokens joining at ticks 0, 3,
               7 and 12 (per-row positions), 32 new each: ssd_intra 54 times
               a join, the K/V cache pair 9 times a step; tokens equal solo
@@ -245,8 +276,12 @@ Phases, one line (or a few) each:
               ("nmt-deen-lstm stream", "zamba2-2.7b stream"),
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
-              paged" and "zamba2-2.7b spec", each counted from zero over
-              that path's own runs; its
+              paged", "zamba2-2.7b spec" and "mamba2-1.3b bf16" (the
+              "zamba2-2.7b" path is its bfloat16 model), each
+              counted from zero over that path's own runs; the bf16 bodies
+              as kernels of their own, "cluster_route_bf16",
+              "screened_logits_bf16" and "fused_screened_topk_bf16", timed
+              at d = 2560, the last with "full_cover_k128"; its
               "launch_cost_ms" eager, in a graph and per launch in a graph
               of 9;
               the three L2S kernels also "at_zamba2_width"; the gather
@@ -289,11 +324,35 @@ SSD_REL_TOL = 1e-5
 # of 80 channels; hybrid decode 4 prompts x 512 tokens, 32 new
 CACHE_SHAPE = (4, 640, 32, 80)
 ZB, ZT, ZNEW, ZMAX = 4, 512, 32, 640
+# new tokens of the float32 zamba2 [graph] phase, whose eager step bodies
+# (its reference side) take ~70 ms a step on the host
+ZGRAPH_NEW = 16
 ZD, ZV = 2560, 32_000                # zamba2-2.7b's d_model and vocabulary
+MD, MV = 2048, 50_280                # mamba2-1.3b's: 393 tiles, the last padded
+# zamba2-2.7b in its config's bfloat16: one prompt of 4,096 tokens (the
+# chunked attention path; 16 SSD chunks a layer), 32 new, 4,160 slots
+ZLONG, ZLONG_MAX = 4096, 4160
+# the gap rule's margin in bfloat16: two bf16 ulps of a logit in [4, 8)
+# (the plain heads round each logit to bf16; the kernels keep float32)
+GAP_BF16 = 0.0625
+BF16_KERNELS = tuple(k + "_bf16" for k in L2S_KERNELS)
+# the shapes the fused kernel's merge once refused: K tiles x k
+FAULT1 = [(K_, k) for K_ in (225, 250) for k in (115, 128, 129)]
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+WALLS = {}                       # phase → host-clock seconds, for [done]
+
+
+def walled(name, fn, *args):
+    """``fn(*args)``, its wall kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    WALLS[name] = round(time.perf_counter() - t0, 1)
+    return out
 
 
 def check(cond, msg):
@@ -390,7 +449,10 @@ KERNEL_NAMES = {"cluster_route": ("route_kernel",),
                 "fused_screened_topk": ("fused_topk_kernel",),
                 "ssd_intra": ("ssd_intra_kernel",),
                 "cache_slot_update": ("cache_kv_update_kernel",
-                                      "cache_slot_update_kernel")}
+                                      "cache_slot_update_kernel"),
+                "cluster_route_bf16": ("route_bf16_kernel",),
+                "screened_logits_bf16": ("screened_logits_bf16_kernel",),
+                "fused_screened_topk_bf16": ("fused_topk_bf16_kernel",)}
 
 
 def kernel_events(kern, name):
@@ -436,12 +498,13 @@ def profile_counted(torch, tag, fn):
     return kern
 
 
-def fused_share(kern, busy_ms):
-    """The fused top-k kernel's device time in a profile, and its share."""
-    ev = [e for e in kern if "fused_topk_kernel" in e.key]
+def fused_share(kern, busy_ms, name="fused_screened_topk"):
+    """The fused top-k kernel's (``name``: its body) device time in a
+    profile, and its share."""
+    ev = kernel_events(kern, name)
     ms = sum(e.self_device_time_total for e in ev) / 1e3
-    return (f"fused_topk_kernel {ms:.3f} ms x{sum(e.count for e in ev)} "
-            f"({ms / busy_ms:.1%} of device time)")
+    return (f"{KERNEL_NAMES[name][0]} {ms:.3f} ms x"
+            f"{sum(e.count for e in ev)} ({ms / busy_ms:.1%} of device time)")
 
 
 # -- phases ----------------------------------------------------------------------
@@ -676,7 +739,7 @@ def phase_fused_split(torch, np):
         ids = torch.randint(0, n_blk, (B, K_), generator=g,
                             dtype=torch.int32).cuda()
         fi, fv, fz = one(Wb, bb, h, sentinels(ids, n_blk), k)
-        parts.add(fused_parts(B, K_, n_sm, k, D))
+        parts.add(fused_parts(B, K_, n_sm))
         if B > 1:
             check(bool((fi[-1] == n_blk * V_BLK).all()) and
                   bool((fv[-1] == NEG_INF).all()) and
@@ -800,6 +863,124 @@ def phase_screen_grid(torch, np):
     return err
 
 
+def phase_parity_bf16(torch, np):
+    """The bfloat16 bodies of the route, gather and fused kernels against
+    their plain versions on the card (bf16 head and h, float32 v), at
+    the shapes of the three paths that run them: d = 500 (V = 25,000),
+    zamba2-2.7b's d = 2560 (V = 32,000) and mamba2-1.3b's d = 2048
+    (V = 50,280: 393 tiles, the last padded), B in 1, 4, 8, K = 16, k in
+    1, 5, 130: routes equal except near-ties (plain
+    scores within 1e-5 relative), logits, values and logZ within
+    rtol = atol = 1e-5, fused == unfused bit for bit; then the fused
+    kernel at the shapes its merge once refused (K = 225 and 250 tiles,
+    k = 115, 128, 129; B = 1 and 4; float32 and bf16, d = 2560) on weights
+    and h of a 0.5 grid, where every sum is exact: ids and values equal the
+    plain version's bit for bit, and the unfused path's. → {bf16 kernel:
+    max abs err}."""
+    from repro_torch.kernels import fused_topk, ops
+    from repro_torch.kernels.fused_topk import (fused_screened_topk,
+                                                fused_screened_topk_plain)
+    from repro_torch.kernels.ref import NEG_INF
+    from repro_torch.kernels.route import cluster_route, cluster_route_plain
+    from repro_torch.kernels.screen import (screened_logits,
+                                            screened_logits_plain)
+    err = {k: 0.0 for k in BF16_KERNELS}
+    near = 0
+    for d, vocab in ((D, V), (ZD, ZV), (MD, MV)):
+        W, b = make_head(torch, 70 + d, vocab=vocab, d=d)
+        Wb, bb = ops.pack_head_blocks(W.bfloat16(), b.bfloat16())
+        del W, b
+        n_blk = Wb.shape[0]
+        g = torch.Generator().manual_seed(71 + d)
+        v = torch.randn((R, d), generator=g).cuda()
+        cand = torch.from_numpy(make_screen_blocks(np, 72 + d, n_blk)).cuda()
+        for B in (1, 4, 8):
+            h = torch.randn((B, d), generator=g).cuda().bfloat16()
+            route, plain = cluster_route(h, v), cluster_route_plain(h, v)
+            scores = h.float() @ v.T
+            s_r = scores.gather(1, route.long()[:, None])[:, 0]
+            s_p = scores.gather(1, plain.long()[:, None])[:, 0]
+            diff = route != plain
+            check(bool(((s_r - s_p).abs()[diff] <
+                        1e-5 * s_p.abs()[diff]).all()),
+                  f"cluster_route bf16 d={d} B={B}: routes differ beyond "
+                  f"near-ties")
+            near += int(diff.sum())
+            err["cluster_route_bf16"] = max(err["cluster_route_bf16"],
+                                            float((s_r - s_p).abs().max()))
+            ids = cand[plain.long()].contiguous()
+            if B == 8:
+                ids[-1] = n_blk                        # an all-sentinel row
+            raw = screened_logits(Wb, bb, h, ids)
+            torch.testing.assert_close(raw, screened_logits_plain(
+                Wb, bb, h, ids), **TOL)
+            err["screened_logits_bf16"] = max(
+                err["screened_logits_bf16"], float((raw - screened_logits_plain(
+                    Wb, bb, h, ids)).abs().max()))
+            for k in (1, 5, 130):
+                fi, fv, fz = fused_screened_topk(Wb, bb, h, ids, k)
+                pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+                torch.testing.assert_close(fv, pv, **TOL)
+                fin = torch.isfinite(pz)
+                check(torch.equal(fin, torch.isfinite(fz)),
+                      "fused bf16: logZ finiteness differs")
+                torch.testing.assert_close(fz[fin], pz[fin], **TOL)
+                err["fused_screened_topk_bf16"] = max(
+                    err["fused_screened_topk_bf16"],
+                    float((fv - pv).abs().max()))
+                ui, uv, _ = unfused_topk(Wb, bb, h, ids, k)
+                check(torch.equal(fi, ui) and torch.equal(fv, uv),
+                      f"fused bf16 != unfused bf16 (d={d}, B={B}, k={k})")
+        del Wb, bb
+    # the shapes the merge once refused, bit for bit on exact sums
+    g = torch.Generator().manual_seed(80)
+    W = (torch.round(torch.randn((ZV, ZD), generator=g) * 2) / 2).cuda()
+    h4 = (torch.round(torch.randn((4, ZD), generator=g)) * 0.5).cuda()
+    n_blk = -(-ZV // V_BLK)
+    served = []
+    for dtype in (torch.float32, torch.bfloat16):
+        Wb, bb = ops.pack_head_blocks(W.to(dtype),
+                                      torch.zeros(ZV, device="cuda",
+                                                  dtype=dtype))
+        for K_, k in FAULT1:
+            ids = torch.stack([torch.randperm(n_blk, generator=g)[:K_]
+                               for _ in range(4)]).to(torch.int32).cuda()
+            ids[:, K_ // 2] = n_blk                   # mid-row sentinels
+            ids[-1] = n_blk                           # an all-sentinel row
+            for B in (1, 4):
+                h, ib = h4[:B].to(dtype).contiguous(), ids[:B].contiguous()
+                fi, fv, fz = fused_screened_topk(Wb, bb, h, ib, k)
+                pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ib, k)
+                ui, uv, _ = unfused_topk(Wb, bb, h, ib, k)
+                check(torch.equal(fi, pi) and torch.equal(fv, pv) and
+                      torch.equal(fi, ui) and torch.equal(fv, uv),
+                      f"fused at K={K_} k={k} B={B} {dtype}: not bit for bit "
+                      f"the plain and unfused ids and values")
+                fin = torch.isfinite(pz)
+                check(torch.equal(fin, torch.isfinite(fz)),
+                      "fused at the refused shapes: logZ finiteness differs")
+                torch.testing.assert_close(fz[fin], pz[fin], **TOL)
+                if B == 4:
+                    check(bool((fv[-1] == NEG_INF).all()),
+                          "fused at the refused shapes: all-sentinel row")
+            P = fused_topk.fused_parts(4, K_, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            served.append(f"K={K_} k={k} P={P}")
+        del Wb, bb
+    torch.cuda.synchronize()
+    check(all(int(c.abs().sum()) == 0 for c in fused_topk._COUNTERS.values()),
+          "fused: a merge counter was left non-zero")
+    log(f"[parity] bf16 route, gather and fused kernels == their plain "
+        f"versions at d={D}, {ZD} and {MD} (V={V}, {ZV}, {MV}), B in 1, 4, "
+        f"8, k in 1, 5, 130 (rtol=atol=1e-5; route "
+        f"near-ties {near}), fused == unfused bit for bit; max abs err "
+        f"{json.dumps(err)}")
+    log(f"[parity] fused at the shapes the merge once refused, float32 and "
+        f"bf16, B = 1 and 4, d={ZD}, 0.5-grid weights: ids and values == "
+        f"plain == unfused bit for bit ({'; '.join(served[:len(FAULT1)])})")
+    return err
+
+
 def unfused_topk(Wb, bb, h, block_ids, k):
     """The unfused composition the fused kernel replaces: the gather kernel,
     the sentinel mask, a stable top-k and a logsumexp."""
@@ -832,24 +1013,26 @@ def l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, seed):
     n_blk, _, d = Wb.shape
     r, Ks = v.shape[0], screen.shape[1]
     g = torch.Generator().manual_seed(seed)
-    h = torch.randn((B, d), generator=g).cuda()
+    h = torch.randn((B, d), generator=g).cuda().to(Wb.dtype)
     block_ids = screen[cluster_route_plain(h, v).long()].contiguous()
     valid = block_ids < n_blk
     safe_u = int(torch.unique(torch.where(valid, block_ids, 0)).numel())
     valid_u = int(torch.unique(block_ids[valid]).numel())
     n_valid = int(valid.sum())
-    tile_bytes = V_BLK * (d + 1) * 4
-    t = timer.turns({"library_ms": lambda: torch.argmax(h @ v.T, dim=-1),
+    esz = Wb.element_size()                    # 4 (float32) or 2 (bf16)
+    tile_bytes = V_BLK * (d + 1) * esz
+    t = timer.turns({"library_ms": lambda: torch.argmax(h.float() @ v.T,
+                                                        dim=-1),
                      "ms": lambda: cluster_route(h, v),
                      "plain_ms": lambda: cluster_route_plain(h, v)})
     rows = {"cluster_route": dict(
-        t, bound=bound_ms(4 * (B * d + r * d + B), 2 * B * r * d))}
+        t, bound=bound_ms(esz * B * d + 4 * (r * d + B), 2 * B * r * d))}
     t = timer.turns({"ms": lambda: screened_logits(Wb, bb, h, block_ids),
                      "plain_ms": lambda: screened_logits_plain(Wb, bb, h,
                                                                block_ids)})
     rows["screened_logits"] = dict(
         t, library_ms=None,
-        bound=bound_ms(safe_u * tile_bytes + 4 * (B * d + B * Ks) +
+        bound=bound_ms(safe_u * tile_bytes + esz * B * d + 4 * B * Ks +
                        4 * B * Ks * V_BLK, 2 * B * Ks * V_BLK * d))
     t = timer.turns({"ms": lambda: fused_screened_topk(Wb, bb, h, block_ids,
                                                        k),
@@ -859,27 +1042,30 @@ def l2s_rows(torch, np, timer, Wb, bb, v, screen, B, k, seed):
                                                         k)})
     rows["fused_screened_topk"] = dict(
         t, library_ms=None,
-        bound=bound_ms(valid_u * tile_bytes + 4 * (B * d + B * Ks) +
+        bound=bound_ms(valid_u * tile_bytes + esz * B * d + 4 * B * Ks +
                        4 * (2 * B * k + B), 2 * n_valid * V_BLK * d))
-    if (B, k, Ks) == (4, 1, K):
+    if (B, k, Ks) == (4, 1, K) and esz == 4:
         # the wrapper picks P parts per tile; time each P in turns
         sweep = timer.turns({f"P={p}": (lambda p=p: fused_topk._launch(
             Wb, bb, h, block_ids, k, None, p)) for p in (1, 2, 4, 8)})
         log(f"[timing] d={d} B={B} K={Ks} k={k} fused_screened_topk by parts "
             f"per tile (the wrapper picks P="
-            f"{fused_topk.fused_parts(B, Ks, timer.n_sm, k, d)}): " +
+            f"{fused_topk.fused_parts(B, Ks, timer.n_sm)}): " +
             ", ".join(f"{n} {x:.5f} ms" for n, x in sweep.items()))
         flush_compare(timer, f"d={d} B={B} K={Ks} k={k}", {
             "screened_logits": lambda: screened_logits(Wb, bb, h, block_ids),
             "fused_screened_topk": lambda: fused_screened_topk(
                 Wb, bb, h, block_ids, k)})
     screen_sweep(timer, Wb, bb, h, block_ids, f"d={d} B={B} K={Ks}")
+    if esz == 2:
+        rows = {name + "_bf16": row for name, row in rows.items()}
     for name, row in rows.items():
         lib = row["library_ms"]
         extra = (f", unfused {row['unfused_ms']:.5f} ms (ratio "
                  f"{row['unfused_ms'] / row['ms']:.2f})"
                  if "unfused_ms" in row else "")
-        log(f"[timing] d={d} B={B} K={Ks} k={k} {name}: {row['ms']:.5f} ms, "
+        log(f"[timing] {Wb.dtype} d={d} B={B} K={Ks} k={k} {name}: "
+            f"{row['ms']:.5f} ms, "
             f"plain {row['plain_ms']:.5f} ms, library "
             f"{'null' if lib is None else f'{lib:.5f}'} ms{extra}, bound "
             f"{row['bound'][0]:.7f} ms ({row['bound'][1]}); distinct tiles "
@@ -910,8 +1096,10 @@ def screen_sweep(timer, Wb, bb, h, ids, label):
     B, Ks = ids.shape
     sweep = timer.turns({f"P={p}": (lambda p=p: screen._launch(
         Wb, bb, h, ids, p)) for p in (1, 2, 4, 8)})
-    rule = screen.screen_parts(B, Ks, Wb.shape[2], timer.n_sm)
-    log(f"[timing] {label} screened_logits by parts per tile (the wrapper "
+    rule = screen.screen_parts(B, Ks, Wb.shape[2], timer.n_sm,
+                               Wb.element_size())
+    log(f"[timing] {label} {Wb.dtype} screened_logits by parts per tile "
+        f"(the wrapper "
         f"picks P={rule}; P=1 is the grid before the split): " +
         ", ".join(f"{n} {x:.5f} ms" for n, x in sweep.items()))
 
@@ -951,9 +1139,11 @@ def beam_rows(torch, timer, Wb, bb, screen, seed):
 def phase_timing(torch, np):
     """→ ({kernel: timing dict} at the LSTM greedy decode step's shape
     (d = 500, B = 4, K = 16, k = 1), {kernel: timing dict} of the three L2S
-    kernels at zamba2-2.7b's width (d = 2560, same B, K, k), [the gather
-    kernel's timing dict at the beam shape, d = 500 and 2560]), after a
-    table over B ∈ {1, 4, 8} and the full-cover screen's K = 200.
+    kernels at zamba2-2.7b's width (d = 2560, same B, K, k), in float32 and
+    (keys ending "_bf16") in bfloat16, the bf16 fused kernel's also at the
+    full cover with k = 128, [the gather kernel's timing dict at the beam
+    shape, d = 500 and 2560]), after a table over B ∈ {1, 4, 8} and the
+    full-cover screen's K = 200.
     CUDA-event medians with L2 flushed (clean) before each call, each kernel
     in turns with its plain version and the library call."""
     from repro_torch.kernels import ops
@@ -980,7 +1170,42 @@ def phase_timing(torch, np):
     vz = torch.randn((R, ZD), generator=torch.Generator().manual_seed(13))
     wide = l2s_rows(torch, np, timer, Wb, bb, vz.cuda(), cand, 4, 1, 60)
     beam.append(beam_rows(torch, timer, Wb, bb, cand, 65))
+    # the same head in bfloat16, as zamba2-2.7b serves it (rows 1c, 2f, 3c)
+    Wb, bb = Wb.bfloat16(), bb.bfloat16()
+    wide.update(l2s_rows(torch, np, timer, Wb, bb, vz.cuda(), cand, 4, 1, 60))
+    wide["fused_screened_topk_bf16"]["full_cover_k128"] = fault1_row(
+        torch, timer, Wb, bb)
     return out, wide, beam
+
+
+def fault1_row(torch, timer, Wb, bb, B=4, k=128):
+    """Row 3d: the fused kernel at zamba2-2.7b's full cover (all 250 tiles
+    in every row) and k = 128, a shape its merge once refused, in turns
+    with its plain version and the unfused composition; the bound counts
+    each of the 250 tiles once."""
+    from repro_torch.kernels import fused_topk
+    from repro_torch.kernels.fused_topk import (fused_screened_topk,
+                                                fused_screened_topk_plain)
+    n_blk, _, d = Wb.shape
+    h = torch.randn((B, d), generator=torch.Generator().manual_seed(66))
+    h = h.cuda().to(Wb.dtype)
+    ids = torch.arange(n_blk, dtype=torch.int32,
+                       device="cuda").repeat(B, 1).contiguous()
+    t = timer.turns({"ms": lambda: fused_screened_topk(Wb, bb, h, ids, k),
+                     "plain_ms": lambda: fused_screened_topk_plain(
+                         Wb, bb, h, ids, k),
+                     "unfused_ms": lambda: unfused_topk(Wb, bb, h, ids, k)})
+    esz = Wb.element_size()
+    nbytes = (n_blk * V_BLK * (d + 1) * esz + esz * B * d + 4 * B * n_blk +
+              4 * (2 * B * k + B))
+    t.update(library_ms=None, bound=bound_ms(nbytes,
+                                             2 * B * n_blk * V_BLK * d))
+    t["parts"] = fused_topk.fused_parts(B, n_blk, timer.n_sm)
+    log(f"[timing] {Wb.dtype} d={d} B={B} K={n_blk} (full cover) k={k} "
+        f"fused_screened_topk: {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} "
+        f"ms, unfused {t['unfused_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms "
+        f"({t['bound'][1]}); P={t['parts']}")
+    return t
 
 
 def phase_e2e(torch, np):
@@ -1014,18 +1239,12 @@ def phase_e2e(torch, np):
         e.generate(prompts, 2, head="screened-cuda")
         e.generate(prompts, 2, head="exact")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, time.perf_counter() - t0
-
     new = 16
     ops.reset_launches()
-    exact, t_exact = timed(lambda: eng.generate(prompts, new, head="exact"))
-    scr, t_scr = timed(lambda: eng.generate(prompts, new,
-                                            head="screened-cuda"))
+    exact, t_exact = host_timed(torch, lambda: eng.generate(prompts, new,
+                                                            head="exact"))
+    scr, t_scr = host_timed(torch, lambda: eng.generate(
+        prompts, new, head="screened-cuda"))
     scr_u = eng.generate(prompts, new, head=unfused)
     samp = eng.generate(prompts, new, head="screened-cuda", temperature=1.0,
                         seed=1)
@@ -1227,162 +1446,423 @@ def phase_ssm_kernels(torch):
     return err, out
 
 
-def phase_e2e_hybrid(torch, np):
-    """Full-width zamba2-2.7b on DecodeEngine(device="cuda"). → launches."""
-    from repro_torch import heads
+def zamba2_model(torch, np, tag, dtype=None):
+    """Full-width zamba2-2.7b drawn on the card from a seeded CUDA
+    generator in ``dtype`` (None: its config's bfloat16; 2.3 B
+    parameters, their count and bytes logged under ``tag``), a random
+    screen (r = 100, K = 16 of 250 tiles), its full-cover twin and 4
+    prompts of 512 tokens. → dict (``rng`` goes on drawing inputs)."""
     from repro_torch.configs import get_config
     from repro_torch.core.screening import candidates_to_padded
+    from repro_torch.interop import screen_from_numpy
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("zamba2-2.7b")
+    check((cfg.d_model, cfg.vocab_size) == (ZD, ZV),
+          "config drifted from the smoke's shapes")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_bf16 = sum(t.numel() for t in leaves if t.dtype == torch.bfloat16)
+    log(f"{tag} zamba2-2.7b: {n_params} parameters drawn on the card in "
+        f"{t_init:.1f} s, {n_bf16} of them bfloat16: {nbytes / 1e9:.3f} GB; "
+        f"device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    rng = np.random.default_rng(1)
+    n_blk = -(-ZV // V_BLK)
+    v = rng.standard_normal((R, ZD)).astype(np.float32)
+    cand = make_screen_blocks(np, 8, n_blk)
+    full_idx, full_len = candidates_to_padded(np.ones((R, n_blk), bool), ZV,
+                                              block=V_BLK)
+    return dict(model=model, params=params, rng=rng, n_params=n_params,
+                n_bf16=n_bf16, nbytes=nbytes,
+                screen=screen_from_numpy(v, cand, (cand < n_blk).sum(1), ZV,
+                                         V_BLK),
+                full=screen_from_numpy(v, full_idx, full_len, ZV, V_BLK),
+                prompts=rng.integers(0, ZV, (ZB, ZT)))
+
+
+def prefill_s(torch, model, params, prompts, max_len, dtype):
+    """Host-clock seconds of one prefill of ``prompts`` into a fresh cache
+    of ``max_len`` slots in ``dtype``."""
+    with torch.inference_mode():
+        cache = model.init_cache(len(prompts), max_len, dtype=dtype,
+                                 device="cuda")
+        tokens = torch.as_tensor(prompts, device="cuda")
+        _, t = host_timed(torch, lambda: model.prefill(
+            params, {"tokens": tokens}, cache))
+    return t
+
+
+def prefill_decode_selfcheck(torch, z, dtype, tol, n=4):
+    """The hidden states of a prefill over 512 tokens and ``n`` decode
+    steps (a cache in ``dtype``) against one prefill over 512 + n: the max
+    relative error, which must be at most ``tol``. → it."""
+    model, params = z["model"], z["params"]
+    seq = torch.as_tensor(z["rng"].integers(0, ZV, (ZB, ZT + n)),
+                          device="cuda")
+    with torch.inference_mode():
+        cache = model.init_cache(ZB, ZMAX, dtype=dtype, device="cuda")
+        _, cache = model.prefill(params, {"tokens": seq[:, :ZT]}, cache)
+        steps = []
+        for i in range(n):
+            h1, cache = model.decode_step(params, seq[:, ZT + i], cache,
+                                          ZT + i)
+            steps.append(h1)
+        one, _ = model.forward(params, {"tokens": seq})
+        want = one[:, ZT:].float()
+        rel = float((torch.stack(steps, 1).float() - want).abs().max() /
+                    want.abs().max())
+    check(rel <= tol, f"prefill + decode != prefill ({dtype}): relative "
+          f"error {rel:.3g} > {tol}")
+    return rel
+
+
+def phase_hybrid_f32(torch, np):
+    """[hybrid f32] zamba2-2.7b drawn in float32 for the phases that keep
+    it ([graph], [stream], [spec], adaptive, whose checks hold at the
+    float32 gap rule): a prefill/decode self-check (max relative error
+    <= 1e-3), and on the host clock the prefill of 4 x 512 and the decode
+    step (median of 8 graph replays, screened-cuda) that [hybrid] prints
+    beside bf16's. → the model dict, with those under "f32"."""
+    from repro_torch.serving import DecodeEngine
+
+    z = zamba2_model(torch, np, "[hybrid f32]", torch.float32)
+    eng = DecodeEngine(z["model"], z["params"], screen=z["screen"],
+                       max_len=ZMAX, device="cuda")
+    eng.generate(z["prompts"][:, :16], 2, head="screened-cuda")  # warm-up
+    rel = prefill_decode_selfcheck(torch, z, torch.float32, 1e-3)
+    t_prefill = prefill_s(torch, z["model"], z["params"], z["prompts"], ZMAX,
+                          torch.float32)
+    step_ms = median_step_ms(torch, eng, "screened-cuda", z["prompts"], 8,
+                             eager=False)
+    log(f"[hybrid f32] self-check: prefill {ZT} + 4 decode steps vs prefill "
+        f"{ZT + 4}: max relative error of the hidden states {rel:.3g} "
+        f"(<= 1e-3); host clock, information only: prefill {ZB}x{ZT} "
+        f"{t_prefill:.3f} s, decode step {step_ms:.3f} ms (median of 8 graph "
+        f"replays, screened-cuda)")
+    z["f32"] = dict(prefill_s=t_prefill, step_ms=step_ms)
+    return z
+
+
+def teacher_states(torch, model, params, prompts, tokens, max_len):
+    """The hidden state before each greedy step that produced ``tokens``
+    (B, n): a prefill of ``prompts`` and eager decode steps fed the tokens,
+    through a bfloat16 cache of ``max_len`` slots, the shapes the engine
+    ran (the graph replays run the same kernels). → (B, n, d)."""
+    T = prompts.shape[1]
+    with torch.inference_mode():
+        cache = model.init_cache(len(prompts), max_len, device="cuda")
+        h, cache = model.prefill(params, {"tokens": torch.as_tensor(
+            prompts, device="cuda")}, cache)
+        hs = [h[:, -1]]
+        for i in range(tokens.shape[1] - 1):
+            h1, cache = model.decode_step(params, torch.as_tensor(
+                tokens[:, i], device="cuda"), cache, T + i)
+            hs.append(h1)
+    return torch.stack(hs, 1)
+
+
+def bf16_gap_rule(torch, np, tag, model, params, prompts, got, want,
+                  max_len, gap_fn):
+    """Each row of ``got`` equals ``want``'s, or first differs after a step
+    whose deciding top-2 gap (``gap_fn`` of the hidden state the step saw,
+    on ``want``'s path) is below GAP_BF16. → [(row, step, gap)] of the
+    rows that differ; fails otherwise."""
+    rows = [i for i in range(len(want))
+            if not np.array_equal(got[i], want[i])]
+    if not rows:
+        return []
+    H = teacher_states(torch, model, params, prompts, want, max_len)
+    out = []
+    for i in rows:
+        t = int(np.nonzero(got[i] != want[i])[0][0])
+        gap = float(gap_fn(H[i, t][None])[0])
+        check(gap < GAP_BF16, f"{tag}: row {i} differs at step {t} with a "
+              f"top-2 gap {gap:.4g} >= {GAP_BF16}")
+        out.append((i, t, round(gap, 5)))
+    return out
+
+
+def screened_gap_fn(torch, eng):
+    """The deciding top-2 gap of the plain screened head at hidden states
+    h: the smaller of its candidates' (bf16 logits) and the route's."""
+    from repro_torch.core.screening import screened_topk
+
+    def gap(h):
+        _, vals = screened_topk(eng.W, eng.b, eng.screen, h, 2)
+        vals = vals.float()
+        sc = (h.float() @ eng.screen.v.T).topk(2, dim=-1).values
+        return torch.minimum(vals[:, 0] - vals[:, 1],
+                             sc[:, 0] - sc[:, 1]).cpu().numpy()
+    return gap
+
+
+def phase_e2e_hybrid(torch, np, f32):
+    """[hybrid] full-width zamba2-2.7b in its config's bfloat16 (2.3 B
+    parameters drawn on the card, their bytes logged) on DecodeEngine(
+    device="cuda", cache_dtype=bfloat16), so the route, gather and fused
+    kernels run their bf16 bodies: greedy 4 prompts x 512 + 32 through
+    exact, the plain `screened` head and screened-cuda (fused and
+    unfused): fused == unfused tokens, screened-cuda == plain screened
+    under the bf16 gap rule (GAP_BF16, on the plain head's bf16 candidate
+    logits and the cluster scores along its own path); beam 4; a
+    full-cover screen whose screened-cuda tokens equal exact's under the
+    same rule (on the exact head's bf16 logits); and one prompt of 4,096
+    tokens (the chunked attention path, 16 SSD chunks a layer; max_len
+    4,160, 32 new) held to the plain `screened` head the same way.
+    Counters from zero over those runs: ssd_intra 54 a prefill, the cache
+    pair 9 a decode step, the bf16 L2S kernels launched and the float32
+    ones not. Then a self-check (prefill 512 + 4 decode steps against one
+    prefill of 516, max relative error <= 0.1: bf16 keeps 8 bits and 54
+    layers round the residual stream), a profile (device calls == counted
+    launches), and, on the host clock as information, the bf16 decode
+    step (median of 8 graph replays) and prefill tokens/s beside
+    float32's (``f32``), and the CUDA-event time of the float32 copies
+    `_sdpa` makes of the 9 shared K/V caches a step. → launches of the
+    path."""
+    from repro_torch import heads
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeEngine
+
+    z = zamba2_model(torch, np, "[hybrid]")
+    model, params, prompts = z["model"], z["params"], z["prompts"]
+    cfg = model.cfg
+    check(cfg.dtype == "bfloat16" and
+          params["embed"]["embedding"].dtype == torch.bfloat16 and
+          z["n_bf16"] / z["n_params"] > 0.999,
+          "zamba2-2.7b: weights not in its config's bfloat16")
+    log(f"[hybrid] bfloat16 weights {z['nbytes'] / 1e9:.3f} GB (A_log, D and "
+        f"dt_bias float32; in float32 {4 * z['n_params'] / 1e9:.3f} GB)")
+    long_prompt = z["rng"].integers(0, ZV, (1, ZLONG))
+    kw = dict(cache_dtype=torch.bfloat16, device="cuda")
+    eng = DecodeEngine(model, params, screen=z["screen"], max_len=ZMAX, **kw)
+    eng_full = DecodeEngine(model, params, screen=z["full"], max_len=ZMAX,
+                            **kw)
+    eng_long = DecodeEngine(model, params, screen=z["screen"],
+                            max_len=ZLONG_MAX, **kw)
+    unfused = heads.get("screened-cuda", W=eng.W, b=eng.b, screen=eng.screen,
+                        fused=False)
+    packed = eng.resolve_head("screened-cuda")
+    check(packed.prepare()._Wb.dtype == torch.bfloat16,
+          "the packed head is not bfloat16")
+    log(f"[hybrid] packed head {packed.packed_shape} bf16: "
+        f"{packed.packed_nbytes / 1e6:.1f} MB")
+    for e, p in ((eng, prompts), (eng_full, prompts),
+                 (eng_long, long_prompt)):         # warm-up: loads, graphs
+        e.generate(p[:, :16], 2, head="screened-cuda")
+        e.generate(p[:, :16], 2, head="exact")
+    t_prefill = prefill_s(torch, model, params, prompts, ZMAX, torch.bfloat16)
+    t_prefill_long = prefill_s(torch, model, params, long_prompt, ZLONG_MAX,
+                               torch.bfloat16)
+
+    ops.reset_launches()
+    exact, t_exact = host_timed(torch, lambda: eng.generate(prompts, ZNEW,
+                                                            head="exact"))
+    scr, t_scr = host_timed(torch, lambda: eng.generate(
+        prompts, ZNEW, head="screened-cuda"))
+    scr_u = eng.generate(prompts, ZNEW, head=unfused)
+    beam, t_beam = host_timed(torch, lambda: eng.beam_search(
+        prompts[0], 4, ZNEW, head="screened-cuda"))
+    f_exact = eng_full.generate(prompts, ZNEW, head="exact")
+    f_scr = eng_full.generate(prompts, ZNEW, head="screened-cuda")
+    lg, t_long = host_timed(torch, lambda: eng_long.generate(
+        long_prompt, ZNEW, head="screened-cuda"))
+    launches = dict(ops.LAUNCHES)
+    prefills = 7
+
+    for name, r in (("exact", exact), ("screened-cuda", scr),
+                    ("unfused", scr_u), ("long", lg)):
+        check(r.tokens.shape[1] == ZNEW and r.tokens.min() >= 0 and
+              r.tokens.max() < ZV, f"hybrid {name}: tokens out of range")
+    check(np.array_equal(scr.tokens, scr_u.tokens),
+          "hybrid: screened-cuda fused and unfused greedy tokens differ")
+    check(beam.tokens.shape == (1, ZNEW) and np.isfinite(beam.scores).all(),
+          "hybrid beam search: bad result")
+    n_attn = cfg.num_layers // cfg.hybrid_shared_period
+    check(launches["ssd_intra"] == cfg.num_layers * prefills and
+          launches["cache_slot_update"] == n_attn * prefills * (ZNEW - 1),
+          f"hybrid: launches {launches}, expected {cfg.num_layers} SSD a "
+          f"prefill ({prefills}) and {n_attn} cache a decode step")
+    check(all(launches[k] > 0 for k in BF16_KERNELS) and
+          not any(launches[k] for k in L2S_KERNELS),
+          f"hybrid: the L2S kernels' bf16 bodies did not carry the path: "
+          f"{launches}")
+
+    def exact_gap(h):
+        top = (h @ eng.W.T + eng.b).float().topk(2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+    screened_gap = screened_gap_fn(torch, eng)
+    plain = eng.generate(prompts, ZNEW, head="screened")
+    near_plain = bf16_gap_rule(torch, np, "[hybrid] greedy against plain",
+                               model, params, prompts, scr.tokens,
+                               plain.tokens, ZMAX, screened_gap)
+    near_full = bf16_gap_rule(torch, np, "[hybrid] full cover", model,
+                              params, prompts, f_scr.tokens, f_exact.tokens,
+                              ZMAX, exact_gap)
+    plain_long = eng_long.generate(long_prompt, ZNEW, head="screened")
+    near_long = bf16_gap_rule(torch, np, "[hybrid] 4,096-token prompt",
+                              model, params, long_prompt, lg.tokens,
+                              plain_long.tokens, ZLONG_MAX, screened_gap)
+    rel = prefill_decode_selfcheck(torch, z, torch.bfloat16, 0.1)
+
+    kern = profile_counted(torch, "[hybrid] greedy screened-cuda",
+                           lambda: eng.generate(prompts, ZNEW,
+                                                head="screened-cuda"))
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    step_ms = median_step_ms(torch, eng, "screened-cuda", prompts, 8,
+                             eager=False)
+    long_step_ms = median_step_ms(torch, eng_long, "screened-cuda",
+                                  long_prompt, 8, eager=False)
+
+    # the float32 copies _sdpa makes of the shared K/V caches each step
+    caches = [torch.zeros((ZB, ZMAX, cfg.num_kv_heads, cfg.head_dim),
+                          dtype=torch.bfloat16, device="cuda")
+              for _ in range(2)]
+    a, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(20):
+        for _ in range(n_attn):
+            for c in caches:
+                c.float()
+    e_.record()
+    e_.synchronize()
+    upcast_ms = a.elapsed_time(e_) / 20
+    del caches
+    tok = ZB * ZNEW
+    log(f"[hybrid] profile, greedy {ZB}x{ZT}+{ZNEW} screened-cuda: device "
+        f"busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall "
+        f"(idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
+        f"{sum(e.count for e in kern)} device kernels; "
+        f"{fused_share(kern, busy_ms, 'fused_screened_topk_bf16')}; top "
+        f"kernels: " +
+        "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
+                  f" x{e.count}" for e in top))
+    log(f"[hybrid] zamba2-2.7b d={ZD} V={ZV} bf16 on DecodeEngine("
+        f"device='cuda', max_len={ZMAX}, cache_dtype=bfloat16): greedy "
+        f"{ZB}x{ZT}+{ZNEW} exact {t_exact:.3f} s ({tok / t_exact:.1f} tok/s), "
+        f"screened-cuda {t_scr:.3f} s ({tok / t_scr:.1f} tok/s), beam(4) "
+        f"{t_beam:.3f} s; fused == unfused tokens; screened-cuda == the "
+        f"plain screened head's except rows first differing after a step "
+        f"with a gap < {GAP_BF16}: {near_plain}; beam score "
+        f"{float(beam.scores[0]):.4f}")
+    log(f"[hybrid] host clock, information only: decode step (median of 8 "
+        f"graph replays, B={ZB}, screened-cuda) {step_ms:.3f} ms in bf16 "
+        f"against {f32['step_ms']:.3f} ms in float32; prefill {ZB}x{ZT} "
+        f"{t_prefill:.3f} s ({ZB * ZT / t_prefill:.0f} tok/s) against "
+        f"{f32['prefill_s']:.3f} s ({ZB * ZT / f32['prefill_s']:.0f} tok/s); "
+        f"float32 copies of the {n_attn} shared K/V cache pairs (the upcast "
+        f"in _sdpa) {upcast_ms:.4f} ms a step (CUDA events), "
+        f"{upcast_ms / step_ms:.1%} of the bf16 step")
+    log(f"[hybrid] one prompt of {ZLONG} tokens (chunked attention, "
+        f"{ZLONG // cfg.ssm.chunk} SSD chunks a layer), max_len {ZLONG_MAX}, "
+        f"{ZNEW} new through screened-cuda: prefill alone {t_prefill_long:.3f} "
+        f"s ({ZLONG / t_prefill_long:.0f} tok/s), generate {t_long:.3f} s, "
+        f"decode step {long_step_ms:.3f} ms (median of 8); tokens == the "
+        f"plain screened head's except rows first differing after a step "
+        f"with a gap < {GAP_BF16}: {near_long}")
+    log(f"[hybrid] full-cover screen (K={z['full'].c_max}): screened-cuda == "
+        f"exact under the bf16 gap rule (< {GAP_BF16}); rows that differ "
+        f"(row, step, gap): {near_full}")
+    log(f"[hybrid] self-check: prefill {ZT} + 4 decode steps vs prefill "
+        f"{ZT + 4}: max relative error of the hidden states {rel:.3g} "
+        f"(<= 0.1)")
+    log(f"[hybrid] launches on the hybrid path ({prefills} prefills): "
+        f"{json.dumps(launches)}")
+    return launches
+
+
+def phase_ssm_bf16(torch, np):
+    """[ssm bf16] full-width mamba2-1.3b (48 Mamba2 layers, d = 2048,
+    V = 50,280: 393 tiles) in its config's bfloat16, drawn on the card, on
+    DecodeEngine(device="cuda"): greedy 4 prompts x 512 + 32 through exact
+    and screened-cuda fused and unfused (r = 100, K = 16; fused == unfused
+    tokens), and the plain `screened` head, which screened-cuda's tokens
+    equal under the bf16 gap rule (GAP_BF16). Counters from zero over the
+    port's runs: ssd_intra 48 a prefill (mamba2's chunk shape), no cache
+    launch (attention-free), the bf16 L2S bodies launched and the float32
+    ones not. The bf16 decode step (median of 8 graph replays) and the
+    prefill on the host clock, as information. → launches of the path."""
+    from repro_torch import heads
+    from repro_torch.configs import get_config
     from repro_torch.interop import screen_from_numpy
     from repro_torch.kernels import ops
     from repro_torch.models import Model
     from repro_torch.serving import DecodeEngine
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("zamba2-2.7b")
+    cfg = get_config("mamba2-1.3b")
     d, vocab = cfg.d_model, cfg.vocab_size
-    check((d, vocab) == (ZD, ZV), "config drifted from the smoke's shapes")
+    check((d, vocab) == (MD, MV), "config drifted from the smoke's shapes")
     model = Model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+    params = model.init(torch.Generator(device="cuda").manual_seed(2),
                         device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[hybrid] zamba2-2.7b: {n_params} float32 parameters drawn on the "
-        f"card in {time.perf_counter() - t0:.1f} s; device memory allocated "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
-    rng = np.random.default_rng(1)
+    leaves = tree_leaves(params)
+    check(params["embed"]["embedding"].dtype == torch.bfloat16,
+          "mamba2-1.3b: weights not in bfloat16")
+    rng = np.random.default_rng(3)
     n_blk = -(-vocab // V_BLK)
     v = rng.standard_normal((R, d)).astype(np.float32)
-    cand = make_screen_blocks(np, 8, n_blk)
+    cand = make_screen_blocks(np, 9, n_blk)
     screen = screen_from_numpy(v, cand, (cand < n_blk).sum(1), vocab, V_BLK)
-    full_idx, full_len = candidates_to_padded(np.ones((R, n_blk), bool), vocab,
-                                              block=V_BLK)
-    full = screen_from_numpy(v, full_idx, full_len, vocab, V_BLK)
     prompts = rng.integers(0, vocab, (ZB, ZT))
     eng = DecodeEngine(model, params, screen=screen, max_len=ZMAX,
-                       device="cuda")
-    eng_full = DecodeEngine(model, params, screen=full, max_len=ZMAX,
-                            device="cuda")
+                       cache_dtype=torch.bfloat16, device="cuda")
     unfused = heads.get("screened-cuda", W=eng.W, b=eng.b, screen=eng.screen,
                         fused=False)
-    for e in (eng, eng_full):                      # warm-up: loads, caches
-        e.generate(prompts[:, :16], 2, head="screened-cuda")
-        e.generate(prompts[:, :16], 2, head="exact")
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, time.perf_counter() - t
-
-    with torch.inference_mode():                   # prefill alone, host clock
-        cache = model.init_cache(ZB, ZMAX, device="cuda")
-        tokens = torch.as_tensor(prompts, device="cuda")
-        _, t_prefill = timed(lambda: model.prefill(eng.params,
-                                                   {"tokens": tokens}, cache))
-    del cache
-
+    for head in ("screened-cuda", "exact", unfused):   # warm-up: graphs
+        eng.generate(prompts[:, :16], 2, head=head)
+    t_prefill = prefill_s(torch, model, params, prompts, ZMAX, torch.bfloat16)
     ops.reset_launches()
-    exact, t_exact = timed(lambda: eng.generate(prompts, ZNEW, head="exact"))
-    scr, t_scr = timed(lambda: eng.generate(prompts, ZNEW,
-                                            head="screened-cuda"))
+    exact, t_exact = host_timed(torch, lambda: eng.generate(prompts, ZNEW,
+                                                            head="exact"))
+    scr, t_scr = host_timed(torch, lambda: eng.generate(
+        prompts, ZNEW, head="screened-cuda"))
     scr_u = eng.generate(prompts, ZNEW, head=unfused)
-    beam, t_beam = timed(lambda: eng.beam_search(prompts[0], 4, ZNEW,
-                                                 head="screened-cuda"))
-    f_exact = eng_full.generate(prompts, ZNEW, head="exact")
-    f_scr = eng_full.generate(prompts, ZNEW, head="screened-cuda")
+    torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    prefills = 6
-
     for name, r in (("exact", exact), ("screened-cuda", scr),
                     ("unfused", scr_u)):
         check(r.tokens.shape == (ZB, ZNEW) and r.tokens.min() >= 0 and
-              r.tokens.max() < vocab, f"hybrid {name}: tokens out of range")
+              r.tokens.max() < vocab, f"ssm bf16 {name}: tokens out of range")
     check(np.array_equal(scr.tokens, scr_u.tokens),
-          "hybrid: screened-cuda fused and unfused greedy tokens differ")
-    check(beam.tokens.shape == (1, ZNEW) and np.isfinite(beam.scores).all()
-          and beam.tokens.max() < vocab, "hybrid beam search: bad result")
-    check(launches["ssd_intra"] == cfg.num_layers * prefills,
-          f"ssd_intra launched {launches['ssd_intra']} times, expected "
-          f"{cfg.num_layers} x {prefills} prefills")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel never launched on the hybrid path: {launches}")
-    # K and V in one launch, once per shared-attention application per
-    # decode step (ZNEW - 1 steps after each prefill)
-    n_attn = cfg.num_layers // cfg.hybrid_shared_period
-    check(launches["cache_slot_update"] == n_attn * prefills * (ZNEW - 1),
-          f"cache_slot_update launched {launches['cache_slot_update']} times, "
-          f"expected {n_attn} x {prefills * (ZNEW - 1)} decode steps")
-
-    # full cover: screened == exact up to the first near-tie step per row
-    seq = torch.as_tensor(np.concatenate([prompts, f_exact.tokens[:, :-1]], 1),
-                          device="cuda")
-    with torch.inference_mode():
-        h, _ = model.forward(eng.params, {"tokens": seq})
-        logits = model.logits(eng.params, h[:, ZT - 1:])
-    top2 = logits.topk(2, dim=-1).values
-    gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-    near = []
-    for i in range(ZB):
-        bad = np.nonzero(f_scr.tokens[i] != f_exact.tokens[i])[0]
-        if bad.size:
-            t = int(bad[0])
-            check(gaps[i, t] < GAP,
-                  f"hybrid full cover: row {i} differs at step {t} with exact "
-                  f"top-2 gap {gaps[i, t]:.3g} >= {GAP}")
-            near.append((i, t, float(gaps[i, t])))
-    del h, logits
-
-    # self-check: prefill over T tokens + n decode steps == prefill over T + n
-    n = 4
-    seq = torch.as_tensor(rng.integers(0, vocab, (ZB, ZT + n)), device="cuda")
-    with torch.inference_mode():
-        cache = model.init_cache(ZB, ZMAX, device="cuda")
-        _, cache = model.prefill(eng.params, {"tokens": seq[:, :ZT]}, cache)
-        steps = []
-        for i in range(n):
-            h1, cache = model.decode_step(eng.params, seq[:, ZT + i], cache,
-                                          ZT + i)
-            steps.append(h1)
-        one, _ = model.forward(eng.params, {"tokens": seq})
-        want = one[:, ZT:]
-        rel = float((torch.stack(steps, 1) - want).abs().max() /
-                    want.abs().max())
-    del cache, one
-    check(rel <= 1e-3, f"prefill + decode != prefill: relative error {rel:.3g}")
-
-    kern = profile_counted(torch, "[hybrid] greedy screened-cuda", lambda:
-                           eng.generate(prompts, ZNEW, head="screened-cuda"))
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[hybrid] profile, greedy {ZB}x{ZT}+{ZNEW} screened-cuda: device "
-        f"busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled wall "
-        f"(idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
-        f"{sum(e.count for e in kern)} device kernels; "
-        f"{fused_share(kern, busy_ms)}; top kernels: " +
-        "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
-                  f" x{e.count}" for e in top))
+          "ssm bf16: screened-cuda fused and unfused greedy tokens differ")
+    near = bf16_gap_rule(torch, np, "[ssm bf16] greedy against plain", model,
+                         params, prompts, scr.tokens,
+                         eng.generate(prompts, ZNEW, head="screened").tokens,
+                         ZMAX, screened_gap_fn(torch, eng))
+    check(launches["ssd_intra"] == cfg.num_layers * 3 and
+          launches["cache_slot_update"] == 0 and
+          all(launches[k] > 0 for k in BF16_KERNELS) and
+          not any(launches[k] for k in L2S_KERNELS),
+          f"ssm bf16: launches {launches}, expected {cfg.num_layers} SSD a "
+          f"prefill, no cache launch and only the bf16 L2S bodies")
+    step_ms = median_step_ms(torch, eng, "screened-cuda", prompts, 8,
+                             eager=False)
     tok = ZB * ZNEW
-    log(f"[hybrid] zamba2-2.7b d={d} V={vocab} on DecodeEngine(device='cuda', "
-        f"max_len={ZMAX}): greedy {ZB}x{ZT}+{ZNEW} exact {t_exact:.3f} s "
-        f"({tok / t_exact:.1f} tok/s), screened-cuda {t_scr:.3f} s "
-        f"({tok / t_scr:.1f} tok/s), beam(4) {t_beam:.3f} s; prefill alone "
-        f"{t_prefill:.3f} s, so a screened-cuda decode step takes about "
-        f"{(t_scr - t_prefill) / (ZNEW - 1) * 1e3:.1f} ms (host clock, "
-        f"information only); fused == unfused tokens; beam score "
-        f"{float(beam.scores[0]):.4f}")
-    log(f"[hybrid] full-cover screen (K={full.c_max}): screened-cuda == exact "
-        f"greedy tokens; rows that diverge after a near-tie step (row, step, "
-        f"gap): {near}; steps with exact gap < {GAP}: "
-        f"{int((gaps < GAP).sum())} of {gaps.size}")
-    log(f"[hybrid] self-check: prefill {ZT} + {n} decode steps vs prefill "
-        f"{ZT + n}: max relative error of the hidden states {rel:.3g} "
-        f"(<= 1e-3)")
-    log(f"[hybrid] launches on the hybrid path ({prefills} prefills): "
-        f"{json.dumps(launches)}")
-    return launches, dict(model=model, params=eng.params, screen=screen,
-                          prompts=prompts)
+    log(f"[ssm bf16] mamba2-1.3b: {sum(t.numel() for t in leaves)} "
+        f"parameters, {sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} "
+        f"GB in bfloat16, on DecodeEngine(device='cuda'): greedy "
+        f"{ZB}x{ZT}+{ZNEW} exact {t_exact:.3f} s ({tok / t_exact:.1f} tok/s), "
+        f"screened-cuda {t_scr:.3f} s ({tok / t_scr:.1f} tok/s); fused == "
+        f"unfused tokens, == the plain screened head's except rows first "
+        f"differing after a step with a gap < {GAP_BF16}: {near}; prefill "
+        f"{ZB}x{ZT} {t_prefill:.3f} s ({ZB * ZT / t_prefill:.0f} tok/s), "
+        f"decode step {step_ms:.3f} ms "
+        f"(median of 8 graph replays; host clock, information only); "
+        f"launches: {json.dumps(launches)}")
+    return launches
 
 
 UNFUSED = "screened-cuda-unfused"
@@ -3209,66 +3689,68 @@ def main() -> int:
 
     resolve_device("cuda")                     # TF32 off for float32 matmuls
     kind, _ = phase_device(torch)
-    phase_build(ops)
-    err = phase_parity(torch, np, K)
-    err["fused_screened_topk"] = max(err["fused_screened_topk"],
-                                     phase_fused_split(torch, np))
-    err["screened_logits"] = max(err["screened_logits"],
-                                 phase_screen_grid(torch, np))
-    times, wide, beam = phase_timing(torch, np)
+    walled("build", phase_build, ops)
+    err = walled("parity", phase_parity, torch, np, K)
+    err["fused_screened_topk"] = max(err["fused_screened_topk"], walled(
+        "fused split", phase_fused_split, torch, np))
+    err["screened_logits"] = max(err["screened_logits"], walled(
+        "screen grid", phase_screen_grid, torch, np))
+    err.update(walled("parity bf16", phase_parity_bf16, torch, np))
+    times, wide, beam = walled("timing", phase_timing, torch, np)
+    times.update({name: wide[name] for name in BF16_KERNELS})
     register_unfused()
-    lstm, ctx = phase_e2e(torch, np)
-    graph_lstm = phase_graph(
-        torch, np, "nmt-deen-lstm",
+    lstm, ctx = walled("e2e", phase_e2e, torch, np)
+    graph_lstm = walled(
+        "graph lstm", phase_graph, torch, np, "nmt-deen-lstm",
         DecodeEngine(ctx["model"], ctx["params"], screen=ctx["screen"],
-                     device="cuda"), ctx["prompts"], 16, 5, sampled=True)
-    serve = phase_serve(torch, np, ctx)
+                     device="cuda"), ctx["prompts"], 16, 5, True)
+    serve = walled("serve", phase_serve, torch, np, ctx)
     del ctx
-    l2s_fit, ctx = phase_train_l2s(torch, np)
-    heads_lstm, steps_lstm = phase_heads(torch, np, ctx)
-    t0 = time.perf_counter()
-    eng, stream_lstm = phase_stream_lstm(torch, np, ctx)
-    sched = phase_sched(torch, np, eng, ctx)
+    l2s_fit, ctx = walled("train and l2s", phase_train_l2s, torch, np)
+    heads_lstm, steps_lstm = walled("heads", phase_heads, torch, np, ctx)
+    eng, stream_lstm = walled("stream lstm", phase_stream_lstm, torch, np,
+                              ctx)
+    sched = walled("sched", phase_sched, torch, np, eng, ctx)
     del eng
-    t1 = time.perf_counter()
-    spec_lstm, dist_err = phase_spec_lstm(torch, np, ctx)
+    spec_lstm, dist_err = walled("spec lstm", phase_spec_lstm, torch, np,
+                                 ctx)
     err["screened_logits"] = max(err["screened_logits"], dist_err)
-    pool_lstm = phase_pool_lstm(torch, np, ctx)
-    log(f"[spec] the LSTM [spec] and [pool] phases took "
-        f"{time.perf_counter() - t1:.1f} s")
+    pool_lstm = walled("pool", phase_pool_lstm, torch, np, ctx)
     del ctx
-    phase_serve_cli(torch)
-    log(f"[sched] the LSTM stream, scheduler, spec, pool and launcher "
-        f"phases took {time.perf_counter() - t0:.1f} s")
-    ssm_err, ssm_times = phase_ssm_kernels(torch)
+    walled("serve-cli", phase_serve_cli, torch)
+    ssm_err, ssm_times = walled("ssm kernels", phase_ssm_kernels, torch)
     err.update(ssm_err)
     times.update(ssm_times)
-    hybrid, ctx = phase_e2e_hybrid(torch, np)
-    graph_hybrid = phase_graph(
-        torch, np, "zamba2-2.7b",
+    ctx = walled("hybrid f32", phase_hybrid_f32, torch, np)
+    graph_hybrid = walled(
+        "graph zamba2", phase_graph, torch, np, "zamba2-2.7b",
         DecodeEngine(ctx["model"], ctx["params"], screen=ctx["screen"],
-                     max_len=ZMAX, device="cuda"), ctx["prompts"], ZNEW, 4,
-        sampled=False)
+                     max_len=ZMAX, device="cuda"), ctx["prompts"],
+        ZGRAPH_NEW, 4, False)
     zcfg = ctx["model"].cfg
     n_attn = zcfg.num_layers // zcfg.hybrid_shared_period
-    check(graph_hybrid["cache_slot_update"] == n_attn * 6 * (ZNEW - 1) and
+    check(graph_hybrid["cache_slot_update"] ==
+          n_attn * 6 * (ZGRAPH_NEW - 1) and
           graph_hybrid["ssd_intra"] == zcfg.num_layers * 6,
           f"[graph] zamba2-2.7b: launches {graph_hybrid}, expected "
           f"{n_attn} cache and {zcfg.num_layers} SSD launches per decode "
           f"step and per prefill")
-    t0 = time.perf_counter()
-    stream_hybrid = phase_stream_hybrid(torch, np, ctx)
-    log(f"[stream] the zamba2-2.7b stream phase took "
-        f"{time.perf_counter() - t0:.1f} s")
-    spec_hybrid = phase_spec_hybrid(torch, np, ctx)
-    adaptive_z, steps_z = phase_adaptive_hybrid(torch, np, ctx)
+    hybrid = walled("hybrid", phase_e2e_hybrid, torch, np, ctx["f32"])
+    ssm_bf16 = walled("ssm bf16", phase_ssm_bf16, torch, np)
+    stream_hybrid = walled("stream zamba2", phase_stream_hybrid, torch, np,
+                           ctx)
+    spec_hybrid = walled("spec zamba2", phase_spec_hybrid, torch, np, ctx)
+    adaptive_z, steps_z = walled("adaptive zamba2", phase_adaptive_hybrid,
+                                 torch, np, ctx)
     del ctx
-    costs = launch_costs(torch, np)
+    costs = walled("launch costs", launch_costs, torch, np)
     # each kernel's launches on the path it was ported for, and on each path
-    launches = {k: (hybrid if k in ssm_err else lstm)[k] for k in lstm}
+    launches = {k: (hybrid if k in BF16_KERNELS or k in ssm_err else
+                    lstm)[k] for k in lstm}
     paths = {"nmt-deen-lstm": lstm, "nmt-deen-lstm graph": graph_lstm,
              "serve": serve, "nmt-deen-lstm l2s-fit": l2s_fit,
              "zamba2-2.7b": hybrid,
+             "mamba2-1.3b bf16": ssm_bf16,
              "zamba2-2.7b graph": graph_hybrid,
              "nmt-deen-lstm stream": stream_lstm,
              "nmt-deen-lstm scheduler": sched,
@@ -3289,6 +3771,8 @@ def main() -> int:
                               "src/repro/kernels/ssd.py:70"),
                 "cache_slot_update": ("src/repro_torch/csrc/cache_update.cu",
                                       "src/repro/kernels/cache_update.py:69")}
+    for name in L2S_KERNELS:                  # their bfloat16 bodies
+        replaces[name + "_bf16"] = replaces[name]
     kernels = []
     for name, (source, rep) in replaces.items():
         t = times[name]
@@ -3298,13 +3782,20 @@ def main() -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                         "bound_by": t["bound"][1],
                         "library_ms": t["library_ms"],
-                        "launches_by_path": {p: n[name]
+                        "launches_by_path": {p: n.get(name, 0)
                                              for p, n in paths.items()},
                         "launch_cost_ms": costs.get(name)})
         for key in ("unfused_ms", "single_ms", "two_single_ms"):
             if key in t:
                 kernels[-1][key] = t[key]
-        if name in wide:
+        if name == "fused_screened_topk_bf16":
+            f = t["full_cover_k128"]
+            kernels[-1]["full_cover_k128"] = {
+                "B": 4, "K": 250, "k": 128, "d": ZD, "ms": f["ms"],
+                "plain_ms": f["plain_ms"], "unfused_ms": f["unfused_ms"],
+                "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
+                "library_ms": None, "parts": f["parts"]}
+        if name in wide and name not in BF16_KERNELS:
             w = wide[name]
             kernels[-1]["at_zamba2_width"] = {
                 "d": ZD, "ms": w["ms"], "plain_ms": w["plain_ms"],
@@ -3325,7 +3816,7 @@ def main() -> int:
                  "bound_by": t_["bound"][1], "fused_ms": t_["fused_ms"]}
                 for d_, t_ in zip((D, ZD), beam)]
     log(f"[done] chip_smoke.py took {time.perf_counter() - T_START:.1f} s, "
-        f"the kernels' build included")
+        f"the kernels' build included; phase walls (s): {json.dumps(WALLS)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -51,6 +51,8 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): one shared attention block applied every k mamba layers
     hybrid_shared_period: int = 6
+    # encoder-only (no causal mask, no decode); False for every ported config
+    is_encoder: bool = False
     source: str = ""
     dtype: str = "bfloat16"
 

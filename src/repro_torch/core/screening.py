@@ -66,8 +66,11 @@ def candidates_to_padded(mask: np.ndarray, vocab_size: int, block: int = 1,
 
 
 def assign_clusters(v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """z(h) = argmax_t v_t·h. h: (..., d) → (...,) int32. Paper Eq.(2)."""
-    return torch.argmax(h @ v.T, dim=-1).to(torch.int32)
+    """z(h) = argmax_t v_t·h. h: (..., d) → (...,) int32. Paper Eq.(2).
+    h and v are promoted to a common dtype first (a bf16 h against a
+    float32 v is scored in float32), as the reference's einsum promotes."""
+    dt = torch.promote_types(h.dtype, v.dtype)
+    return torch.argmax(h.to(dt) @ v.to(dt).T, dim=-1).to(torch.int32)
 
 
 def screened_logits(W: torch.Tensor, b: torch.Tensor, screen: ScreenParams,

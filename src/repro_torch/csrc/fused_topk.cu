@@ -40,35 +40,44 @@
 //     global max, then lane-strided sums of s * exp(m - max) and an xor
 //     butterfly; no float atomics), so logZ is the same from run to run and
 //     -inf for an all-sentinel row;
-//   - top-k: the K * P sorted lists, copied into shared memory, are merged by
-//     one warp in k rounds: each lane holds the best head of its lists, a
-//     butterfly argmax by (value desc, position asc) picks the round's
-//     winner, and its owner lane advances that list. Positions are unique, so
-//     the order is total and ties go to the lowest flattened (slot-major,
-//     lane-minor) position, as jax.lax.top_k breaks them over the unfused
-//     row. Word ids are rebuilt from the position: block*128 + lane, or
-//     n_blk*128 at a sentinel slot.
-// The merge needs 8 bytes per list entry plus 12 per list in shared memory:
-// past 227 KB (K*128 entries at large K and k) the launch is refused.
+//   - top-k: the K * P sorted lists are merged by one warp in k rounds:
+//     each lane holds the best head of its lists, a butterfly argmax by
+//     (value desc, position asc) picks the round's winner, and its owner
+//     lane advances that list. Positions are unique, so the order is total
+//     and ties go to the lowest flattened (slot-major, lane-minor) position,
+//     as jax.lax.top_k breaks them over the unfused row. Word ids are
+//     rebuilt from the position: block*128 + lane, or n_blk*128 at a
+//     sentinel slot.
+// Shared memory in phase B holds only each list's head index, the value and
+// position at its head, its max and its sum (20 bytes a list: 40 KB at
+// K*P = 2,000); an advanced list's next entry is read from the scratch in L2
+// (__ldcg), where the blocks of phase A left it. So every k <= K*128 is
+// served, for K*P up to 11,622 lists; the lists themselves (8 bytes an
+// entry) pass 227 KB from K >= 225 tiles at k >= 128.
+//
+// The weights and h come in float32 or in bfloat16 (fused_topk_kernel and
+// fused_topk_bf16_kernel, one body): the logits, the noise, the lists and
+// the outputs are float32 either way, and bfloat16 logits are the bits
+// screen.cu's bfloat16 kernel gives.
 #include <limits.h>
 
 #include "l2s_common.cuh"
 
 #define FT_THREADS 256   // 8 warps: R = 16..128 rows a block, 2..16 per warp
+#define FT_SMEM_OPTIN (227 * 1024)   // shared memory one block may opt into
 
 __device__ __forceinline__ bool ft_before(float v, int p, float ov, int op) {
   return v > ov || (v == ov && p < op);
 }
 
-__global__ void __launch_bounds__(FT_THREADS)
-fused_topk_kernel(const float* __restrict__ W, const float* __restrict__ b,
-                  const float* __restrict__ h, const int* __restrict__ ids,
-                  const float* __restrict__ noise, float* __restrict__ part_v,
-                  int* __restrict__ part_p, float* __restrict__ part_m,
-                  float* __restrict__ part_s, unsigned* __restrict__ count,
-                  int* __restrict__ out_ids, float* __restrict__ out_vals,
-                  float* __restrict__ out_logz, int K, int n_blk, int d, int k,
-                  int P, int kk) {
+template <typename T>
+__device__ __forceinline__ void fused_topk_body(
+    const T* __restrict__ W, const T* __restrict__ b, const T* __restrict__ h,
+    const int* __restrict__ ids, const float* __restrict__ noise,
+    float* __restrict__ part_v, int* __restrict__ part_p, float* __restrict__ part_m,
+    float* __restrict__ part_s, unsigned* __restrict__ count, int* __restrict__ out_ids,
+    float* __restrict__ out_vals, float* __restrict__ out_logz, int K, int n_blk, int d,
+    int k, int P, int kk) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   __shared__ bool am_last;
@@ -150,18 +159,17 @@ fused_topk_kernel(const float* __restrict__ W, const float* __restrict__ b,
   __threadfence();
 
   const size_t q0 = (size_t)i * L;
-  const int n = L * kk;
-  float* lv = sm;                            // n list values
-  int* lp = reinterpret_cast<int*>(lv + n);  // n list positions
-  int* head = lp + n;                        // L heads
-  float* lm = reinterpret_cast<float*>(head + L);  // L part maxima
+  const float* gv = part_v + q0 * kk;        // the row's L lists of kk, list-major
+  const int* gp = part_p + q0 * kk;
+  int* head = reinterpret_cast<int*>(sm);    // L: next entry of each list
+  float* hv = reinterpret_cast<float*>(head + L);  // L: its value (-inf: spent)
+  int* hp = reinterpret_cast<int*>(hv + L);  // L: its position (INT_MAX: spent)
+  float* lm = reinterpret_cast<float*>(hp + L);  // L part maxima
   float* ls = lm + L;                        // L part sums
-  for (int e = t; e < n; e += blockDim.x) {
-    lv[e] = __ldcg(part_v + q0 * kk + e);
-    lp[e] = __ldcg(part_p + q0 * kk + e);
-  }
   for (int l = t; l < L; l += blockDim.x) {
     head[l] = 0;
+    hv[l] = __ldcg(gv + (size_t)l * kk);
+    hp[l] = __ldcg(gp + (size_t)l * kk);
     lm[l] = __ldcg(part_m + q0 + l);
     ls[l] = __ldcg(part_s + q0 + l);
   }
@@ -184,11 +192,9 @@ fused_topk_kernel(const float* __restrict__ W, const float* __restrict__ b,
     float bv = -INFINITY;
     int bp = INT_MAX, bl = -1;
     for (int l = lane; l < L; l += 32) {
-      const float v = lv[l * kk];
-      const int pos = lp[l * kk];
-      if (ft_before(v, pos, bv, bp)) {
-        bv = v;
-        bp = pos;
+      if (ft_before(hv[l], hp[l], bv, bp)) {
+        bv = hv[l];
+        bp = hp[l];
         bl = l;
       }
     }
@@ -214,16 +220,23 @@ fused_topk_kernel(const float* __restrict__ W, const float* __restrict__ b,
                                          ? slot_blk * L2S_V_BLK + (wp & (L2S_V_BLK - 1))
                                          : sentinel;
       }
-      if ((wl & 31) == lane) {               // the owner advances the list
-        ++head[wl];
+      if (r + 1 < k && wl >= 0 && (wl & 31) == lane) {  // the owner advances the list
+        const int hd = ++head[wl];
+        float nv = -INFINITY;
+        int np = INT_MAX;
+        if (hd < kk) {
+          nv = __ldcg(gv + (size_t)wl * kk + hd);
+          np = __ldcg(gp + (size_t)wl * kk + hd);
+        }
+        hv[wl] = nv;
+        hp[wl] = np;
         bv = -INFINITY;
         bp = INT_MAX;
         bl = -1;
         for (int l = lane; l < L; l += 32) {
-          const int hd = head[l];
-          if (hd < kk && ft_before(lv[l * kk + hd], lp[l * kk + hd], bv, bp)) {
-            bv = lv[l * kk + hd];
-            bp = lp[l * kk + hd];
+          if (ft_before(hv[l], hp[l], bv, bp)) {
+            bv = hv[l];
+            bp = hp[l];
             bl = l;
           }
         }
@@ -232,20 +245,42 @@ fused_topk_kernel(const float* __restrict__ W, const float* __restrict__ b,
   }
 }
 
+__global__ void __launch_bounds__(FT_THREADS)
+fused_topk_kernel(const float* __restrict__ W, const float* __restrict__ b,
+                  const float* __restrict__ h, const int* __restrict__ ids,
+                  const float* __restrict__ noise, float* __restrict__ part_v,
+                  int* __restrict__ part_p, float* __restrict__ part_m,
+                  float* __restrict__ part_s, unsigned* __restrict__ count,
+                  int* __restrict__ out_ids, float* __restrict__ out_vals,
+                  float* __restrict__ out_logz, int K, int n_blk, int d, int k,
+                  int P, int kk) {
+  fused_topk_body(W, b, h, ids, noise, part_v, part_p, part_m, part_s, count, out_ids,
+                  out_vals, out_logz, K, n_blk, d, k, P, kk);
+}
 
-// W (n_blk, 128, d) f32, b (n_blk, 128) f32, h (B, d) f32, ids (B, K) int32,
-// noise (B, K, 128) f32 or null; out_ids (B, k) int32, out_vals (B, k) f32,
-// out_logz (B,) f32; scratch: B*K*P*(2*kk + 2) words, kk = min(k, 128 / P);
-// count: B uint32 counters, zero on entry and left zero; P in {1, 2, 4, 8}.
-// All contiguous on one device, W and h 16-byte aligned. Returns a
-// cudaError_t (0 on success).
-extern "C" int l2s_fused_screened_topk(const float* W, const float* b, const float* h,
-                                       const int* ids, const float* noise,
-                                       int* out_ids, float* out_vals, float* out_logz,
-                                       void* scratch, unsigned* count, int B, int K,
-                                       int n_blk, int d, int k, int P, void* stream) {
+__global__ void __launch_bounds__(FT_THREADS)
+fused_topk_bf16_kernel(const __nv_bfloat16* __restrict__ W,
+                       const __nv_bfloat16* __restrict__ b,
+                       const __nv_bfloat16* __restrict__ h, const int* __restrict__ ids,
+                       const float* __restrict__ noise, float* __restrict__ part_v,
+                       int* __restrict__ part_p, float* __restrict__ part_m,
+                       float* __restrict__ part_s, unsigned* __restrict__ count,
+                       int* __restrict__ out_ids, float* __restrict__ out_vals,
+                       float* __restrict__ out_logz, int K, int n_blk, int d, int k,
+                       int P, int kk) {
+  fused_topk_body(W, b, h, ids, noise, part_v, part_p, part_m, part_s, count, out_ids,
+                  out_vals, out_logz, K, n_blk, d, k, P, kk);
+}
+
+template <typename T, typename Kernel>
+static int fused_topk_launch(Kernel kernel, const T* W, const T* b, const T* h,
+                             const int* ids, const float* noise, int* out_ids,
+                             float* out_vals, float* out_logz, void* scratch,
+                             unsigned* count, int B, int K, int n_blk, int d, int k,
+                             int P, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (K <= 0 || k <= 0 || P <= 0 || P > 8 || L2S_V_BLK % P || B > 65535)
+  if (K <= 0 || k <= 0 || P <= 0 || P > 8 || L2S_V_BLK % P || B > 65535 ||
+      (long)k > (long)K * L2S_V_BLK)
     return (int)cudaErrorInvalidValue;
   const int R = L2S_V_BLK / P;
   const int kk = k < R ? k : R;
@@ -254,15 +289,44 @@ extern "C" int l2s_fused_screened_topk(const float* W, const float* b, const flo
   int* part_p = reinterpret_cast<int*>(part_v + parts * kk);
   float* part_m = reinterpret_cast<float*>(part_p + parts * kk);
   float* part_s = part_m + parts;
-  // phase A: h (d, rounded to float4) and R logits; phase B: the row's
-  // K*P lists (value and position), and a head, a max and a sum per list
+  // phase A: h (d, rounded to float4) and R logits; phase B: a head, its
+  // value and position, a max and a sum per list
   const size_t words_a = (size_t)((d + 3) & ~3) + R;
-  const size_t words_b = (size_t)K * P * (2 * (size_t)kk + 3);
+  const size_t words_b = 5 * (size_t)K * P;
   const size_t smem = (words_a > words_b ? words_a : words_b) * sizeof(float);
-  cudaError_t err = l2s_allow_smem(fused_topk_kernel, smem);
+  if (smem > FT_SMEM_OPTIN) return (int)cudaErrorInvalidValue;
+  cudaError_t err = l2s_allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_topk_kernel<<<dim3(K * P, B), FT_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<dim3(K * P, B), FT_THREADS, smem, (cudaStream_t)stream>>>(
       W, b, h, ids, noise, part_v, part_p, part_m, part_s, count, out_ids, out_vals,
       out_logz, K, n_blk, d, k, P, kk);
   return (int)cudaGetLastError();
+}
+
+// W (n_blk, 128, d) f32, b (n_blk, 128) f32, h (B, d) f32, ids (B, K) int32,
+// noise (B, K, 128) f32 or null; out_ids (B, k) int32, out_vals (B, k) f32,
+// out_logz (B,) f32; 1 <= k <= K*128; scratch: B*K*P*(2*kk + 2) words,
+// kk = min(k, 128 / P); count: B uint32 counters, zero on entry and left
+// zero; P in {1, 2, 4, 8}, K*P <= 11,622. All contiguous on one device, W and
+// h 16-byte aligned. Returns a cudaError_t (0 on success).
+extern "C" int l2s_fused_screened_topk(const float* W, const float* b, const float* h,
+                                       const int* ids, const float* noise,
+                                       int* out_ids, float* out_vals, float* out_logz,
+                                       void* scratch, unsigned* count, int B, int K,
+                                       int n_blk, int d, int k, int P, void* stream) {
+  return fused_topk_launch(fused_topk_kernel, W, b, h, ids, noise, out_ids, out_vals,
+                           out_logz, scratch, count, B, K, n_blk, d, k, P, stream);
+}
+
+// The same with W, b and h in bfloat16 (noise and the outputs stay float32).
+extern "C" int l2s_fused_screened_topk_bf16(const void* W, const void* b, const void* h,
+                                            const int* ids, const float* noise,
+                                            int* out_ids, float* out_vals,
+                                            float* out_logz, void* scratch,
+                                            unsigned* count, int B, int K, int n_blk,
+                                            int d, int k, int P, void* stream) {
+  return fused_topk_launch(
+      fused_topk_bf16_kernel, static_cast<const __nv_bfloat16*>(W),
+      static_cast<const __nv_bfloat16*>(b), static_cast<const __nv_bfloat16*>(h), ids,
+      noise, out_ids, out_vals, out_logz, scratch, count, B, K, n_blk, d, k, P, stream);
 }

@@ -6,8 +6,16 @@
 // compute a tile's logits through l2s_tile_logits, so the unfused and fused
 // decode paths give bit-identical logits, ids and values on the card, as the
 // two Pallas kernels do on the TPU.
+//
+// Each routine takes the packed head and h in float32 or in bfloat16 (the
+// weights' own dtype, as the Pallas kernels take it). A bfloat16 h is staged
+// in shared memory as float32 (the conversion is exact), a bfloat16 weight is
+// converted with __bfloat162float as it is loaded, and every product is an
+// fmaf in float32: the product of two bfloat16 values is exact in float32, so
+// this is the Pallas kernels' preferred_element_type=float32 dot.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -61,21 +69,100 @@ __device__ __forceinline__ float l2s_warp_dot(const float* __restrict__ row,
   return acc;
 }
 
+// The bfloat16 twin of the dot above: lane l accumulates, with fmaf in
+// ascending order, the 16-byte chunks (8 values) l, l+32, ... of the row when
+// d % 8 == 0, the 8-byte chunks (4 values) when d % 4 == 0, else the single
+// values; L2S_BATCH chunks a lane are in flight before it multiplies any of
+// them, and the same xor butterfly ends it.
+// The two bfloat16 values of a 32-bit word (the lower one first in memory)
+// as float32: __bfloat162float's exact conversion, on the word's halves.
+__device__ __forceinline__ void l2s_bf16x2(unsigned u, float& lo, float& hi) {
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ float l2s_fma_bf16x4(uint2 w, float4 x, float acc) {
+  float a, b;
+  l2s_bf16x2(w.x, a, b);
+  acc = fmaf(a, x.x, acc);
+  acc = fmaf(b, x.y, acc);
+  l2s_bf16x2(w.y, a, b);
+  acc = fmaf(a, x.z, acc);
+  return fmaf(b, x.w, acc);
+}
+
+__device__ __forceinline__ float l2s_warp_dot(const __nv_bfloat16* __restrict__ row,
+                                              const float* __restrict__ h_s,
+                                              int d, int lane) {
+  float acc = 0.f;
+  const float4* h4 = reinterpret_cast<const float4*>(h_s);
+  if ((d & 7) == 0) {
+    const uint4* row8 = reinterpret_cast<const uint4*>(row);
+    const int d8 = d >> 3;
+    for (int c0 = lane; c0 < d8; c0 += 32 * L2S_BATCH) {
+      uint4 w[L2S_BATCH];
+#pragma unroll
+      for (int u = 0; u < L2S_BATCH; ++u) {
+        const int c = c0 + 32 * u;
+        w[u] = c < d8 ? __ldg(row8 + c) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < L2S_BATCH; ++u) {
+        const int c = c0 + 32 * u;
+        if (c < d8) {
+          acc = l2s_fma_bf16x4(make_uint2(w[u].x, w[u].y), h4[2 * c], acc);
+          acc = l2s_fma_bf16x4(make_uint2(w[u].z, w[u].w), h4[2 * c + 1], acc);
+        }
+      }
+    }
+  } else if ((d & 3) == 0) {
+    const uint2* row4 = reinterpret_cast<const uint2*>(row);
+    const int d4 = d >> 2;
+    for (int c0 = lane; c0 < d4; c0 += 32 * L2S_BATCH) {
+      uint2 w[L2S_BATCH];
+#pragma unroll
+      for (int u = 0; u < L2S_BATCH; ++u) {
+        const int c = c0 + 32 * u;
+        w[u] = c < d4 ? __ldg(row4 + c) : make_uint2(0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < L2S_BATCH; ++u) {
+        const int c = c0 + 32 * u;
+        if (c < d4) acc = l2s_fma_bf16x4(w[u], h4[c], acc);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < d; c += 32)
+      acc = fmaf(__bfloat162float(__ldg(row + c)), h_s[c], acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+__device__ __forceinline__ float l2s_load(const float* __restrict__ p) { return __ldg(p); }
+__device__ __forceinline__ float l2s_load(const __nv_bfloat16* __restrict__ p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // The logits of `rows` consecutive rows of a gathered weight tile (one part
-// of the tile in screen.cu and in fused_topk.cu):
-//   out[row] = W_tile[row] . h + b_tile[row]
+// of the tile in screen.cu and in fused_topk.cu), T = float or __nv_bfloat16:
+//   out[row] = W_tile[row] . h + b_tile[row]      (float32)
 // one warp per row, rows dealt round robin over the block's warps. The tile
-// (L2S_V_BLK x d floats, 256,000 bytes at d = 500) is streamed from global memory row
-// by row and never staged whole: it does not fit in one block's shared memory.
-__device__ __forceinline__ void l2s_tile_logits(const float* __restrict__ w_tile,
-                                                const float* __restrict__ b_tile,
+// (L2S_V_BLK x d weights, 256,000 bytes at d = 500 in float32) is streamed
+// from global memory row by row and never staged whole: it does not fit in
+// one block's shared memory.
+template <typename T>
+__device__ __forceinline__ void l2s_tile_logits(const T* __restrict__ w_tile,
+                                                const T* __restrict__ b_tile,
                                                 const float* __restrict__ h_s,
                                                 int d, float* __restrict__ out,
                                                 int rows) {
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   for (int row = threadIdx.x >> 5; row < rows; row += nwarps) {
-    const float bias = __ldg(b_tile + row);   // in flight with the row's loads
+    const float bias = l2s_load(b_tile + row);   // in flight with the row's loads
     const float dot = l2s_warp_dot(w_tile + (size_t)row * d, h_s, d, lane);
     if (lane == 0) out[row] = dot + bias;
   }
@@ -92,6 +179,28 @@ __device__ __forceinline__ void l2s_stage(const float* __restrict__ src,
     for (int i = threadIdx.x; i < (n >> 2); i += blockDim.x) d4[i] = __ldg(s4 + i);
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+// The same from n bfloat16 values, converted exactly to float32: 16-byte
+// loads (8 values) when n % 8 == 0, single values otherwise.
+__device__ __forceinline__ void l2s_stage(const __nv_bfloat16* __restrict__ src,
+                                          float* __restrict__ dst, int n) {
+  if ((n & 7) == 0) {
+    const uint4* s8 = reinterpret_cast<const uint4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < (n >> 3); i += blockDim.x) {
+      const uint4 w = __ldg(s8 + i);
+      float4 a, b;
+      l2s_bf16x2(w.x, a.x, a.y);
+      l2s_bf16x2(w.y, a.z, a.w);
+      l2s_bf16x2(w.z, b.x, b.y);
+      l2s_bf16x2(w.w, b.z, b.w);
+      d4[2 * i] = a;
+      d4[2 * i + 1] = b;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __bfloat162float(src[i]);
   }
 }
 

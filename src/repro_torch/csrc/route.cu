@@ -34,6 +34,12 @@
 //     whatever order the blocks run in.
 // One launch, no (B, r) score matrix, no workspace, no atomics.
 //
+// h comes in float32 or in bfloat16 (route_kernel and route_bf16_kernel, one
+// body), v in float32, as fit_l2s makes it: a bfloat16 h is converted to
+// float32 as it is staged (exactly), so the scores are the float32 kernel's
+// scores of the same values, as the Pallas kernel's promoted float32 dot
+// gives them.
+//
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; CUDA-event
 // medians, cold L2), B = 4, r = 100: 0.0098 ms at d = 500 (argmax(h @ v.T)
 // 0.0148 ms) and 0.0133 ms at d = 2560 (argmax(h @ v.T) 0.0189 ms). The
@@ -72,11 +78,60 @@ __device__ __forceinline__ void route_load(float4 (&w)[ROUTE_LOADS],
   }
 }
 
-// VEC: d % 4 == 0, v read as float4; else as single floats (ragged d).
+// ROUTE_BT rows of h from row b0 (rows of them real, the rest zero) into
+// h_s as float32: float4 chunks when VEC (d % 4 == 0), else single values.
 template <bool VEC>
-__global__ void __launch_bounds__(ROUTE_THREADS)
-route_kernel(const float* __restrict__ h, const float* __restrict__ v,
-             int* __restrict__ out, int B, int r, int d) {
+__device__ __forceinline__ void route_stage(const float* __restrict__ h, float* h_s,
+                                            int b0, int rows, int d) {
+  const int n = VEC ? d >> 2 : d;
+  const int dp = (d + 3) & ~3;
+  if (VEC) {
+    float4* h4 = reinterpret_cast<float4*>(h_s);
+    const float4* src = reinterpret_cast<const float4*>(h + (size_t)b0 * d);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROUTE_BT * n; i += ROUTE_THREADS)
+      h4[i] = i < rows * n ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = threadIdx.x; i < ROUTE_BT * dp; i += ROUTE_THREADS) {
+      const int b = i / dp, c = i - b * dp;
+      h_s[i] = (b < rows && c < d) ? __ldg(h + (size_t)(b0 + b) * d + c) : 0.f;
+    }
+  }
+}
+
+// The same from a bfloat16 h: 8-byte chunks of 4 values when VEC.
+template <bool VEC>
+__device__ __forceinline__ void route_stage(const __nv_bfloat16* __restrict__ h,
+                                            float* h_s, int b0, int rows, int d) {
+  const int n = VEC ? d >> 2 : d;
+  const int dp = (d + 3) & ~3;
+  if (VEC) {
+    float4* h4 = reinterpret_cast<float4*>(h_s);
+    const uint2* src = reinterpret_cast<const uint2*>(h + (size_t)b0 * d);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROUTE_BT * n; i += ROUTE_THREADS) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < rows * n) {
+        const uint2 w = __ldg(src + i);
+        l2s_bf16x2(w.x, x.x, x.y);
+        l2s_bf16x2(w.y, x.z, x.w);
+      }
+      h4[i] = x;
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROUTE_BT * dp; i += ROUTE_THREADS) {
+      const int b = i / dp, c = i - b * dp;
+      h_s[i] = (b < rows && c < d) ? __bfloat162float(h[(size_t)(b0 + b) * d + c]) : 0.f;
+    }
+  }
+}
+
+// VEC: d % 4 == 0, v read as float4; else as single floats (ragged d).
+// HT: h's type, float or __nv_bfloat16.
+template <bool VEC, typename HT>
+__device__ __forceinline__ void route_body(const HT* __restrict__ h,
+                                           const float* __restrict__ v,
+                                           int* __restrict__ out, int B, int r, int d) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* h_s = reinterpret_cast<float*>(smem4);  // ROUTE_BT x dp floats
@@ -100,18 +155,7 @@ route_kernel(const float* __restrict__ h, const float* __restrict__ v,
   float4 w[ROUTE_LOADS];
   if (t_first < r) route_load<VEC>(w, v + (size_t)t_first * d, lane, n);
   const int rows = min(ROUTE_BT, B - b0);
-  if (VEC) {
-    float4* h4 = reinterpret_cast<float4*>(h_s);
-    const float4* src = reinterpret_cast<const float4*>(h + (size_t)b0 * d);
-#pragma unroll 4
-    for (int i = threadIdx.x; i < ROUTE_BT * n; i += ROUTE_THREADS)
-      h4[i] = i < rows * n ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
-    for (int i = threadIdx.x; i < ROUTE_BT * dp; i += ROUTE_THREADS) {
-      const int b = i / dp, c = i - b * dp;
-      h_s[i] = (b < rows && c < d) ? __ldg(h + (size_t)(b0 + b) * d + c) : 0.f;
-    }
-  }
+  route_stage<VEC>(h, h_s, b0, rows, d);
   __syncthreads();
 
   // lane b < ROUTE_BT keeps row b's best (score, t) over this warp's clusters
@@ -191,17 +235,30 @@ route_kernel(const float* __restrict__ h, const float* __restrict__ v,
   cluster.sync();  // every block's shared memory lives until rank 0 has read it
 }
 
-// h (B, d) f32, v (r, d) f32, out (B,) int32; all contiguous on one device,
-// h and v 16-byte aligned; r >= 1, and d at most ~7,200 (eight rows of h must
-// fit one block's shared memory). Returns a cudaError_t (0 on success).
-extern "C" int l2s_cluster_route(const float* h, const float* v, int* out, int B,
-                                 int r, int d, void* stream) {
+template <bool VEC>
+__global__ void __launch_bounds__(ROUTE_THREADS)
+route_kernel(const float* __restrict__ h, const float* __restrict__ v,
+             int* __restrict__ out, int B, int r, int d) {
+  route_body<VEC>(h, v, out, B, r, d);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(ROUTE_THREADS)
+route_bf16_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ v,
+                  int* __restrict__ out, int B, int r, int d) {
+  route_body<VEC>(h, v, out, B, r, d);
+}
+
+template <typename HT>
+static int route_launch(const void* vec_kernel, const void* ragged_kernel,
+                        const HT* h, const float* v, int* out, int B, int r, int d,
+                        void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (r <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)ROUTE_BT * ((d + 3) & ~3) * sizeof(float);
   if (smem > 220 * 1024) return (int)cudaErrorInvalidValue;
   const bool vec = (d & 3) == 0;
-  const void* kernel = vec ? (const void*)route_kernel<true> : (const void*)route_kernel<false>;
+  const void* kernel = vec ? vec_kernel : ragged_kernel;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && smem > 48 * 1024)
@@ -223,8 +280,25 @@ extern "C" int l2s_cluster_route(const float* h, const float* v, int* out, int B
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = vec ? cudaLaunchKernelEx(&cfg, route_kernel<true>, h, v, out, B, r, d)
-            : cudaLaunchKernelEx(&cfg, route_kernel<false>, h, v, out, B, r, d);
+  void* args[] = {(void*)&h, (void*)&v, (void*)&out, (void*)&B, (void*)&r, (void*)&d};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// h (B, d) f32, v (r, d) f32, out (B,) int32; all contiguous on one device,
+// h and v 16-byte aligned; r >= 1, and d at most ~7,200 (eight rows of h must
+// fit one block's shared memory). Returns a cudaError_t (0 on success).
+extern "C" int l2s_cluster_route(const float* h, const float* v, int* out, int B,
+                                 int r, int d, void* stream) {
+  return route_launch((const void*)route_kernel<true>, (const void*)route_kernel<false>,
+                      h, v, out, B, r, d, stream);
+}
+
+// The same with h in bfloat16 (v stays float32).
+extern "C" int l2s_cluster_route_bf16(const void* h, const float* v, int* out, int B,
+                                      int r, int d, void* stream) {
+  return route_launch((const void*)route_bf16_kernel<true>,
+                      (const void*)route_bf16_kernel<false>,
+                      static_cast<const __nv_bfloat16*>(h), v, out, B, r, d, stream);
 }

@@ -29,9 +29,12 @@ from repro_torch.heads.base import (NEG_INF, SoftmaxHead, require_screen,
 
 
 def _host(x) -> np.ndarray:
-    """A tensor (any device) or array → a numpy array on the host."""
+    """A tensor (any device) or array → a numpy array on the host; a
+    bfloat16 tensor is widened to float32 (exactly: numpy has no bfloat16
+    here), where the reference's numpy promotes it in its first product."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
     return np.asarray(x)
 
 

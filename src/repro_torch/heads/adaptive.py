@@ -192,8 +192,8 @@ class AdaptiveHead(SoftmaxHead):
     def prepare(self) -> "AdaptiveHead":
         if self._Wb is not None:
             return self
-        lay = _build_tiers(self.W.detach().cpu().numpy(),
-                           self.b.detach().cpu().numpy(), self.counts,
+        lay = _build_tiers(self.W.detach().float().cpu().numpy(),
+                           self.b.detach().float().cpu().numpy(), self.counts,
                            self.shortlist, self.n_tails)
         dev = self.W.device
 
@@ -263,7 +263,7 @@ class AdaptiveHead(SoftmaxHead):
         the short tier's k-th value from its fused launch, then the head's
         own descent rule."""
         self.prepare()
-        h = h.contiguous()
+        h = h.float().contiguous()
         B = h.shape[0]
         short = self._short_ids(B)
         if self._tail_tab is None:
@@ -316,7 +316,7 @@ class AdaptiveHead(SoftmaxHead):
 
     def _run(self, h, k: int):
         self.prepare()
-        h = h.contiguous()
+        h = h.float().contiguous()
         return self._fused(h, k) if self.fused else self._unfused(h, k)
 
     # -- queries ---------------------------------------------------------------
@@ -350,7 +350,7 @@ class AdaptiveHead(SoftmaxHead):
         """Temperature / nucleus sample over the scored tiers; the noise is
         (B, (nb0 + kb)·V_BLK) standard Gumbel noise, one per row slot."""
         self.prepare()
-        h = h.contiguous()
+        h = h.float().contiguous()
         logits, gids = self._sample_row(h)
         choice = sample_from_logits(logits, temperature, top_p,
                                     self.noise(h, temperature, generator,

@@ -1,6 +1,8 @@
 """ExactHead — full-vocabulary softmax, the baseline every approximation is
 measured against. Twin of ``repro/heads/exact.py``; the (B, L) GEMV stays a
-``torch.matmul`` in IEEE float32, as the reference leaves it to XLA."""
+``torch.matmul`` in the weights' dtype (IEEE float32, or bfloat16 for a bf16
+model), as the reference leaves it to XLA, and the logits are then widened
+to float32, the reference's rounding points."""
 from __future__ import annotations
 
 import torch

@@ -11,6 +11,14 @@ never imports JAX; the other way, ``params_to_numpy`` and ``screen_to_numpy``
 give numpy arrays that the reference takes with ``jnp.asarray``. The layouts
 are the same: the LSTM keeps the fused-gate (d, 4d) matrices in i, f, g, o
 order, attention its (d, H, hd) projections.
+
+bfloat16 leaves (a bf16 reference model's) cross bit for bit without this
+package importing ``ml_dtypes``: a numpy array whose dtype is named
+``bfloat16`` is read through a 16-bit integer view into a
+``torch.bfloat16`` tensor, and ``params_to_numpy(tree, bf16=...)`` writes a
+bf16 tensor's bits back into an array of the numpy dtype the caller names
+(``ml_dtypes.bfloat16``, which is ``jnp.bfloat16``'s); without it a bf16
+leaf comes back widened to float32, exactly.
 """
 from __future__ import annotations
 
@@ -22,7 +30,19 @@ from repro_torch.tree import tree_map
 
 
 def _tensor(a, dtype=None) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
+    arr = np.array(a, dtype=dtype, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _array(t: torch.Tensor, bf16=None) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    if bf16 is None:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().view(bf16)
 
 
 def params_from_numpy(tree):
@@ -41,10 +61,12 @@ def screen_from_numpy(v, cand_idx, cand_len, vocab_size: int,
                         vocab_size=int(vocab_size), block=int(block))
 
 
-def params_to_numpy(tree):
+def params_to_numpy(tree, bf16=None):
     """The port's params tree (tensors on any device) → the same tree of
-    numpy arrays, the reference's layout."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    numpy arrays, the reference's layout. ``bf16``: the numpy bfloat16
+    dtype to carry bf16 leaves in, bit for bit (else they are widened to
+    float32)."""
+    return tree_map(lambda t: _array(t, bf16), tree)
 
 
 def screen_to_numpy(screen: ScreenParams):

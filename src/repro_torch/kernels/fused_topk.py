@@ -11,10 +11,17 @@ is added to the valid logits after log Z (Gumbel-max sampling).
 On a CUDA tensor ``fused_screened_topk`` launches ``csrc/fused_topk.cu``:
 one block per (row, slot, part of the tile) writes its part's sorted top list
 and (max, sum-exp) to scratch, and the last block of each row to finish
-merges the row in the same launch. On a CPU tensor it runs
+merges the row in the same launch, holding each list's head in shared
+memory and reading the lists from the scratch in L2, so every k is
+served. On a CPU tensor it runs
 ``fused_screened_topk_plain``. Both need 1 ≤ k ≤ K·V_BLK: the unfused
 reference's ``top_k`` refuses a larger k, and for one the Pallas kernel pads
 with −inf values whose ids repeat real candidates.
+
+The packed head and h may be float32 or bfloat16 (one dtype for the three,
+the weights' own); the noise, the logits and the outputs are float32. On the
+card a bfloat16 head runs the kernel's bf16 body (``fused_topk_bf16_kernel``),
+whose logits are the bits of ``screened_logits``' bf16 body.
 """
 from __future__ import annotations
 
@@ -53,15 +60,15 @@ def fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k: int,
 def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
                         noise: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """W_blocks (n_blk, V_BLK, d) f32; b_blocks (n_blk, V_BLK) f32;
-    h (B, d) f32; block_ids (B, K) int32, sentinel ≥ n_blk; optional noise
-    (B, K, V_BLK) f32. → (ids (B, k) int32, vals (B, k) f32, logZ (B,) f32):
+    """W_blocks (n_blk, V_BLK, d) f32 or bf16; b_blocks (n_blk, V_BLK) and
+    h (B, d) of the same dtype; block_ids (B, K) int32, sentinel ≥ n_blk;
+    optional noise (B, K, V_BLK) f32. → (ids (B, k) int32, vals (B, k) f32, logZ (B,) f32):
     ids/vals bit-identical to masking + stable top-k over the unfused
     (B, K·V_BLK) row; logZ is −∞ (not NaN) for all-sentinel rows."""
     from repro_torch.kernels import ops
     check_head_inputs(W_blocks, b_blocks, h, block_ids)
     dev = h.device
-    n_blk, v_blk, d = W_blocks.shape
+    v_blk = W_blocks.shape[1]
     B, K = block_ids.shape
     if not 1 <= k <= K * v_blk:
         raise ValueError(f"k={k} must lie in [1, K·{v_blk} = {K * v_blk}]")
@@ -74,46 +81,31 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
         return fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k,
                                          noise)
     return _launch(W_blocks, b_blocks, h, block_ids, k, noise,
-                   fused_parts(B, K, _sm_count(dev), k, d))
+                   fused_parts(B, K, _sm_count(dev)))
 
 
 # the H100's shared memory for one block (opt-in): the launch refuses more
+# (``FT_SMEM_OPTIN`` in ``csrc/fused_topk.cu``, raised by ``ops.launch``)
 SMEM_LIMIT = 227 * 1024
 
 
-def merge_smem_bytes(K: int, parts: int, k: int, d: int) -> int:
+def merge_smem_bytes(K: int, parts: int, d: int) -> int:
     """Shared memory one launch asks for (``csrc/fused_topk.cu``): phase A
-    holds h and a part's logits, phase B the row's K·P sorted lists of
-    kk = min(k, V_BLK / P) (value, position) pairs plus a head, a max and a
-    sum per list."""
+    holds h and a part's logits; phase B a head, its value and position, a
+    max and a sum for each of the row's K·P lists (whatever k is: the lists
+    stay in L2)."""
     rows = V_BLK // parts
-    kk = min(k, rows)
-    words_a = ((d + 3) & ~3) + rows
-    words_b = K * parts * (2 * kk + 3)
-    return 4 * max(words_a, words_b)
+    return 4 * max(((d + 3) & ~3) + rows, 5 * K * parts)
 
 
-def fused_parts(B: int, K: int, n_sm: int, k: int, d: int) -> int:
+def fused_parts(B: int, K: int, n_sm: int) -> int:
     """Parts P each candidate tile is cut into: the fewest of 1, 2, 4, 8
-    whose grid of B·K·P blocks puts two blocks on every SM (8 if none),
-    then halved until the merge's shared memory fits ``SMEM_LIMIT`` (a
-    smaller P merges fewer, longer lists: K·P·(2·kk + 3) words). Raises
-    ``ValueError`` when even P = 1 does not fit."""
-    parts = 8
+    whose grid of B·K·P blocks puts two blocks on every SM (8 if none).
+    Every k fits the merge at any P (its lists stay in L2)."""
     for p in (1, 2, 4, 8):
         if B * K * p >= 2 * n_sm:
-            parts = p
-            break
-    while parts > 1 and merge_smem_bytes(K, parts, k, d) > SMEM_LIMIT:
-        parts //= 2
-    need = merge_smem_bytes(K, parts, k, d)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"fused_screened_topk: K={K} candidate tiles at k={k} need "
-            f"{need} bytes of shared memory for the merge, past the "
-            f"{SMEM_LIMIT}-byte (227 KB) limit of one block even with the "
-            f"tiles uncut (P = 1)")
-    return parts
+            return p
+    return 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,8 +157,9 @@ def _launch(W_blocks, b_blocks, h, block_ids, k: int, noise, parts: int):
     logz = torch.empty((B,), dtype=torch.float32, device=dev)
     scratch = torch.empty((B * K * parts * (2 * kk + 2),), dtype=torch.float32,
                           device=dev)
-    ops.launch("fused_screened_topk", "fused_topk", "l2s_fused_screened_topk",
-               dev, W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
+    sfx = ops.BF16 if W_blocks.dtype == torch.bfloat16 else ""
+    ops.launch("fused_screened_topk" + sfx, "fused_topk",
+               "l2s_fused_screened_topk" + sfx, dev, W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
                block_ids.data_ptr(),
                None if noise is None else noise.data_ptr(),
                ids.data_ptr(), vals.data_ptr(), logz.data_ptr(),

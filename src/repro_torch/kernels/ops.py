@@ -32,6 +32,10 @@ sources and flags, and loads it with ``ctypes``. This happens at the first
 launch on a CUDA tensor; importing this module builds nothing. On a CPU
 tensor each wrapper runs its plain PyTorch version instead.
 
+The route, gather and fused kernels each have a second body for bfloat16
+inputs (``csrc/*.cu``, ``*_bf16_kernel``; the weights and h in bfloat16, the
+logits float32); its launches count under the kernel's name + ``"_bf16"``.
+
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
 it with ``reset_launches`` and reads it to show that the path it drove went
 through the kernels. A wrapper called while a CUDA graph captures launches
@@ -64,9 +68,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # library stem → {exported symbol: (argtypes, restype)}
 _SIGNATURES = {
-    "route": {"l2s_cluster_route": ([_P, _P, _P, _I, _I, _I, _P], _I)},
-    "screen": {"l2s_screened_logits": ([_P] * 5 + [_I] * 5 + [_P], _I)},
+    "route": {"l2s_cluster_route": ([_P, _P, _P, _I, _I, _I, _P], _I),
+              "l2s_cluster_route_bf16": ([_P, _P, _P, _I, _I, _I, _P], _I)},
+    "screen": {"l2s_screened_logits": ([_P] * 5 + [_I] * 5 + [_P], _I),
+               "l2s_screened_logits_bf16": ([_P] * 5 + [_I] * 5 + [_P], _I)},
     "fused_topk": {"l2s_fused_screened_topk":
+                   ([_P] * 10 + [_I] * 6 + [_P], _I),
+                   "l2s_fused_screened_topk_bf16":
                    ([_P] * 10 + [_I] * 6 + [_P], _I)},
     "ssd": {"l2s_ssd_intra": ([_P] * 6 + [_I] * 6 + [_P], _I)},
     "cache_update": {"l2s_cache_slot_update": ([_P] * 3 + [_I] * 4 + [_P], _I),
@@ -75,7 +83,11 @@ _SIGNATURES = {
 
 LAUNCHES: Dict[str, int] = {"cluster_route": 0, "screened_logits": 0,
                             "fused_screened_topk": 0, "ssd_intra": 0,
-                            "cache_slot_update": 0}
+                            "cache_slot_update": 0, "cluster_route_bf16": 0,
+                            "screened_logits_bf16": 0,
+                            "fused_screened_topk_bf16": 0}
+# the bfloat16 kernel bodies of the three L2S kernels, counted apart
+BF16 = "_bf16"
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -157,30 +169,36 @@ def launch(kernel: str, stem: str, symbol: str, device: torch.device,
 
 
 # -- wrapper checks -----------------------------------------------------------
-def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+FLOATS = (torch.float32, torch.bfloat16)
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int,
                  device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``ndim``-D ``dtype`` tensor on
-    ``device`` (float tensors, read as float4 rows, also 16-byte aligned
-    on a GPU)."""
+    """Raise unless ``t`` is a contiguous ``ndim``-D tensor on ``device``
+    of ``dtype`` (or of one of a tuple of dtypes). Float tensors, read as
+    16-byte rows, must also be 16-byte aligned on a GPU."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name} must be a {ndim}-D {dtype} tensor, got "
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes or t.dim() != ndim:
+        want = " or ".join(str(x) for x in dtypes)
+        raise ValueError(f"{name} must be a {ndim}-D {want} tensor, got "
                          f"{t.dim()}-D {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if device.type == "cuda" and dtype == torch.float32 and t.data_ptr() % 16:
+    if device.type == "cuda" and t.dtype in FLOATS and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
 # -- compositions -------------------------------------------------------------
 def pack_head_blocks(W: torch.Tensor, b: torch.Tensor, v_blk: int = V_BLK):
-    """(L, d) softmax weights → (n_blk, v_blk, d) tiles + (n_blk, v_blk).
+    """(L, d) softmax weights → (n_blk, v_blk, d) tiles + (n_blk, v_blk),
+    in W's and b's own dtype.
 
     Rows past L get zero weights and a NEG_INF bias so they never win
-    top-k."""
+    top-k (in bfloat16 NEG_INF rounds to about −1.0e30, still a loser)."""
     L, d = W.shape
     pad = -(-L // v_blk) * v_blk - L
     Wp = torch.cat([W, W.new_zeros((pad, d))])

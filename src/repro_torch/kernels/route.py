@@ -6,6 +6,12 @@ cluster = argmax over r, the first index winning a tie. On a CUDA tensor
 thread block cluster per 8 rows of h, merged through distributed shared
 memory), which never writes the (B, r) score matrix; on a CPU tensor it runs
 ``cluster_route_plain``.
+
+h may be float32 or bfloat16 (a bf16 model's hidden state); v is float32,
+as ``fit_l2s`` makes it. A bfloat16 h is promoted to float32 exactly, as the
+reference's ``dot_general`` of a bf16 h and an f32 v promotes it, so its
+routes are the float32 routes of the same values; on the card the bf16 body
+of the kernel (``route_bf16_kernel``) converts h as it stages it.
 """
 from __future__ import annotations
 
@@ -15,15 +21,16 @@ MAX_D = 7040    # eight rows of h staged in 220 KB of one block's shared memory
 
 
 def cluster_route_plain(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: h (B, d); v (r, d) → (B,) int32."""
-    return torch.argmax(h @ v.T, dim=-1).to(torch.int32)
+    """Plain PyTorch version: h (B, d) f32 or bf16; v (r, d) f32 →
+    (B,) int32."""
+    return torch.argmax(h.float() @ v.T, dim=-1).to(torch.int32)
 
 
 def cluster_route(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """h (B, d) f32; v (r, d) f32 → (B,) int32 cluster ids."""
+    """h (B, d) f32 or bf16; v (r, d) f32 → (B,) int32 cluster ids."""
     from repro_torch.kernels import ops
     dev = h.device
-    ops.check_tensor(h, "h", torch.float32, 2, dev)
+    ops.check_tensor(h, "h", ops.FLOATS, 2, dev)
     ops.check_tensor(v, "v", torch.float32, 2, dev)
     (B, d), r = h.shape, v.shape[0]
     if v.shape[1] != d or r < 1:
@@ -32,7 +39,8 @@ def cluster_route(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return cluster_route_plain(h, v)
     if d > MAX_D:
         raise ValueError(f"cluster_route: d={d} exceeds the kernel's {MAX_D}")
+    sfx = ops.BF16 if h.dtype == torch.bfloat16 else ""
     out = torch.empty((B,), dtype=torch.int32, device=dev)
-    ops.launch("cluster_route", "route", "l2s_cluster_route", dev,
+    ops.launch("cluster_route" + sfx, "route", "l2s_cluster_route" + sfx, dev,
                h.data_ptr(), v.data_ptr(), out.data_ptr(), B, r, d)
     return out

@@ -12,6 +12,13 @@ cut into P parts (``screen_parts``) so that a decode batch of a few rows
 fills the card, and the sums run in the order of the fused kernel's
 (``csrc/l2s_common.cuh::l2s_warp_dot``), so the unfused and fused paths give
 bit-identical logits on the card, whatever P is.
+
+The packed head and h may be float32 or bfloat16 (all three the same
+dtype: the weights' own, as the reference's heads pack them); the logits
+are float32 either way, accumulated in float32 from products that are exact
+there, as the Pallas kernel's ``preferred_element_type=float32`` dot. On
+the card a bfloat16 head runs the kernel's bf16 body
+(``screened_logits_bf16_kernel``).
 """
 from __future__ import annotations
 
@@ -21,20 +28,23 @@ from repro_torch.configs.base import V_BLK
 
 
 def screened_logits_plain(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
-    """Plain PyTorch version → raw logits (B, K, V_BLK) f32."""
+    """Plain PyTorch version → raw logits (B, K, V_BLK) f32 (a bfloat16
+    head is converted to float32 first, exactly)."""
     n_blk = W_blocks.shape[0]
     valid = (block_ids >= 0) & (block_ids < n_blk)
     safe = torch.where(valid, block_ids, 0).long()
-    return torch.einsum("bkvd,bd->bkv", W_blocks[safe], h) + b_blocks[safe]
+    return (torch.einsum("bkvd,bd->bkv", W_blocks[safe].float(), h.float()) +
+            b_blocks[safe].float())
 
 
 def check_head_inputs(W_blocks, b_blocks, h, block_ids) -> None:
-    """The checks the screened and fused wrappers share."""
+    """The checks the screened and fused wrappers share: W_blocks f32 or
+    bf16, b_blocks and h of the same dtype."""
     from repro_torch.kernels import ops
     dev = h.device
-    ops.check_tensor(W_blocks, "W_blocks", torch.float32, 3, dev)
-    ops.check_tensor(b_blocks, "b_blocks", torch.float32, 2, dev)
-    ops.check_tensor(h, "h", torch.float32, 2, dev)
+    ops.check_tensor(W_blocks, "W_blocks", ops.FLOATS, 3, dev)
+    ops.check_tensor(b_blocks, "b_blocks", W_blocks.dtype, 2, dev)
+    ops.check_tensor(h, "h", W_blocks.dtype, 2, dev)
     ops.check_tensor(block_ids, "block_ids", torch.int32, 2, dev)
     n_blk, v_blk, d = W_blocks.shape
     if v_blk != V_BLK or tuple(b_blocks.shape) != (n_blk, v_blk):
@@ -47,8 +57,8 @@ def check_head_inputs(W_blocks, b_blocks, h, block_ids) -> None:
 
 
 def screened_logits(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
-    """W_blocks (n_blk, V_BLK, d) f32; b_blocks (n_blk, V_BLK) f32;
-    h (B, d) f32; block_ids (B, K) int32 (sentinel ≥ n_blk)
+    """W_blocks (n_blk, V_BLK, d) f32 or bf16; b_blocks (n_blk, V_BLK) and
+    h (B, d) of the same dtype; block_ids (B, K) int32 (sentinel ≥ n_blk)
     → raw logits (B, K, V_BLK) f32, sentinel tiles NOT masked."""
     check_head_inputs(W_blocks, b_blocks, h, block_ids)
     dev = h.device
@@ -57,18 +67,20 @@ def screened_logits(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
     from repro_torch.kernels.fused_topk import _sm_count
     B, K = block_ids.shape
     return _launch(W_blocks, b_blocks, h, block_ids,
-                   screen_parts(B, K, h.shape[1], _sm_count(dev)))
+                   screen_parts(B, K, h.shape[1], _sm_count(dev),
+                                W_blocks.element_size()))
 
 
-def screen_parts(B: int, K: int, d: int, n_sm: int) -> int:
+def screen_parts(B: int, K: int, d: int, n_sm: int, itemsize: int = 4) -> int:
     """Parts P each candidate tile is cut into: the fewest of 1, 2, 4, 8
-    whose grid of B·K·P blocks (16 warps each) puts ⌈d / 1024⌉ blocks on
-    every SM (8 if none). A lane keeps 8 float4 loads in flight, so a wider
-    row needs more warps per SM to stream at the card's rate: at d = 2560,
+    whose grid of B·K·P blocks (16 warps each) puts ⌈row bytes / 4096⌉
+    blocks on every SM (8 if none), a row being d weights of ``itemsize``
+    bytes. A lane keeps 8 16-byte loads in flight, so a wider row needs more
+    warps per SM to stream at the card's rate: in float32 at d = 2560,
     B = 4, K = 16 P = 8 beats 4 in chip_smoke.py's sweep, at d = 500 P = 4
     beats 8."""
     for parts in (1, 2, 4, 8):
-        if B * K * parts >= n_sm * -(-d // 1024):
+        if B * K * parts >= n_sm * -(-d * itemsize // 4096):
             return parts
     return 8
 
@@ -79,8 +91,10 @@ def _launch(W_blocks, b_blocks, h, block_ids, parts: int) -> torch.Tensor:
     dev = h.device
     n_blk, v_blk, d = W_blocks.shape
     B, K = block_ids.shape
+    sfx = ops.BF16 if W_blocks.dtype == torch.bfloat16 else ""
     out = torch.empty((B, K, v_blk), dtype=torch.float32, device=dev)
-    ops.launch("screened_logits", "screen", "l2s_screened_logits", dev,
+    ops.launch("screened_logits" + sfx, "screen", "l2s_screened_logits" + sfx,
+               dev,
                W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
                block_ids.data_ptr(), out.data_ptr(), B, K, n_blk, d, parts)
     return out

@@ -8,20 +8,23 @@ Conventions:
   cache            dict(k, v)         k/v (B, S_max, KV, hd); RoPE applied at
                                       write time (absolute positions).
 
-The projections and ``_sdpa`` are plain PyTorch (the JAX package has no
-attention kernel). The decode step's K and V cache writes go through
-``kernels/cache_update.py::cache_kv_update`` — one launch of the CUDA kernel
-on the card.
+The projections, ``_sdpa`` and ``_sdpa_chunked`` (the full-sequence path
+for T ≥ ``CHUNKED_ATTN_THRESHOLD``) are plain PyTorch: the JAX package has no
+attention kernel and leaves them to XLA. Their products accumulate in
+float32 from the storage dtype, as the reference's
+``preferred_element_type=float32`` einsums do. The decode step's K and V
+cache writes go through ``kernels/cache_update.py::cache_kv_update`` — one
+launch of the CUDA kernel on the card.
 
 Not ported yet (each raises NotImplementedError, ROADMAP.md Queue 1):
-ring-buffer (sliding-window) caches, the chunked attention path for
-T ≥ 2048, M-RoPE and ``attn_decode_paged``.
+ring-buffer (sliding-window) caches, M-RoPE and ``attn_decode_paged``.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -30,9 +33,10 @@ from repro_torch.layers.initializers import dense_init
 from repro_torch.layers.rope import apply_rope
 
 NEG_INF = -1e30
-# Above this many query positions the reference switches to its chunked
-# attention path (``_sdpa_chunked``), which is not ported yet.
+# Above this many query positions, full-sequence attention switches to the
+# chunked path, so the (T, S) score matrix never exists whole.
 CHUNKED_ATTN_THRESHOLD = 2048
+Q_CHUNK = 512
 
 
 def _not_ported(what: str):
@@ -78,12 +82,17 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
     """q (B,T,H,hd), k/v (B,S,KV,hd), mask (B,T,S) or (T,S) bool (True=keep).
-    Scores and the weighted sum accumulate in float32."""
+    Scores and the weighted sum accumulate in float32, from k cast to q's
+    dtype and the probabilities cast to v's, the reference's rounding
+    points. The operands are widened to float32 first (exactly), so a
+    bfloat16 cache of S slots is copied to float32 for each call: the
+    reference's bf16 einsums with float32 accumulation avoid that copy."""
     B, T, H, hd = q.shape
     KV = k.shape[2]
     g = H // KV
     qg = q.reshape(B, T, KV, g, hd)
-    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float())
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(),
+                          k.to(q.dtype).float())
     scores = scores / math.sqrt(hd)
     if mask is not None:
         if mask.dim() == 2:
@@ -93,6 +102,49 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, causal: bool,
+                  window: Optional[int], q_chunk: int = Q_CHUNK):
+    """Memory-bounded attention, a loop over query chunks of ``q_chunk``
+    (the tail padded): one (B, KV, g, q_chunk, S) score tile at a time,
+    causal and window masks at absolute positions, softmax over the whole
+    key axis in each chunk (no online-softmax carry). K and V are cast to
+    q's dtype first and the products accumulate in float32, as in the
+    reference's ``_sdpa_chunked``.
+
+    The reference also shards each chunk's queries over a mesh's
+    ``model`` axis when the head count does not divide it
+    (``REPRO_SEQ_PARALLEL``, ``shard_axis``). That is XLA sharding; on one
+    card it means nothing, so it is left out (ROADMAP.md, item 11)."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    pad = (-T) % q_chunk
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    nq = (T + pad) // q_chunk
+    qc = q.reshape(B, nq, q_chunk, KV, g, hd).float()
+    kf = k.to(q.dtype).float()
+    vf = v.to(q.dtype)
+    vff = vf.float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    kpos = torch.arange(S, device=q.device)
+    outs = []
+    for i in range(nq):
+        qpos = i * q_chunk + torch.arange(q_chunk, device=q.device)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qc[:, i], kf) * scale
+        m = torch.ones((q_chunk, S), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            m &= kpos[None, :] > qpos[:, None] - window
+        scores = torch.where(m, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bkgqs,bskh->bqkgh",
+                                 probs.to(vf.dtype).float(), vff))
+    out = torch.stack(outs, dim=1).reshape(B, T + pad, H, hd)
+    return out[:, :T].to(q.dtype)
 
 
 def make_mask(T: int, S: int, causal: bool, window: Optional[int] = None,
@@ -120,11 +172,12 @@ def attn_forward_kv(params, x, cfg: ModelConfig, positions,
     q, k, v = _project_qkv(params, x, cfg, positions)
     T = x.shape[1]
     w = window if window is not None else cfg.sliding_window
+    is_causal = causal and not cfg.is_encoder
     if T >= CHUNKED_ATTN_THRESHOLD:
-        raise _not_ported(f"chunked attention (_sdpa_chunked, T = {T} ≥ "
-                          f"{CHUNKED_ATTN_THRESHOLD})")
-    mask = make_mask(T, T, causal=causal, window=w, device=x.device)
-    out = _sdpa(q, k, v, mask, cfg)
+        out = _sdpa_chunked(q, k, v, cfg, is_causal, w)
+    else:
+        mask = make_mask(T, T, causal=is_causal, window=w, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
     return _proj_out(out, params["wo"]), k, v
 
 

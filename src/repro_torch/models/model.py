@@ -36,14 +36,17 @@ class Model:
                 f"families so far (got {cfg.family!r}; see ROADMAP.md, Queue 1)")
         self.cfg = cfg
 
-    def init(self, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
-        """Random float32 weights drawn from ``generator`` and placed on
-        ``device``. A CPU generator gives the same weights on any device; a
-        CUDA generator draws them on the card (the fast way to a full-width
-        model). Weights are float32 whatever ``cfg.dtype`` says: bf16
-        weights are not ported yet (ROADMAP.md, Queue 1)."""
+    def init(self, generator: torch.Generator, device="cuda",
+             dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """Random weights drawn from ``generator`` and placed on ``device``,
+        in ``dtype or cfg.dtype`` as the reference's ``Model.init`` takes
+        them: bfloat16 for mamba2-1.3b and zamba2-2.7b, float32 for the
+        LSTMs. The SSM layers' A_log, D and dt_bias stay float32 either way,
+        as the reference keeps them. A CPU generator gives the same weights
+        on any device; a CUDA generator draws them on the card (the fast way
+        to a full-width model)."""
         dev = resolve_device(device)
-        dtype = torch.float32
+        dtype = dtype or getattr(torch, self.cfg.dtype)
         params = {"embed": embed_init(generator, self.cfg, dtype)}
         if self.cfg.family == "lstm":
             params["lstm"] = lstm_init(generator, self.cfg, dtype)
@@ -67,12 +70,14 @@ class Model:
         return head_matrix(params["embed"], self.cfg), params["embed"]["lm_bias"]
 
     def init_cache(self, batch: int, max_len: Optional[int] = None,
-                   dtype=torch.float32, device="cuda"):
+                   dtype=torch.bfloat16, device="cuda"):
         """Decode cache for ``batch`` rows on ``device`` (default the card;
-        raises without a GPU unless ``device="cpu"``). LSTM: the recurrent
-        state, which does not grow with the sequence (``max_len`` unused).
-        SSM/hybrid: stacked float32 conv tails and SSM states, plus the
-        shared block's K/V caches of ``max_len`` slots in ``dtype``."""
+        raises without a GPU unless ``device="cpu"``), ``dtype`` bfloat16
+        by default as in the reference. LSTM: the recurrent state in
+        ``dtype``, which does not grow with the sequence (``max_len``
+        unused). SSM/hybrid: stacked float32 conv tails and SSM states,
+        plus the shared block's K/V caches of ``max_len`` slots in
+        ``dtype``."""
         dev = resolve_device(device)
         if self.cfg.family == "lstm":
             return {"lstm": lstm_init_state(self.cfg, batch, dtype, dev)}

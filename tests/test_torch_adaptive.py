@@ -324,23 +324,22 @@ def test_registry_factory_and_step_key(fx):
 # -- the fused kernel's parts rule ---------------------------------------------
 
 def test_fused_parts_fit_the_shared_memory_limit():
-    """P is the grid rule's, halved until the merge fits 227 KB; past that
-    even at P = 1 the wrapper raises a ValueError naming the limit."""
-    assert fused_parts(4, 16, 132, 5, 500) == 8        # the decode step
-    assert fused_parts(1, 250, 132, 56, 2560) == 2     # fits at P = 2
-    assert fused_parts(1, 250, 132, 57, 2560) == 1     # P = 2 would not
-    assert fused_parts(1, 250, 132, 64, 2560) == 1
-    assert merge_smem_bytes(250, 2, 64, 2560) > SMEM_LIMIT
-    assert merge_smem_bytes(250, 1, 64, 2560) <= SMEM_LIMIT
-    assert fused_parts(4, 196, 132, 128, 500) == 1     # nmt-deen, all tiles
-    assert fused_parts(1, 16, 132, 5, 500) == 8
-    for B_, K_, k_ in ((1, 250, 64), (1, 45, 5), (4, 196, 128), (2, 224, 128)):
-        p = fused_parts(B_, K_, 132, k_, 2560)
-        assert merge_smem_bytes(K_, p, k_, 2560) <= SMEM_LIMIT
-    with pytest.raises(ValueError, match="227 KB"):
-        fused_parts(1, 250, 132, 128, 2560)
-    with pytest.raises(ValueError, match="227 KB"):
-        fused_parts(1, 225, 132, 128, 500)
+    """P is the grid rule's alone, and the merge fits 227 KB at every
+    k ≤ K·128: it keeps only each list's head (20 bytes a list) in shared
+    memory and reads the lists from L2. The shapes the merge once refused
+    (K = 225 and 250 at k ≥ 115..128) are served; only more than 11,622
+    lists a row would not fit."""
+    assert fused_parts(4, 16, 132) == 8                # the decode step
+    assert fused_parts(1, 250, 132) == 2
+    assert fused_parts(4, 196, 132) == 1               # nmt-deen, all tiles
+    assert fused_parts(1, 16, 132) == 8
+    for B_, K_ in ((1, 250), (1, 45), (4, 196), (2, 224), (4, 250),
+                   (1, 225), (1, 2000)):
+        p = fused_parts(B_, K_, 132)
+        assert merge_smem_bytes(K_, p, 2560) <= SMEM_LIMIT
+        assert merge_smem_bytes(K_, p, 500) <= SMEM_LIMIT
+    assert merge_smem_bytes(11_622, 1, 500) <= SMEM_LIMIT
+    assert merge_smem_bytes(11_623, 1, 500) > SMEM_LIMIT
 
 
 # -- decode through the engine ---------------------------------------------------

@@ -904,25 +904,119 @@ def test_cuda_tier_fused_topk_at_tier_shapes(cuda, tier_heads, B, K, k):
 
 
 def test_cuda_fused_parts_fall_back_to_one_part(cuda, tier_heads):
-    """zamba2-2.7b, B = 1, the short tier of all 250 blocks, k = 64: the
-    grid rule's P = 2 would need more than 227 KB for the merge, so the
-    wrapper launches at P = 1 (it used to be refused), and k = 128 raises
-    a ValueError naming the limit."""
+    """zamba2-2.7b, B = 1, the short tier of all 250 blocks: the grid
+    rule's P = 2 serves every k. At k = 64 (once launched at P = 1) and
+    k = 128 (once refused: 227 KB) the merge holds only the lists' heads
+    and reads the lists from L2. Each against the plain version, and bit
+    for bit against the masked gather kernel + stable top-k."""
     from repro_torch.kernels.fused_topk import (SMEM_LIMIT, _sm_count,
                                                 fused_parts, merge_smem_bytes)
     Wb, bb = tier_heads[2560]
     h = torch.randn((1, 2560), generator=torch.Generator().manual_seed(3))
     h = h.to(cuda)
     ids = torch.arange(250, dtype=torch.int32, device=cuda)[None]
-    n_sm = _sm_count(h.device)
-    assert merge_smem_bytes(250, 2, 64, 2560) > SMEM_LIMIT
-    assert fused_parts(1, 250, n_sm, 64, 2560) == 1
-    ki, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=64)
-    pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, 64)
-    torch.testing.assert_close(kv, pv, **TOL)
-    torch.testing.assert_close(kz, pz, **TOL)
-    with pytest.raises(ValueError, match="227 KB"):
-        fused_screened_topk(Wb, bb, h, ids, k=128)
+    assert fused_parts(1, 250, _sm_count(h.device)) == 2
+    assert merge_smem_bytes(250, 2, 2560) <= SMEM_LIMIT
+    row = screened_logits(Wb, bb, h, ids).reshape(1, -1)
+    for k in (32, 64, 128):
+        ki, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=k)
+        pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+        torch.testing.assert_close(kv, pv, **TOL)
+        torch.testing.assert_close(kz, pz, **TOL)
+        uv, upos = topk_desc(row, k)
+        assert torch.equal(kv, uv) and torch.equal(ki, upos.to(torch.int32))
+
+
+def _bf16_inputs(cuda, d, L, B, K, seed, ties=False):
+    """A bfloat16 packed head, h and block ids (some sentinel), and a
+    float32 v of 100 clusters. ``ties``: weights and h on a 0.5 grid, so
+    every product and partial sum is exact in float32."""
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn((L, d), generator=g)
+    h = torch.randn((B, d), generator=g)
+    if ties:
+        W, h, b = torch.round(W * 2) / 2, torch.round(h) * 0.5, torch.zeros(L)
+    else:
+        W, b = W * 0.05, torch.randn((L,), generator=g) * 0.1
+    Wb, bb = ops.pack_head_blocks(W.to(cuda, torch.bfloat16),
+                                  b.to(cuda, torch.bfloat16))
+    n_blk = Wb.shape[0]
+    ids = torch.randint(0, n_blk + 2, (B, K), generator=g, dtype=torch.int32)
+    v = torch.randn((100, d), generator=g)
+    return Wb, bb, h.to(cuda, torch.bfloat16), ids.to(cuda), v.to(cuda)
+
+
+@pytest.mark.parametrize("B", [1, 4, 130])
+@pytest.mark.parametrize("d", [500, 2560])
+def test_cuda_bf16_kernels_match_plain(cuda, d, B):
+    """The bfloat16 bodies of the route, gather and fused kernels against
+    their plain versions on the same bf16 inputs: routes equal, logits,
+    values and logZ within 1e-5 (each bf16 product is exact in float32,
+    so only the order of the float32 sums differs); fused == unfused bit
+    for bit; only the bf16 counters move."""
+    Wb, bb, h, ids, v = _bf16_inputs(cuda, d, 25_000 if d == 500 else 32_000,
+                                     B, 16, seed=d + B)
+    n_blk = Wb.shape[0]
+    ops.reset_launches()
+    assert torch.equal(cluster_route(h, v), cluster_route_plain(h, v))
+    raw = screened_logits(Wb, bb, h, ids)
+    assert raw.dtype == torch.float32
+    torch.testing.assert_close(raw, screened_logits_plain(Wb, bb, h, ids),
+                               **TOL)
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    row = torch.where(valid, raw, NEG_INF).reshape(B, -1)
+    lane = torch.arange(V_BLK, device=cuda, dtype=torch.int32)
+    word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    noise = ops.gumbel_noise((B, 16, V_BLK),
+                             torch.Generator(device=cuda).manual_seed(d), cuda)
+    for k in (1, 5, 129):
+        for nz in (None, noise):
+            ki, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=k, noise=nz)
+            pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k, nz)
+            torch.testing.assert_close(kv, pv, **TOL)
+            torch.testing.assert_close(kz, pz, **TOL)
+            if nz is None:
+                uv, upos = topk_desc(row, k)
+                assert torch.equal(kv, uv)
+                assert torch.equal(ki, torch.gather(word, 1, upos))
+    assert all(ops.LAUNCHES[name] == 0 for name in ("cluster_route",
+               "screened_logits", "fused_screened_topk"))
+    assert ops.LAUNCHES["cluster_route_bf16"] == 1
+    assert ops.LAUNCHES["screened_logits_bf16"] == 1
+    assert ops.LAUNCHES["fused_screened_topk_bf16"] == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [115, 128, 129])
+@pytest.mark.parametrize("K", [225, 250])
+def test_cuda_fused_serves_every_k(cuda, K, k, dtype):
+    """The shapes the merge once refused (K >= 225 tiles at k >= 115..128):
+    on weights and h of a 0.5 grid (every sum exact in float32) ids, values
+    and logZ equal the plain version's bit for bit, at B = 1 and 4, with
+    mid-row and all-sentinel rows; and fused == unfused."""
+    d = 2560
+    Wb, bb, h, _, _ = _bf16_inputs(cuda, d, 32_000, 4, K, seed=K + k,
+                                   ties=True)
+    Wb, bb, h = Wb.to(dtype), bb.to(dtype), h.to(dtype)
+    n_blk = Wb.shape[0]
+    ids = torch.stack([torch.randperm(n_blk, generator=torch.Generator()
+                                      .manual_seed(K * 4 + i))[:K]
+                       for i in range(4)]).to(torch.int32).to(cuda)
+    ids = _row_sentinels(ids, n_blk)
+    for B in (1, 4):
+        hb, ib = h[:B].contiguous(), ids[:B].contiguous()
+        ki, kv, kz = fused_screened_topk(Wb, bb, hb, ib, k=k)
+        pi, pv, pz = fused_screened_topk_plain(Wb, bb, hb, ib, k)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+        fin = torch.isfinite(pz)
+        assert torch.equal(fin, torch.isfinite(kz))
+        torch.testing.assert_close(kz[fin], pz[fin], **TOL)
+        valid = ((ib >= 0) & (ib < n_blk))[..., None]
+        row = torch.where(valid, screened_logits(Wb, bb, hb, ib),
+                          NEG_INF).reshape(B, -1)
+        uv, _ = topk_desc(row, k)
+        assert torch.equal(kv, uv)
 
 
 @pytest.mark.parametrize("family", ["lstm", "hybrid"])

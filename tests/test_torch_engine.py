@@ -104,7 +104,7 @@ def test_model_hidden_states_match(fx):
 
     jcache = jm.init_cache(B, 32, dtype=jnp.float32)
     jh, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcache)
-    tcache = tm.init_cache(B, device="cpu")
+    tcache = tm.init_cache(B, dtype=torch.float32, device="cpu")
     th1, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :2])},
                              tcache)
     th2, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, 2:])},

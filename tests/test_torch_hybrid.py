@@ -233,7 +233,7 @@ def test_model_hidden_states_match(fx):
 
     jcache = jm.init_cache(B, MAX_LEN, dtype=jnp.float32)
     jh, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcache)
-    tcache = tm.init_cache(B, MAX_LEN, device="cpu")
+    tcache = tm.init_cache(B, MAX_LEN, dtype=torch.float32, device="cpu")
     th, tcache = tm.prefill(tp, {"tokens": _t(toks)}, tcache)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=1e-4)
     tok = toks[:, -1]

@@ -318,14 +318,14 @@ def test_wrappers_validate_inputs():
 
 def test_fused_parts_fill_the_card():
     """Each candidate tile is cut into the fewest parts (1, 2, 4, 8) whose
-    B·K·P blocks put two on every SM of a 132-SM H100 (k = 1 at d = 500:
-    every merge fits in shared memory)."""
-    assert fused_parts(4, 16, 132, 1, 500) == 8   # the decode step: 512 blocks
-    assert fused_parts(8, 16, 132, 1, 500) == 4
-    assert fused_parts(1, 1, 132, 1, 500) == 8    # never more than 8
-    assert fused_parts(4, 200, 132, 1, 500) == 1  # the full-cover screen
-    assert fused_parts(130, 16, 132, 1, 500) == 1
-    assert fused_parts(1, 200, 132, 1, 500) == 2
+    B·K·P blocks put two on every SM of a 132-SM H100 (the rule alone: the
+    merge fits every k)."""
+    assert fused_parts(4, 16, 132) == 8   # the decode step: 512 blocks
+    assert fused_parts(8, 16, 132) == 4
+    assert fused_parts(1, 1, 132) == 8    # never more than 8
+    assert fused_parts(4, 200, 132) == 1  # the full-cover screen
+    assert fused_parts(130, 16, 132) == 1
+    assert fused_parts(1, 200, 132) == 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
