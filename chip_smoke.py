@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU, and
 check it: the L2S screened decode of the paper's LSTM (nmt-deen-lstm), the
-training side (the LM trainer and Algorithm 1, fitting a screen), the
+training side (the LM trainer and Algorithm 1, fitting a screen; training
+zamba2-2.7b and mamba2-1.3b through the SSD kernel's backward), the
 Mamba2/Zamba2 decode path (zamba2-2.7b), continuous batching (decode
 streams, the scheduler and the serving launcher) on both, the other heads
 (adaptive on the fused kernel, the §4.1 baselines on the host), and
@@ -269,14 +270,45 @@ Phases, one line (or a few) each:
               profiler counts for each port kernel equal to the launches
               its wrapper counted in the same call (graph replays add
               the count their capture recorded).
-  8. a JSON line {"kernels": [...]} (each kernel with its launches on the
+  8. train-ssm (after the serving phases and their profiles) the SSD
+              backward kernel against ssd_intra_bwd_plain at zamba2's and
+              mamba2's chunks: max |kernel - plain| / max
+              |plain| of dxw, dB, dC and dl, each <= 1e-4, two launches bit
+              for bit; both timed like phase 4, with the bound of the
+              gradient's five causal products and two Q x N x P ones;
+              zamba2-2.7b at full width cut to 6 layers (one shared-block
+              application), one batch of 1 x 512: loss_and_grads on the
+              card (the kernels) against the CPU (the plain versions),
+              every leaf within 1e-4 x max |g|, the loss within 1e-5
+              relative; full-width zamba2-2.7b in float32 on 4 x 512: the
+              gradients of remat none and block bit for bit (their times
+              and peak memory), a profiled remat-block forward and backward
+              (device calls == counted launches), then 3 steps of
+              make_train_step (remat block, donated) on that batch: the
+              loss falls at every step, peak device memory under 80 GiB,
+              ssd_intra 3 L (each layer run, and rerun by its super-block's
+              and its own recompute) and ssd_intra_bwd L launches a step;
+              mamba2-1.3b at full width, 2 steps (3 L - 1 forward launches
+              a step: its one super-block's recompute stops before its last
+              layer); paths "zamba2-2.7b train" and "mamba2-1.3b train";
+     serve-cli zamba2  on full-width zamba2-2.7b (float32, drawn on the
+              host as the launchers draw): python -m
+              repro_torch.launch.train --steps 2 --batch 4 --seq 512
+              --ckpt-dir <tmp> (a 27.8 GB checkpoint of params and AdamW
+              state) and the same again, which resumes from it with nothing
+              left to train or save; python -m repro_torch.launch.serve
+              --l2s --head screened-cuda --budget 1024 --train-steps 2
+              --requests 4 --max-new 8 returns 0 with its token-agreement
+              line;
+  9. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on each
               path: the two e2e paths, their graph phases, serve, the
               fitted screen's "nmt-deen-lstm l2s-fit", the streams
               ("nmt-deen-lstm stream", "zamba2-2.7b stream"),
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
-              paged", "zamba2-2.7b spec" and "mamba2-1.3b bf16" (the
+              paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", "zamba2-2.7b
+              train" and "mamba2-1.3b train" (the
               "zamba2-2.7b" path is its bfloat16 model), each
               counted from zero over that path's own runs; the bf16 bodies
               as kernels of their own, "cluster_route_bf16",
@@ -288,7 +320,8 @@ Phases, one line (or a few) each:
               kernel "at_beam_shape"; the fused kernel "unfused_ms" and
               "adaptive_step" (the [heads] step times and bounds); the
               cache update's times are the K and V pair's, with "single_ms"
-              of one single-cache launch)
+              of one single-cache launch; the SSD backward's, at zamba2's
+              chunk, with "at_mamba2_chunk")
               and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
@@ -296,6 +329,7 @@ or without the repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -448,6 +482,7 @@ KERNEL_NAMES = {"cluster_route": ("route_kernel",),
                 "screened_logits": ("screened_logits_kernel",),
                 "fused_screened_topk": ("fused_topk_kernel",),
                 "ssd_intra": ("ssd_intra_kernel",),
+                "ssd_intra_bwd": ("ssd_intra_bwd_kernel",),
                 "cache_slot_update": ("cache_kv_update_kernel",
                                       "cache_slot_update_kernel"),
                 "cluster_route_bf16": ("route_bf16_kernel",),
@@ -492,6 +527,10 @@ def profile_counted(torch, tag, fn):
             f"the wrappers counted {counted} (records lost); profiling the "
             f"call once more")
         ops.LAUNCHES.update(before)
+    if seen != counted:          # name every event of a port kernel's symbol
+        log(f"{tag} profile: events of the port's kernels "
+            + json.dumps({k: [(e.key[:80], e.count) for e in
+                              kernel_events(kern, k)] for k in KERNEL_NAMES}))
     check(seen == counted, f"{tag} profile: the device ran the port's kernels "
           f"{seen} times, their wrappers counted {counted}")
     log(f"{tag} profile: device calls == counted launches {json.dumps(seen)}")
@@ -1444,6 +1483,260 @@ def phase_ssm_kernels(torch):
         f"bound {t['bound'][0]:.7f} ms ({t['bound'][1]})")
     out["cache_slot_update"] = t
     return err, out
+
+
+# -- training mamba2 and zamba2 ------------------------------------------------
+SSD_BWD_REL_TOL = 1e-4           # the backward kernel against its plain version
+TRAIN_SSM_B, TRAIN_SSM_T = 4, 512  # two chunks of 256: the recurrence is differentiated
+
+
+def ssd_bwd_bound(shape):
+    """(bytes, flops) the SSD intra-chunk gradient needs: xw, B, C, l, dy
+    and dS read once, dxw, dB, dC and dl written once; five products over
+    the causal half (C B^T, dy xw^T, M^T dy, (dM E)^T C, (dM E) B) and two
+    Q x N x P ones (B dS, xw dS^T), two flops per multiply-add."""
+    B, nc, Q, H, P, G, N = shape
+    n_x, n_b = B * nc * Q * H * P, B * nc * Q * G * N
+    n_l, n_s = B * nc * Q * H, B * nc * H * N * P
+    nbytes = 4 * (3 * n_x + 4 * n_b + 2 * n_l + n_s)
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * H * (2 * pairs * (3 * N + 2 * P) + 4 * Q * N * P)
+    return nbytes, flops
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| (0 when both are 0), and the max abs
+    error."""
+    diff = float((got - want).abs().max())
+    return diff / max(float(want.abs().max()), 1e-30), diff
+
+
+def grads_close(torch, tag, got, want, tol=1e-4):
+    """Every leaf of ``got`` within ``tol`` x the largest |g| of ``want``.
+    → (max abs error, the largest |g|)."""
+    gmax = max(float(w.abs().max()) for w in want)
+    err = max(float((g.cpu() - w.cpu()).abs().max()) for g, w in zip(got, want))
+    check(err <= tol * gmax, f"{tag}: max |g - g_ref| {err:.3g} > {tol} x "
+          f"max |g| {gmax:.3g}")
+    return err, gmax
+
+
+def ssm_train_run(torch, np, tag, arch, n_steps, seed, compare_remat):
+    """Full-width ``arch`` drawn in float32 on the card, trained for
+    ``n_steps`` steps of ``make_train_step`` (remat="block", donated params)
+    on one repeated batch of 4 x 512: the loss must fall at every step.
+    With ``compare_remat``, the gradients of remat "none" and "block" on
+    that batch first, bit for bit; and one remat="block" forward and
+    backward profiled (device calls == counted launches).
+    → (launches of the steps, counted from zero; a summary dict)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_flatten
+
+    cfg = get_config(arch)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda", dtype=torch.float32)
+    n_params = sum(t.numel() for t in tree_flatten(params))
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (TRAIN_SSM_B, TRAIN_SSM_T + 1)),
+                           device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    tcfg = {r: TrainConfig(lr=5e-4, warmup_steps=1, total_steps=10, remat=r,
+                           loss_chunk=None) for r in ("none", "block")}
+    out = {"params": n_params}
+    if compare_remat:
+        peak = {}
+        grads = {}
+        for r in ("none", "block"):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, g = loss_and_grads(model, tcfg[r], params, batch)
+            torch.cuda.synchronize()
+            peak[r] = torch.cuda.max_memory_allocated() / 2 ** 30
+            grads[r] = (float(loss), tree_flatten(g), time.perf_counter() - t0)
+            del g
+        # the same two calls again, timed once more: the first pays
+        # first-use costs (cuBLAS, lazily loaded kernels)
+        again = {}
+        for r in ("none", "block"):
+            t0 = time.perf_counter()
+            loss_and_grads(model, tcfg[r], params, batch)
+            torch.cuda.synchronize()
+            again[r] = time.perf_counter() - t0
+        same = (grads["none"][0] == grads["block"][0] and
+                all(torch.equal(a, b) for a, b in zip(grads["none"][1],
+                                                      grads["block"][1])))
+        check(same, f"{tag}: remat none and block gradients differ")
+        log(f"{tag} {arch}: loss_and_grads on {TRAIN_SSM_B} x {TRAIN_SSM_T}, "
+            f"remat none and block: loss {grads['none'][0]:.6f} both, every "
+            f"one of {len(grads['none'][1])} gradient leaves bit-identical; "
+            f"{grads['none'][2]:.3f} / {grads['block'][2]:.3f} s, again "
+            f"{again['none']:.3f} / {again['block']:.3f} s, peak "
+            f"{peak['none']:.2f} / {peak['block']:.2f} GiB")
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        profile_counted(torch, f"{tag} {arch} remat block forward + backward",
+                        lambda: loss_and_grads(model, tcfg["block"], params,
+                                               batch))
+        out.update(peak_gib_no_remat=peak["none"],
+                   fwd_bwd_s={r: again[r] for r in again})
+    step = make_train_step(model, tcfg["block"], donate=True)
+    opt = adamw_init(params)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, gnorms, secs = [], [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))          # synchronises
+        gnorms.append(float(m["gnorm"]))
+        secs.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(losses + gnorms)) and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          f"{tag} {arch}: the loss does not fall at every step: {losses}")
+    check(peak < 80.0, f"{tag} {arch}: peak device memory {peak:.2f} GiB")
+    # each layer's SSD forward runs three times under remat (the forward,
+    # the super-block's recompute, the layer's recompute), its backward once;
+    # a super-block's recompute stops once it has rebuilt what its backward
+    # needs (torch.utils.checkpoint's early stop), so mamba2's one
+    # super-block, which ends with a layer checkpointed on its own, does not
+    # rerun that layer (zamba2's end with the shared block, which it needs)
+    fwd = 3 * cfg.num_layers - (cfg.family == "ssm")
+    want = {"ssd_intra": fwd * n_steps, "ssd_intra_bwd": cfg.num_layers * n_steps}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"{tag} {arch}: launches {launches}, expected {want}")
+    log(f"{tag} {arch} ({n_params} float32 parameters) {n_steps} steps of "
+        f"{TRAIN_SSM_B} x {TRAIN_SSM_T}, remat block: loss "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (falling), gnorm "
+        f"{', '.join(f'{x:.3f}' for x in gnorms)}; s/step "
+        f"{', '.join(f'{x:.3f}' for x in secs)} (host clock, each ending in "
+        f"a sync; the first pays first-use costs); peak "
+        f"device memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); "
+        f"launches ssd_intra {launches['ssd_intra']}, ssd_intra_bwd "
+        f"{launches['ssd_intra_bwd']}")
+    out.update(losses=losses, gnorms=gnorms, s_per_step=secs, peak_gib=peak)
+    del params, opt, step, batch
+    # non-reentrant checkpoints leave reference cycles that hold their
+    # inputs (views of the params) until the garbage collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_train_ssm(torch, np):
+    """[train-ssm] The SSD backward kernel against its plain version at
+    zamba2's and mamba2's chunk shapes, then timed; zamba2-2.7b at full
+    width and 6 layers, one train step's gradients on the card against the
+    CPU's; full-width zamba2-2.7b (3 steps, remat none == block) and
+    mamba2-1.3b (2 steps) trained in float32.
+    → ({"ssd_intra_bwd": max abs err}, {"ssd_intra_bwd": timing},
+       {path: launches})."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels.ssd import ssd_intra_bwd, ssd_intra_bwd_plain
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    from repro_torch.tree import tree_flatten
+    t_phase = time.perf_counter()
+    err = 0.0
+    timer = Timer(torch)
+    timing = {}
+    for i, label in enumerate(("zamba2", "mamba2")):
+        shape = SSD_SHAPES[label]
+        B, nc, Q, H, P, G, N = shape
+        args = ssd_inputs(torch, shape, 40 + i)
+        g = torch.Generator(device="cuda").manual_seed(50 + i)
+        args += [torch.randn((B, nc, Q, H, P), generator=g, device="cuda"),
+                 torch.randn((B, nc, H, N, P), generator=g, device="cuda")]
+        got, want = ssd_intra_bwd(*args), ssd_intra_bwd_plain(*args)
+        torch.cuda.synchronize()
+        rel = {}
+        for name, a, w in zip(("dxw", "dB", "dC", "dl"), got, want):
+            rel[name], diff = rel_err(a, w)
+            err = max(err, diff)
+            check(rel[name] <= SSD_BWD_REL_TOL, f"[train-ssm] ssd_intra_bwd "
+                  f"{label}: {name} relative error {rel[name]:.3g}")
+        again = ssd_intra_bwd(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"[train-ssm] ssd_intra_bwd {label}: two launches differ")
+        log(f"[parity] ssd_intra_bwd {label} (B, nc, Q, H, P, G, N) = {shape}: "
+            f"max |kernel - plain| / max |plain|: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f" (<= {SSD_BWD_REL_TOL}); two launches bit-identical")
+        del got, want, again
+        t = timer.turns({"ms": lambda: ssd_intra_bwd(*args),
+                         "plain_ms": lambda: ssd_intra_bwd_plain(*args)})
+        nbytes, flops = ssd_bwd_bound(shape)
+        t.update(library_ms=None, bound=bound_ms(nbytes, flops))
+        log(f"[timing] ssd_intra_bwd {label} {shape}: {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f} ms, library null, bound {t['bound'][0]:.5f} "
+            f"ms ({t['bound'][1]}; bytes {nbytes}, flops {flops}; "
+            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s of the bound's flops)")
+        timing[label] = t
+        del args
+    torch.cuda.empty_cache()
+
+    # full width, 6 layers (one application of the shared block): the card
+    # (the kernels) against the CPU (the plain versions)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), num_layers=6)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(60),
+                        device="cuda", dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(61).integers(
+        0, cfg.vocab_size, (1, TRAIN_SSM_T + 1)))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    tcfg = TrainConfig(remat="none", loss_chunk=None)
+    side = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, tcfg, to_device(params, where),
+                                     {k: x.to(where) for k, x in batch.items()})
+        side[where] = (float(loss), [x.cpu() for x in tree_flatten(grads)],
+                       time.perf_counter() - t0)
+        del grads
+    gerr, gmax = grads_close(torch, "[train-ssm] zamba2 6 layers card vs CPU",
+                             side["cuda"][1], side["cpu"][1])
+    lrel = abs(side["cuda"][0] - side["cpu"][0]) / abs(side["cpu"][0])
+    check(lrel <= 1e-5, f"[train-ssm] card vs CPU loss rel {lrel:.3g}")
+    log(f"[train-ssm] zamba2-2.7b full width, 6 layers, 1 x {TRAIN_SSM_T}: "
+        f"loss_and_grads on the card (kernels) vs the CPU (plain): max "
+        f"|g_card - g_cpu| {gerr:.3g} <= 1e-4 x max |g| {gmax:.3g} over "
+        f"{len(side['cpu'][1])} leaves; loss {side['cuda'][0]:.6f} vs "
+        f"{side['cpu'][0]:.6f} (rel {lrel:.2g} <= 1e-5); "
+        f"{side['cuda'][2]:.2f} s vs {side['cpu'][2]:.2f} s")
+    del params, side
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches, summary = {}, {}
+    launches["zamba2-2.7b train"], summary["zamba2-2.7b"] = ssm_train_run(
+        torch, np, "[train-ssm]", "zamba2-2.7b", 3, 70, True)
+    launches["mamba2-1.3b train"], summary["mamba2-1.3b"] = ssm_train_run(
+        torch, np, "[train-ssm]", "mamba2-1.3b", 2, 71, False)
+    log(f"[train-ssm] phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"summary {json.dumps(summary)}")
+    t = timing["zamba2"]
+    t["at_mamba2_chunk"] = {k: timing["mamba2"][k] for k in
+                            ("ms", "plain_ms", "library_ms")}
+    t["at_mamba2_chunk"]["bound_ms"] = timing["mamba2"]["bound"][0]
+    t["at_mamba2_chunk"]["bound_by"] = timing["mamba2"]["bound"][1]
+    return {"ssd_intra_bwd": err}, {"ssd_intra_bwd": t}, launches
 
 
 def zamba2_model(torch, np, tag, dtype=None):
@@ -2860,6 +3153,69 @@ def phase_serve_cli(torch):
         f"exit {codes}")
 
 
+def cli_zamba2(torch):
+    """[serve-cli] the launchers on full-width zamba2-2.7b (float32, drawn
+    from a CPU generator as the launchers draw): ``launch.train`` 2 steps
+    of 4 x 512 saving a checkpoint (params and AdamW state, 27.8 GB), then
+    run again with the same ``--steps``: it resumes from the checkpoint and
+    has nothing left to train or save (a second checkpoint would pass the
+    chip machine's 45 GiB limit on disk writes);
+    ``launch.serve --l2s --head screened-cuda`` (train, fit a block
+    screen, serve) exits 0 with its token-agreement line."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import serve, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory() as ck:
+        targv = ["--arch", "zamba2-2.7b", "--device", "cuda", "--batch", "4",
+                 "--seq", "512", "--log-every", "1", "--ckpt-dir", ck]
+        for run in ("first", "resumed"):
+            out = io.StringIO()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = train.main(targv + ["--steps", "2"])
+            runs[run] = (rc, out.getvalue(), time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+            gc.collect()
+            torch.cuda.empty_cache()
+    first, resumed = runs["first"], runs["resumed"]
+    check(first[0] == 0 and first[1].count("[train] step") == 2 and
+          "saved checkpoint at step 2" in first[1],
+          f"[serve-cli] launch.train zamba2-2.7b: exit {first[0]}:\n{first[1]}")
+    check(resumed[0] == 0 and "resumed from step 2" in resumed[1] and
+          "[train] step" not in resumed[1] and "saved" not in resumed[1],
+          f"[serve-cli] launch.train zamba2-2.7b resume: exit {resumed[0]}:"
+          f"\n{resumed[1]}")
+    for ln in first[1].splitlines() + resumed[1].splitlines():
+        log(ln)
+    log(f"[serve-cli] python -m repro_torch.launch.train {' '.join(targv[:-1])}"
+        f" <dir> --steps 2: exit 0 in {first[2]:.1f} s (peak device memory "
+        f"{first[3]:.2f} GiB, remat none); the same again resumed from its "
+        f"checkpoint: exit 0 in {resumed[2]:.1f} s (peak {resumed[3]:.2f} GiB)")
+    sargv = ["--arch", "zamba2-2.7b", "--device", "cuda", "--l2s", "--head",
+             "screened-cuda", "--budget", "1024", "--train-steps", "2",
+             "--requests", "4", "--max-new", "8"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(sargv)
+    secs = time.perf_counter() - t0
+    check(rc == 0 and "screened-cuda decode:" in out.getvalue() and
+          "token agreement" in out.getvalue(),
+          f"[serve-cli] launch.serve zamba2-2.7b: exit {rc}:\n{out.getvalue()}")
+    for ln in out.getvalue().splitlines():
+        log(ln)
+    log(f"[serve-cli] python -m repro_torch.launch.serve {' '.join(sargv)}: "
+        f"exit 0 in {secs:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # -- speculative decoding and the page pool -------------------------------------
 SPEC_N = 4                       # [spec] draft length (n_max)
 POOL_PAGE = 16                   # [pool] page size
@@ -3744,9 +4100,19 @@ def main() -> int:
                                  torch, np, ctx)
     del ctx
     costs = walled("launch costs", launch_costs, torch, np)
+    # training last, so the serving phases' profiles, held to the wrappers'
+    # counts, run in the process state they were written for: with these
+    # two phases ahead of them, the profiler left the zamba2 adaptive
+    # profile one ssd_intra record short of ~105,600, in both attempts
+    bwd_err, bwd_times, train_ssm = walled("train-ssm", phase_train_ssm,
+                                           torch, np)
+    err.update(bwd_err)
+    times.update(bwd_times)
+    walled("serve-cli zamba2", cli_zamba2, torch)
     # each kernel's launches on the path it was ported for, and on each path
     launches = {k: (hybrid if k in BF16_KERNELS or k in ssm_err else
                     lstm)[k] for k in lstm}
+    launches["ssd_intra_bwd"] = train_ssm["zamba2-2.7b train"]["ssd_intra_bwd"]
     paths = {"nmt-deen-lstm": lstm, "nmt-deen-lstm graph": graph_lstm,
              "serve": serve, "nmt-deen-lstm l2s-fit": l2s_fit,
              "zamba2-2.7b": hybrid,
@@ -3759,7 +4125,7 @@ def main() -> int:
              "zamba2-2.7b adaptive": adaptive_z,
              "nmt-deen-lstm spec": spec_lstm,
              "nmt-deen-lstm paged": pool_lstm,
-             "zamba2-2.7b spec": spec_hybrid}
+             "zamba2-2.7b spec": spec_hybrid, **train_ssm}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),
@@ -3769,6 +4135,8 @@ def main() -> int:
                                         "src/repro/kernels/fused_topk.py:193"),
                 "ssd_intra": ("src/repro_torch/csrc/ssd.cu",
                               "src/repro/kernels/ssd.py:70"),
+                "ssd_intra_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
+                                  "src/repro/layers/ssm.py:116-125"),
                 "cache_slot_update": ("src/repro_torch/csrc/cache_update.cu",
                                       "src/repro/kernels/cache_update.py:69")}
     for name in L2S_KERNELS:                  # their bfloat16 bodies
@@ -3785,7 +4153,8 @@ def main() -> int:
                         "launches_by_path": {p: n.get(name, 0)
                                              for p, n in paths.items()},
                         "launch_cost_ms": costs.get(name)})
-        for key in ("unfused_ms", "single_ms", "two_single_ms"):
+        for key in ("unfused_ms", "single_ms", "two_single_ms",
+                    "at_mamba2_chunk"):
             if key in t:
                 kernels[-1][key] = t[key]
         if name == "fused_screened_topk_bf16":

@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
@@ -27,12 +28,20 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     metadata: dict | None = None) -> str:
+    """Write ``tree``'s leaves to ``<dir>/step_<N>/arrays.npz``, one leaf at
+    a time (the file ``np.savez`` writes: an uncompressed zip of ``a<i>.npy``
+    members), so host memory holds one leaf, not the whole tree: a float32
+    zamba2-2.7b with its AdamW moments is 27.8 GB."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
     leaves = tree_flatten(tree)
-    arrays = {f"a{i}": torch.as_tensor(x).detach().cpu().numpy()
-              for i, x in enumerate(leaves)}
-    np.savez(os.path.join(path, "arrays.npz"), **arrays)
+    with zipfile.ZipFile(os.path.join(path, "arrays.npz"), mode="w",
+                         compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, x in enumerate(leaves):
+            with zf.open(f"a{i}.npy", "w", force_zip64=True) as fid:
+                np.lib.format.write_array(
+                    fid, torch.as_tensor(x).detach().cpu().numpy())
     meta = {"n_leaves": len(leaves), "step": step,
             "metadata": metadata or {}}
     with open(os.path.join(path, "meta.json"), "w") as f:

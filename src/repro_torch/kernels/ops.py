@@ -1,9 +1,10 @@
 """Public compositions over the kernels, their build and loader, and the
 per-kernel launch counters.
 
-Two further kernels sit on the SSM / hybrid path and need no composition:
+Further kernels sit on the SSM / hybrid path and need no composition:
 ``kernels/ssd.py::ssd_intra`` (``csrc/ssd.cu``, the SSD intra-chunk dual
-form inside ``layers/ssm.py::ssd_chunked``) and
+form inside ``layers/ssm.py::ssd_chunked``) with its gradient
+``ssd_intra_bwd`` (``csrc/ssd_bwd.cu``, the backward of ``SSDIntraFn``) and
 ``kernels/cache_update.py::cache_slot_update`` (``csrc/cache_update.cu``; its
 pair form ``cache_kv_update`` is the K and V cache write of
 ``layers/attention.py::attn_decode``, one launch for both).
@@ -24,7 +25,8 @@ Two decode hot paths, twins of ``repro/kernels/ops.py``:
 ``tier_fused_topk`` — the same fused kernel over block ids given directly
   (no route step): the adaptive head's per-tier entry.
 
-Kernels. Each ``csrc/*.cu`` (route, screen, fused_topk, ssd, cache_update)
+Kernels. Each ``csrc/*.cu`` (route, screen, fused_topk, ssd, ssd_bwd,
+cache_update)
 exposes a plain ``extern "C"`` launcher. ``build_kernels`` compiles each
 with its own ``nvcc`` process (all started together) into a shared library
 under ``build/repro_torch/`` at the repository root, named by a hash of its
@@ -77,13 +79,15 @@ _SIGNATURES = {
                    "l2s_fused_screened_topk_bf16":
                    ([_P] * 10 + [_I] * 6 + [_P], _I)},
     "ssd": {"l2s_ssd_intra": ([_P] * 6 + [_I] * 6 + [_P], _I)},
+    "ssd_bwd": {"l2s_ssd_intra_bwd": ([_P] * 11 + [_I] * 6 + [_P], _I)},
     "cache_update": {"l2s_cache_slot_update": ([_P] * 3 + [_I] * 4 + [_P], _I),
                      "l2s_cache_kv_update": ([_P] * 5 + [_I] * 4 + [_P], _I)},
 }
 
 LAUNCHES: Dict[str, int] = {"cluster_route": 0, "screened_logits": 0,
                             "fused_screened_topk": 0, "ssd_intra": 0,
-                            "cache_slot_update": 0, "cluster_route_bf16": 0,
+                            "ssd_intra_bwd": 0, "cache_slot_update": 0,
+                            "cluster_route_bf16": 0,
                             "screened_logits_bf16": 0,
                             "fused_screened_topk_bf16": 0}
 # the bfloat16 kernel bodies of the three L2S kernels, counted apart

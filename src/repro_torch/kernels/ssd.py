@@ -12,6 +12,21 @@ so a dead position is exp(−1e30) = 0, never exp of a positive difference.
 On a CUDA tensor ``ssd_intra`` launches ``csrc/ssd.cu``; on a CPU tensor it
 runs ``ssd_intra_plain``, the twin of the reference's ``ssd_intra_ref``.
 The inter-chunk recurrence stays in ``repro_torch.layers.ssm``.
+
+``ssd_intra`` is differentiable (``SSDIntraFn``). Its backward is the
+gradient the reference takes through XLA (``repro/layers/ssm.py``'s
+intra-chunk einsums), written out in closed form: with
+M[t,s] = (C_t·B_s)·E[t,s], E[t,s] = exp(l_t − l_s) for s ≤ t else 0, and
+w_s = exp(l_{Q−1} − l_s),
+
+    dxw = Mᵀ·dy + (B∘w)·dS               dM = dy·xwᵀ (causal part)
+    dC  = (dM∘E)·B                        dB = (dM∘E)ᵀ·C + w∘(xw·dSᵀ)
+    dl_t += Σ_s G[t,s],  dl_s −= Σ_t G[t,s],  G = dM∘M
+    u_s = w_s·(B_s·(dS·xw_s)):  dl_s −= u_s,  dl_{Q−1} += Σ_s u_s
+
+with dB and dC summed over the H/G heads of a group. On a CUDA tensor the
+backward launches ``csrc/ssd_bwd.cu``; on a CPU tensor it runs
+``ssd_intra_bwd_plain``.
 """
 from __future__ import annotations
 
@@ -41,10 +56,39 @@ def ssd_intra_plain(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, S
 
 
-def ssd_intra(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xw (B, nc, Q, H, P) f32 dt-weighted inputs; Bm/Cm (B, nc, Q, G, N)
-    f32; l (B, nc, Q, H) f32 cumulative log decay; G divides H.
-    → (y (B, nc, Q, H, P) f32, S (B, nc, H, N, P) f32)."""
+def ssd_intra_bwd_plain(xw, Bm, Cm, l, dy, dS) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch gradient of ``ssd_intra_plain``, in closed form (the
+    module docstring). dy (B,nc,Q,H,P), dS (B,nc,H,N,P) → (dxw, dBm, dCm,
+    dl), float32, in the shapes of xw, Bm, Cm and l."""
+    Bsz, nc, Q, H, P = xw.shape
+    G, N = Bm.shape[3], Bm.shape[4]
+    rep = H // G
+    Bh = Bm.float().repeat_interleave(rep, dim=3)                 # (B,nc,Q,H,N)
+    Ch = Cm.float().repeat_interleave(rep, dim=3)
+    xf, lf, dy, dS = xw.float(), l.float(), dy.float(), dS.float()
+    diff = lf[:, :, :, None, :] - lf[:, :, None, :, :]           # (B,nc,t,s,H)
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=xw.device).tril()[None, None, :, :, None]
+    E = torch.exp(torch.where(causal, diff, NEG_INF))
+    M = torch.einsum("bcqhn,bcshn->bcqsh", Ch, Bh) * E
+    w = torch.exp(lf[:, :, -1:, :] - lf)                          # (B,nc,s,H)
+    dxw = (torch.einsum("bcqsh,bcqhp->bcshp", M, dy)
+           + torch.einsum("bcshn,bchnp->bcshp", Bh * w[..., None], dS))
+    dM = torch.einsum("bcqhp,bcshp->bcqsh", dy, xf)
+    dCB = dM * E
+    V = torch.einsum("bcshp,bchnp->bcshn", xf, dS)                # dS·xw_s
+    dCh = torch.einsum("bcqsh,bcshn->bcqhn", dCB, Bh)
+    dBh = torch.einsum("bcqsh,bcqhn->bcshn", dCB, Ch) + w[..., None] * V
+    Gm = dM * M
+    u = w * torch.sum(Bh * V, dim=-1)                             # (B,nc,s,H)
+    dl = torch.sum(Gm, dim=3) - torch.sum(Gm, dim=2) - u
+    dl[:, :, -1] += torch.sum(u, dim=2)
+    dB = dBh.reshape(Bsz, nc, Q, G, rep, N).sum(dim=4)
+    dC = dCh.reshape(Bsz, nc, Q, G, rep, N).sum(dim=4)
+    return dxw, dB, dC, dl
+
+
+def _check_shapes(xw, Bm, Cm, l) -> None:
     from repro_torch.kernels import ops
     dev = xw.device
     ops.check_tensor(xw, "xw", torch.float32, 5, dev)
@@ -52,17 +96,93 @@ def ssd_intra(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
     ops.check_tensor(Cm, "Cm", torch.float32, 5, dev)
     ops.check_tensor(l, "l", torch.float32, 4, dev)
     B, nc, Q, H, P = xw.shape
-    G, N = Bm.shape[3], Bm.shape[4]
+    G = Bm.shape[3]
     if (tuple(Bm.shape[:3]) != (B, nc, Q) or Cm.shape != Bm.shape
             or tuple(l.shape) != (B, nc, Q, H) or G < 1 or H % G):
         raise ValueError(f"ssd_intra: shapes xw {tuple(xw.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, l "
                          f"{tuple(l.shape)} do not match (G must divide H)")
+
+
+def _ssd_intra_fwd(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
+    from repro_torch.kernels import ops
+    _check_shapes(xw, Bm, Cm, l)
+    dev = xw.device
     if dev.type == "cpu":
         return ssd_intra_plain(xw, Bm, Cm, l)
+    B, nc, Q, H, P = xw.shape
+    G, N = Bm.shape[3], Bm.shape[4]
     y = torch.empty((B, nc, Q, H, P), dtype=torch.float32, device=dev)
     S = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
     ops.launch("ssd_intra", "ssd", "l2s_ssd_intra", dev,
                xw.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), l.data_ptr(),
                y.data_ptr(), S.data_ptr(), B * nc, Q, H, P, G, N)
     return y, S
+
+
+def bwd_scratch_floats(BC: int, Q: int, H: int, P: int, N: int) -> int:
+    """Floats of the backward kernel's scratch (``csrc/ssd_bwd.cu``): the
+    per-head dB and dC, the row and column sums of G, and u_s per 64-wide
+    slice of P."""
+    return BC * Q * H * (2 * N + 2 + -(-P // 64))
+
+
+def ssd_intra_bwd(xw, Bm, Cm, l, dy, dS) -> Tuple[torch.Tensor, ...]:
+    """Gradient of ``ssd_intra`` (arguments as ``ssd_intra_bwd_plain``'s):
+    on a CUDA tensor the kernel of ``csrc/ssd_bwd.cu``, on a CPU tensor
+    the plain version. → (dxw, dBm, dCm, dl) float32."""
+    from repro_torch.kernels import ops
+    _check_shapes(xw, Bm, Cm, l)
+    dev = xw.device
+    B, nc, Q, H, P = xw.shape
+    G, N = Bm.shape[3], Bm.shape[4]
+    ops.check_tensor(dy, "dy", torch.float32, 5, dev)
+    ops.check_tensor(dS, "dS", torch.float32, 5, dev)
+    if dy.shape != xw.shape or tuple(dS.shape) != (B, nc, H, N, P):
+        raise ValueError(f"ssd_intra_bwd: dy {tuple(dy.shape)} / dS "
+                         f"{tuple(dS.shape)} do not match xw "
+                         f"{tuple(xw.shape)} and N = {N}")
+    if dev.type == "cpu":
+        return ssd_intra_bwd_plain(xw, Bm, Cm, l, dy, dS)
+    dxw = torch.empty_like(xw)
+    dB = torch.empty_like(Bm)
+    dC = torch.empty_like(Cm)
+    dl = torch.empty_like(l)
+    scratch = torch.empty(bwd_scratch_floats(B * nc, Q, H, P, N),
+                          dtype=torch.float32, device=dev)
+    ops.launch("ssd_intra_bwd", "ssd_bwd", "l2s_ssd_intra_bwd", dev,
+               xw.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), l.data_ptr(),
+               dy.data_ptr(), dS.data_ptr(), dxw.data_ptr(), dB.data_ptr(),
+               dC.data_ptr(), dl.data_ptr(), scratch.data_ptr(),
+               B * nc, Q, H, P, G, N)
+    return dxw, dB, dC, dl
+
+
+class SSDIntraFn(torch.autograd.Function):
+    """``ssd_intra`` under autograd: the forward launch, and a backward
+    that launches the backward kernel (CPU tensors: the plain versions).
+    The saved inputs are the contiguous tensors the forward read, and
+    nothing of a launch's outputs is kept, so a checkpointed recompute
+    sees the same inputs."""
+
+    @staticmethod
+    def forward(ctx, xw, Bm, Cm, l):
+        ctx.save_for_backward(xw, Bm, Cm, l)
+        return _ssd_intra_fwd(xw, Bm, Cm, l)
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        xw, Bm, Cm, l = ctx.saved_tensors
+        B, nc, Q, H, P = xw.shape
+        N = Bm.shape[4]
+        dy = torch.zeros_like(xw) if dy is None else dy.contiguous()
+        dS = xw.new_zeros((B, nc, H, N, P)) if dS is None else dS.contiguous()
+        return ssd_intra_bwd(xw, Bm, Cm, l, dy, dS)
+
+
+def ssd_intra(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xw (B, nc, Q, H, P) f32 dt-weighted inputs; Bm/Cm (B, nc, Q, G, N)
+    f32; l (B, nc, Q, H) f32 cumulative log decay; G divides H.
+    → (y (B, nc, Q, H, P) f32, S (B, nc, H, N, P) f32), differentiable
+    in all four inputs."""
+    return SSDIntraFn.apply(xw, Bm, Cm, l)

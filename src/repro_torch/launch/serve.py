@@ -6,17 +6,21 @@ Twin of ``repro/launch/serve.py``.
 (Algorithm 1; a word-level screen, so the fast head is ``screened``), and
 serves ``ServeRequest`` batches through both heads via
 ``DecodeEngine.serve_batch`` + ``StaticPolicy``, reporting decode time and
-token agreement. ``--device`` is ``cuda`` (the default) or ``cpu``.
+token agreement. ``--device`` is ``cuda`` (the default) or ``cpu``. It
+serves every ported family: the LSTMs, ``mamba2-1.3b`` and ``zamba2-2.7b``,
+each trained first in float32 (``--arch zamba2-2.7b`` draws 2.31 B
+parameters from a CPU generator, tens of seconds, as the reference's
+launcher builds float32 weights).
 
 ``--scheduler`` serves the same traffic through the continuous-batching
 ``ContinuousScheduler`` instead: mixed latency tiers, a ``BudgetAdmission``
 policy against the head catalog's flops numbers, and a ``ServerStats``
 report (admit/reject/downgrade counts, per-head tokens/s, p50/p95
-latency), over a ``PagePool`` (logical LSTM pages with a shared-prefix
-radix cache). ``--draft-head NAME`` adds speculative decoding: every
-request carries the draft head, and exact-routed traffic decodes on
-``SpecDecodeStream`` lanes (the same tokens, fewer exact-head weight
-streams). A kernel head (``screened-cuda``, as ``--head`` or
+latency), for the LSTMs over a ``PagePool`` (logical LSTM pages with a
+shared-prefix radix cache). ``--draft-head NAME`` adds speculative
+decoding: every request carries the draft head, and exact-routed traffic
+decodes on ``SpecDecodeStream`` lanes (the same tokens, fewer exact-head
+weight streams). A kernel head (``screened-cuda``, as ``--head`` or
 ``--draft-head``) needs a 128-word block screen, so ``--l2s`` fits one
 then.
 
@@ -83,16 +87,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if cfg.family != "lstm":
-        raise NotImplementedError(
-            f"{cfg.name}: the launcher trains its LM first, and repro_torch "
-            f"trains the LSTM family only so far (got {cfg.family!r}; "
-            f"ROADMAP.md, Queue 1 item 5b)")
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
     model = Model(cfg)
-    params = model.init(torch.Generator().manual_seed(args.seed), device=dev)
+    params = model.init(torch.Generator().manual_seed(args.seed), device=dev,
+                        dtype=torch.float32)
 
     # fail FAST on a screening head without --l2s: probe the factory with a
     # tiny weight slice BEFORE spending time on training. Screening heads
@@ -159,7 +159,7 @@ def main(argv=None):
     # quick train so context vectors are meaningful
     tcfg = TrainConfig(lr=1e-3, total_steps=args.train_steps,
                        warmup_steps=10, remat="none", loss_chunk=None)
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, donate=True)
     opt_state = adamw_init(params)
     for batch in BatchLoader(make_lm_batches(corpus, args.train_steps, 16,
                                              64, seed=1), dev):
@@ -247,10 +247,11 @@ def _serve_scheduler(engine, requests, head_name, draft=None,
     (realtime / standard / batch); the fast head (when available) serves
     the realtime tier, "exact" everything else. The flops budget is sized
     to the catalog so a burst sheds load through the typed reject path.
-    The LSTM families (the only ones the launcher trains) serve over a
-    ``PagePool`` (shared-prefix radix cache + COW pages) and report pool
-    utilization in the log. With ``draft`` set (--draft-head) every
-    request carries it explicitly and exact-routed traffic decodes
+    The LSTM families serve over a ``PagePool`` (shared-prefix radix
+    cache + COW pages) and report pool utilization in the log; the SSM and
+    hybrid ones have no page pool, as in the reference. With ``draft`` set
+    (--draft-head) every request carries it explicitly and exact-routed
+    traffic decodes
     speculatively on ``SpecDecodeStream`` lanes — same tokens, fewer
     exact-head weight streams."""
     import dataclasses

@@ -1,9 +1,11 @@
 """The LM train step. Twin of ``repro/launch/steps.py::make_train_step``.
 
-Forward and backward run through ``torch.autograd`` over the port's plain
-torch layers (the LSTM's products stay IEEE float32: ``resolve_device`` turns
-TF32 off). The reference's prefill and serve steps and its abstract shapes
-belong to its XLA dry-run and are not ported (ROADMAP.md, Queue 1).
+Forward and backward run through ``torch.autograd`` over the port's torch
+layers (float32 products stay IEEE float32: ``resolve_device`` turns TF32
+off); on the card the SSM layers' intra-chunk terms run through
+``kernels/ssd.py``'s kernels, forward and backward. The reference's prefill
+and serve steps and its abstract shapes belong to its XLA dry-run and are
+not ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -52,10 +54,14 @@ def loss_and_grads(model: Model, tcfg: TrainConfig, params,
     return loss, tree_unflatten(params, grads)
 
 
-def make_train_step(model: Model, tcfg: TrainConfig):
+def make_train_step(model: Model, tcfg: TrainConfig, donate: bool = False):
     """fwd + bwd + global-norm clip + AdamW: ``train_step(params, opt_state,
     batch) → (params, opt_state, {"loss", "gnorm"})``, the batch a dict of
-    tensors on the params' device."""
+    tensors on the params' device. ``donate=True`` updates ``params`` and
+    ``opt_state``'s moments in place (the caller gives them up, as to a
+    jitted step with donated buffers): a float32 zamba2-2.7b step then holds
+    one copy of params and moments (3 × 9.26 GB) instead of old and new
+    ones."""
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(model, tcfg, params, batch)
@@ -66,6 +72,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                              tcfg.total_steps)
         params, opt_state = adamw_update(grads, opt_state, params, lr,
                                          tcfg.b1, tcfg.b2,
-                                         weight_decay=tcfg.weight_decay)
+                                         weight_decay=tcfg.weight_decay,
+                                         donate=donate)
         return params, opt_state, {"loss": loss, "gnorm": gnorm}
     return train_step

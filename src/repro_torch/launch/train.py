@@ -1,10 +1,16 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch
-ptb-small-lstm ...``. Twin of ``repro/launch/train.py``, LSTM families only.
+ptb-small-lstm ...``. Twin of ``repro/launch/train.py`` for the ported
+families: the LSTMs, ``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid).
 
 Trains on the synthetic Zipf–Markov corpus on ``--device`` (the card by
 default; ``--device cpu`` with ``--reduced`` is the CPU smoke), printing the
 reference's ``[train]`` lines, and saves / resumes ``(params, opt_state)``
-under ``--ckpt-dir``.
+under ``--ckpt-dir`` (a resumed run with no step left saves nothing).
+Weights are float32 whatever the config's dtype, and
+``remat="none"``, ``loss_chunk=None``, as the reference's launcher sets them;
+they are drawn from a CPU generator, so a seed gives the same weights on any
+device (a full-width zamba2-2.7b takes tens of seconds to draw). The step
+updates params and optimizer state in place (``donate=True``).
 """
 from __future__ import annotations
 
@@ -38,11 +44,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if cfg.family != "lstm":
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch trains the LSTM family only so far "
-            f"(got {cfg.family!r}; SSM and hybrid training: ROADMAP.md, "
-            f"Queue 1)")
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
@@ -50,7 +51,8 @@ def main(argv=None):
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 1),
                        remat="none", loss_chunk=None)
-    params = model.init(torch.Generator().manual_seed(args.seed), device=dev)
+    params = model.init(torch.Generator().manual_seed(args.seed), device=dev,
+                        dtype=torch.float32)
     opt_state = adamw_init(params)
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
@@ -59,7 +61,7 @@ def main(argv=None):
         start = meta.get("step", 0)
         print(f"[train] resumed from step {start}")
 
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, donate=True)
     corpus = ZipfMarkovCorpus(cfg.vocab_size,
                               branching=min(64, cfg.vocab_size // 4),
                               seed=args.seed)
@@ -74,7 +76,9 @@ def main(argv=None):
             print(f"[train] step {step:5d} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['gnorm']):.3f} "
                   f"({(time.time() - t0) / max(i + 1, 1):.2f}s/step)")
-    if args.ckpt_dir:
+    # a resumed run with no step left to train writes nothing: its
+    # checkpoint would be the one it loaded (27.8 GB for zamba2-2.7b)
+    if args.ckpt_dir and args.steps > start:
         save_checkpoint(args.ckpt_dir, args.steps, (params, opt_state),
                         {"step": args.steps, "arch": cfg.name})
         print(f"[train] saved checkpoint at step {args.steps}")

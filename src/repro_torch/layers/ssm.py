@@ -9,7 +9,10 @@ The SSD scan is the chunked dual form: the intra-chunk terms (the output
 inside each chunk and each chunk's state) come from
 ``kernels/ssd.py::ssd_intra`` — the CUDA kernel on the card — and a Python
 loop over the chunks carries the (H, P, N) state across them. Per-head
-scalar decay a_t = exp(dt_t · A_h), A_h = −exp(A_log_h).
+scalar decay a_t = exp(dt_t · A_h), A_h = −exp(A_log_h). The scan is
+differentiable end to end: ``ssd_intra``'s gradient is the backward kernel
+(``kernels/ssd.py::SSDIntraFn``), and the loop rebinds its state rather than
+writing it in place, so autograd keeps each chunk's.
 
 Decode is the O(1) recurrence: h ← a·h + dt·(B ⊗ x);  y = C·h + D·x. The
 projections are ``torch.matmul``.

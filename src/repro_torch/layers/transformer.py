@@ -12,6 +12,15 @@ every leaf of ``params["blocks"]``; Python loops over the layers replace
 "shared_attn": {k, v (L / period, B, S, KV, hd)}}`` — and prefill and decode
 update them IN PLACE (the reference returns new caches).
 
+A full-sequence pass reads the stacked params through ``unbind``, whose
+backward stacks the layers' gradients once, rather than through one
+``select`` a layer, whose backward writes a zero-filled copy of the whole
+stacked leaf for every layer. ``remat=True`` checkpoints each Mamba2 layer
+and each super-block (the layers up to and including a shared-block
+application), as the reference's ``jax.checkpoint`` around ``inner`` and
+``super_body`` does; the stacks draw no random numbers, so no RNG state is
+stashed for the recompute.
+
 The dense / moe / vlm / audio stacks are not ported yet (ROADMAP.md,
 Queue 1).
 """
@@ -20,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import (attn_decode, attn_forward_kv,
@@ -29,7 +39,7 @@ from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.norms import norm_apply, norm_init
 from repro_torch.layers.ssm import (ssm_decode_step, ssm_forward, ssm_init,
                                     ssm_init_cache)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 SSM_FAMILIES = ("ssm", "hybrid")
 
@@ -52,6 +62,12 @@ def _period(cfg: ModelConfig) -> int:
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree: a view of every leaf at index i."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each a tree of ``unbind`` views."""
+    per_leaf = [a.unbind(0) for a in tree_flatten(tree)]
+    return [tree_unflatten(tree, [u[i] for u in per_leaf]) for i in range(n)]
 
 
 def _copy_into(dst, src) -> None:
@@ -111,17 +127,31 @@ def _shared_block(sp, x, cfg: ModelConfig, positions):
     return h + mlp_apply(sp["mlp"], norm_apply(sp["norm2"], h, cfg.norm), cfg), k, v
 
 
-def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None):
-    """Prefill (``cache`` given: filled in place) or plain forward."""
+def _ssm_layer(p, x, cfg: ModelConfig):
+    """One pre-norm Mamba2 layer → (x + its output, its cache dict)."""
+    y, c = ssm_forward(p["ssm"], norm_apply(p["norm"], x, cfg.norm), cfg)
+    return x + y, c
+
+
+def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
+    """Prefill (``cache`` given: filled in place) or plain forward, with
+    ``remat`` each layer and each super-block checkpointed."""
     _check_family(cfg)
     period = _period(cfg)
     positions = _positions(x)
-    for i in range(cfg.num_layers // period):
+    layers = _unstack(params["blocks"], cfg.num_layers)
+
+    def layer_out(p, h):
+        return _ssm_layer(p, h, cfg)[0]
+
+    def super_block(x, i):
         for j in range(period):
             li = i * period + j
-            p = _layer(params["blocks"], li)
-            y, c = ssm_forward(p["ssm"], norm_apply(p["norm"], x, cfg.norm), cfg)
-            x = x + y
+            if remat:
+                x = checkpoint(layer_out, layers[li], x, use_reentrant=False,
+                               preserve_rng_state=False)
+                continue
+            x, c = _ssm_layer(layers[li], x, cfg)
             if cache is not None:
                 _copy_into(_layer(cache["ssm"], li), c)
         if cfg.family == "hybrid":
@@ -132,12 +162,20 @@ def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None):
                 n = min(x.shape[1], S)
                 attn_c["k"][:, :n].copy_(k[:, -S:])
                 attn_c["v"][:, :n].copy_(v[:, -S:])
+        return x
+
+    for i in range(cfg.num_layers // period):
+        x = (checkpoint(super_block, x, i, use_reentrant=False,
+                        preserve_rng_state=False) if remat
+             else super_block(x, i))
     return norm_apply(params["final_norm"], x, cfg.norm)
 
 
-def stack_forward(params, x, cfg: ModelConfig):
-    """Full-sequence stack. x: (B, T, d) → (h (B, T, d), aux loss 0.0)."""
-    return _ssm_stack_run(params, x, cfg), 0.0
+def stack_forward(params, x, cfg: ModelConfig, remat: bool = False):
+    """Full-sequence stack. x: (B, T, d) → (h (B, T, d), aux loss 0.0).
+    ``remat=True`` checkpoints each layer and each super-block: the
+    backward recomputes them instead of keeping their activations."""
+    return _ssm_stack_run(params, x, cfg, remat=remat), 0.0
 
 
 def stack_prefill(params, x, cfg: ModelConfig, cache):

@@ -54,13 +54,15 @@ class Model:
             params["stack"] = stack_init(generator, self.cfg, dtype)
         return to_device(params, dev)
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]):
-        """→ (h (B, T, d), aux loss 0.0)."""
+    def forward(self, params, batch: Dict[str, torch.Tensor],
+                remat: bool = False):
+        """→ (h (B, T, d), aux loss 0.0). ``remat`` checkpoints the SSM
+        and hybrid stacks' layers and super-blocks (the LSTM has none)."""
         x = embed_tokens(params["embed"], batch["tokens"])
         if self.cfg.family == "lstm":
             h, _ = lstm_forward(params["lstm"], x, self.cfg)
             return h, 0.0
-        return stack_forward(params["stack"], x, self.cfg)
+        return stack_forward(params["stack"], x, self.cfg, remat=remat)
 
     def logits(self, params, h) -> torch.Tensor:
         return lm_logits(params["embed"], h, self.cfg)

@@ -37,16 +37,19 @@ def tree_unflatten(template, leaves):
     n = len(tree_flatten(template))
     if len(leaves) != n:
         raise ValueError(f"{len(leaves)} leaves for a template of {n}")
-    it = iter(leaves)
+    return _fill(template, iter(leaves))
 
-    def fill(tmpl):
-        if isinstance(tmpl, dict):
-            filled = {k: fill(tmpl[k]) for k in sorted(tmpl)}
-            return {k: filled[k] for k in tmpl}
-        if isinstance(tmpl, tuple) and hasattr(tmpl, "_fields"):
-            return type(tmpl)(*(fill(v) for v in tmpl))
-        if isinstance(tmpl, (list, tuple)):
-            return type(tmpl)(fill(v) for v in tmpl)
-        return next(it)
 
-    return fill(template)
+def _fill(tmpl, it):
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle that keeps ``it``, and so every leaf,
+    # alive until the garbage collector runs (at full width, gigabytes of
+    # device memory held after the tree is dropped)
+    if isinstance(tmpl, dict):
+        filled = {k: _fill(tmpl[k], it) for k in sorted(tmpl)}
+        return {k: filled[k] for k in tmpl}
+    if isinstance(tmpl, tuple) and hasattr(tmpl, "_fields"):
+        return type(tmpl)(*(_fill(v, it) for v in tmpl))
+    if isinstance(tmpl, (list, tuple)):
+        return type(tmpl)(_fill(v, it) for v in tmpl)
+    return next(it)

@@ -1257,3 +1257,116 @@ def test_cuda_paged_lstm_stream_matches_a_plain_stream(cuda):
     assert got == want
     assert pool.radix.tokens_hit >= 5 * 16
     assert eng.compiled_step_counts() == {("screened-cuda", "greedy"): 1}
+
+
+# -- the SSD backward kernel and SSM / hybrid training ---------------------------
+
+def _ssd_grad_inputs(cuda, B, nc, Q, H, P, G, N, seed):
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn((B, nc, Q, H, P), generator=g)
+    Bm = torch.randn((B, nc, Q, G, N), generator=g)
+    Cm = torch.randn((B, nc, Q, G, N), generator=g)
+    l = -torch.cumsum(torch.rand((B, nc, Q, H), generator=g) * 0.05, dim=2)
+    dy = torch.randn((B, nc, Q, H, P), generator=g)
+    dS = torch.randn((B, nc, H, N, P), generator=g)
+    return [a.to(cuda) for a in (xw, Bm, Cm, l, dy, dS)]
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,G,N", [
+    (2, 2, 256, 8, 64, 1, 64),        # zamba2's chunk, fewer heads
+    (1, 2, 256, 8, 64, 1, 128),       # mamba2's N = 128: two n slices
+    (2, 1, 100, 4, 72, 2, 20),        # G = 2, a ragged P (two p slices)
+    (3, 1, 7, 6, 8, 2, 16),           # a short, odd chunk
+    (1, 2, 65, 4, 64, 1, 128),        # Q = 65: a one-row last tile
+    (2, 1, 1, 4, 64, 1, 64),          # Q = 1
+    (1, 1, 70, 3, 10, 3, 6),          # P, N not multiples of 4
+])
+def test_cuda_ssd_intra_bwd_matches_plain(cuda, B, nc, Q, H, P, G, N):
+    """The backward kernel against ``ssd_intra_bwd_plain`` on the card:
+    each of dxw, dB, dC and dl within 1e-4 of its largest magnitude; a
+    second launch gives the same bits (no atomics)."""
+    from repro_torch.kernels.ssd import ssd_intra_bwd, ssd_intra_bwd_plain
+    args = _ssd_grad_inputs(cuda, B, nc, Q, H, P, G, N, Q + N + P)
+    ops.reset_launches()
+    got = ssd_intra_bwd(*args)
+    again = ssd_intra_bwd(*args)
+    want = ssd_intra_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_intra_bwd"] == 2
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape and torch.equal(a, b)
+        # (at Q = 1, dl is 0 on both sides: its terms cancel exactly)
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((a - w).abs().max()) / scale <= 1e-4
+
+
+def test_cuda_ssd_intra_autograd_runs_both_kernels(cuda):
+    """``ssd_intra`` under autograd on the card: one forward and one
+    backward launch, and the gradients those of the plain version."""
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    xw, Bm, Cm, l, dy, dS = _ssd_grad_inputs(cuda, 2, 2, 64, 4, 16, 2, 8, 5)
+    grads = {}
+    for name, fn in (("kernel", ssd_intra), ("plain", ssd_intra_plain)):
+        ins = [a.clone().requires_grad_(True) for a in (xw, Bm, Cm, l)]
+        ops.reset_launches()
+        y, S = fn(*ins)
+        grads[name] = torch.autograd.grad((y * dy).sum() + (S * dS).sum(), ins)
+        if name == "kernel":
+            assert ops.LAUNCHES["ssd_intra"] == 1
+            assert ops.LAUNCHES["ssd_intra_bwd"] == 1
+    for a, w in zip(grads["kernel"], grads["plain"]):
+        assert float((a - w).abs().max() / w.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-1.3b"])
+def test_cuda_ssm_train_step_matches_the_cpu(cuda, arch):
+    """One train step of the reduced model on the card against the same
+    step on the CPU (gradients within 1e-4 of the largest |g|, loss within
+    1e-5 relative); remat on and off give the card bit-identical
+    gradients; then four AdamW steps on one batch lower its loss."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import ZipfMarkovCorpus, make_lm_batches
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_flatten
+
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu",
+                        dtype=torch.float32)
+    corpus = ZipfMarkovCorpus(cfg.vocab_size, branching=16, seed=0)
+    batches = [{k: torch.as_tensor(x) for k, x in b.items()}
+               for b in make_lm_batches(corpus, 1, 2, 40, seed=2)]
+    got = {}
+    for dev, remat in (("cpu", "none"), (cuda, "none"), (cuda, "block")):
+        tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=4,
+                           remat=remat, loss_chunk=None)
+        ops.reset_launches()
+        loss, grads = loss_and_grads(model, tcfg, to_device(params, dev), {
+            k: x.to(dev) for k, x in batches[0].items()})
+        if dev != "cpu":
+            assert ops.LAUNCHES["ssd_intra_bwd"] == cfg.num_layers
+        got[(str(dev), remat)] = (float(loss),
+                                  [g.cpu() for g in tree_flatten(grads)])
+    cpu, card = got[("cpu", "none")], got[(str(cuda), "none")]
+    gmax = max(float(g.abs().max()) for g in cpu[1])
+    for a, c in zip(card[1], cpu[1]):
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-4 * gmax)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    remat = got[(str(cuda), "block")]
+    assert remat[0] == card[0]
+    assert all(torch.equal(a, b) for a, b in zip(remat[1], card[1]))
+
+    step = make_train_step(model, TrainConfig(
+        lr=3e-3, warmup_steps=1, total_steps=4, remat="block",
+        loss_chunk=None), donate=True)
+    p = to_device(params, cuda)
+    opt = adamw_init(p)
+    batch = {k: x.to(cuda) for k, x in batches[0].items()}
+    losses = []
+    for _ in range(4):
+        p, opt, m = step(p, opt, batch)
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

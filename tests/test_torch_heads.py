@@ -230,7 +230,8 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|$)",
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted((ROOT / "tools").glob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+              ROOT / "examples" / "serve_batch_torch.py"]
     assert len(files) > 20 and all(p.is_file() for p in files)
     port = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
             if "repro_torch" in p.parts}
@@ -240,7 +241,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "serving/scheduler/queue.py", "serving/scheduler/stats.py",
             "serving/scheduler/scheduler.py", "launch/serve.py",
             "heads/adaptive.py", "heads/adapters.py", "heads/sharded.py",
-            "core/baselines.py", "core/lowrank.py"} <= port
+            "core/baselines.py", "core/lowrank.py", "kernels/ssd.py",
+            "launch/train.py", "optim/adamw.py"} <= port
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
