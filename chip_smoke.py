@@ -5,8 +5,9 @@ training side (the LM trainer and Algorithm 1, fitting a screen; training
 zamba2-2.7b and mamba2-1.3b through the SSD kernel's backward), the
 Mamba2/Zamba2 decode path (zamba2-2.7b), continuous batching (decode
 streams, the scheduler and the serving launcher) on both, the other heads
-(adaptive on the fused kernel, the §4.1 baselines on the host), and
-speculative decoding and the LSTM page pool.
+(adaptive on the fused kernel, the §4.1 baselines on the host),
+speculative decoding and the page pool, and the dense transformers
+(gemma-2b, starcoder2-3b, qwen1.5-110b) with paged attention decode.
 
     python3 chip_smoke.py
 
@@ -270,6 +271,37 @@ Phases, one line (or a few) each:
               profiler counts for each port kernel equal to the launches
               its wrapper counted in the same call (graph replays add
               the count their capture recorded).
+  7b. dense  (after the launch costs, before training) the dense family
+              in its configs' bfloat16, drawn on the card: [parity] and
+              [timing] at its new shapes (the route at gemma-2b's d = 2048
+              and qwen1.5-110b's d = 8192, 4 rows of h a thread block
+              cluster there, with a tie across the cluster's blocks; the
+              bf16 gather and fused kernels over gemma's 2,000 tiles, k in
+              1, 5, 128; gather and fused at d = 8192; the cache pair at
+              (KV, hd) = (1, 256), (5, 64), (2, 128)); full-width gemma-2b
+              (18 layers, d = 2048, MQA hd 256, GeGLU, V = 256,000, tied):
+              greedy 4 x 512 + 32 through exact, the plain `screened` head
+              and screened-cuda fused and unfused, beam 4, sampled (== the
+              head's own draws), a full cover; screened-cuda held to the
+              plain head and the full cover to exact under the bf16 gap
+              rule; graphs == eager step bodies; a profile (device calls ==
+              counted launches, idle share), step time, prefill tokens/s,
+              the exact head's device time against screened-cuda's and the
+              step's weight-read bound; [dense] paged: a width-4
+              PagedDecodeStream (pages of 16) == a plain stream bit for bit,
+              radix hits, a drain on a small pool (PoolExhausted,
+              preemption); [dense] spec: a width-4 SpecDecodeStream with a
+              screened-cuda draft, tokens == a plain exact stream under the
+              gap rule, rejections, no snapshot ring; starcoder2-3b at full
+              width (layernorm, gelu, qkv bias, kv 2 hd 128) and
+              qwen1.5-110b at full widths cut to 2 layers (d = 8192, the
+              route kernel there): greedy 4 x 128 + 16 through exact and
+              screened-cuda, held to the plain head; the serving
+              launcher on reduced gemma-2b on the card (--scheduler, a
+              screened-cuda head and draft, a page pool); paths
+              "gemma-2b bf16",
+              "gemma-2b paged", "gemma-2b spec", "starcoder2-3b bf16",
+              "qwen1.5-110b bf16";
   8. train-ssm (after the serving phases and their profiles) the SSD
               backward kernel against ssd_intra_bwd_plain at zamba2's and
               mamba2's chunks: max |kernel - plain| / max
@@ -307,8 +339,8 @@ Phases, one line (or a few) each:
               ("nmt-deen-lstm stream", "zamba2-2.7b stream"),
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
-              paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", "zamba2-2.7b
-              train" and "mamba2-1.3b train" (the
+              paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", the five
+              dense paths, "zamba2-2.7b train" and "mamba2-1.3b train" (the
               "zamba2-2.7b" path is its bfloat16 model), each
               counted from zero over that path's own runs; the bf16 bodies
               as kernels of their own, "cluster_route_bf16",
@@ -321,7 +353,9 @@ Phases, one line (or a few) each:
               "adaptive_step" (the [heads] step times and bounds); the
               cache update's times are the K and V pair's, with "single_ms"
               of one single-cache launch; the SSD backward's, at zamba2's
-              chunk, with "at_mamba2_chunk")
+              chunk, with "at_mamba2_chunk"; the bf16 L2S bodies also
+              "at_gemma_width", the bf16 route "at_qwen_width", the cache
+              pair "at_gemma_cache")
               and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
@@ -4032,6 +4066,754 @@ def phase_adaptive_hybrid(torch, np, ctx):
     return launches, steps
 
 
+# -- the dense family: gemma-2b, starcoder2-3b, qwen1.5-110b --------------------
+# gemma-2b (arXiv 2403.08295) in its config's bfloat16: 18 layers, d = 2048,
+# MQA (kv = 1, hd = 256), GeGLU d_ff = 16,384, V = 256,000 (2,000 tiles),
+# tied; 4 prompts of 512, 32 new, max_len 544 (34 pages of 16 when paged)
+GD, GV = 2048, 256_000
+GB, GT, GNEW, GMAX, GPAGE = 4, 512, 32, 544, 16
+GSPEC_MAX = GMAX + 8                 # room for the drafts past the last token
+DENSE_W = 4                          # [dense] paged / spec stream width
+SD = 3072                            # starcoder2-3b's d_model
+QD, Q_LAYERS = 8192, 2               # qwen1.5-110b's d_model; its depth here
+
+
+def dense_model(torch, np, name, tag, layers=None, seed=0):
+    """A full-width dense config in its bfloat16, drawn on the card from a
+    seeded CUDA generator (``layers``: its depth cut to that many), a
+    random screen (r = 100, K = 16 over its tiles) and its full cover.
+    → dict (``rng`` goes on drawing inputs)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.screening import candidates_to_padded
+    from repro_torch.interop import screen_from_numpy
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(name)
+    full_depth = cfg.num_layers
+    if layers is not None:
+        cfg = replace(cfg, num_layers=layers)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(cfg.dtype == "bfloat16" and
+          all(t.dtype == torch.bfloat16 for t in leaves),
+          f"{name}: weights not in its config's bfloat16")
+    cut = (f" (depth cut from {full_depth} to {cfg.num_layers} layers: "
+           f"{full_depth} do not fit one card)" if layers is not None else "")
+    log(f"{tag} {name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}, hd {cfg.head_dim}), "
+        f"{cfg.mlp_activation} d_ff={cfg.d_ff}, V={cfg.vocab_size}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied lm_head'}, {cfg.norm}"
+        f"{', qkv bias' if cfg.qkv_bias else ''}{cut}: {n_params} parameters "
+        f"drawn on the card in {t_init:.1f} s, bfloat16, "
+        f"{nbytes / 1e9:.3f} GB; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    rng = np.random.default_rng(seed + 1)
+    d, vocab = cfg.d_model, cfg.vocab_size
+    n_blk = -(-vocab // V_BLK)
+    v = rng.standard_normal((R, d)).astype(np.float32)
+    cand = make_screen_blocks(np, seed + 8, n_blk)
+    out = dict(model=model, params=params, rng=rng, n_params=n_params,
+               nbytes=nbytes,
+               screen=screen_from_numpy(v, cand, (cand < n_blk).sum(1), vocab,
+                                        V_BLK))
+    if name == "gemma-2b":
+        idx, lens = candidates_to_padded(np.ones((R, n_blk), bool), vocab,
+                                         block=V_BLK)
+        out["full"] = screen_from_numpy(v, idx, lens, vocab, V_BLK)
+    return out
+
+
+def exact_gap_fn(torch, eng):
+    """The deciding top-2 gap of the exact head at hidden states h (its
+    bf16 logits, widened)."""
+    def gap(h):
+        top = (h @ eng.W.T + eng.b).float().topk(2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).cpu().numpy()
+    return gap
+
+
+def step_weight_bytes(params):
+    """(bytes of the weights every decode step reads: the layers' and the
+    final norm's, bytes of the exact head's W and b)."""
+    from repro_torch.tree import tree_leaves
+    stack = sum(t.numel() * t.element_size()
+                for t in tree_leaves(params["stack"]))
+    emb = params["embed"]
+    W, b = emb.get("lm_head", emb["embedding"]), emb["lm_bias"]
+    return stack, W.numel() * W.element_size() + b.numel() * b.element_size()
+
+
+def gemma_head_rows(torch, timer, eng, h):
+    """One decode step's head at ``h`` (B, d) bf16, in turns under the
+    clean-L2 timer: exact (a bf16 GEMV over 256,000 words and an argmax)
+    and screened-cuda (route + fused), with their bounds. → {name: (ms,
+    bound)}."""
+    hx = eng.resolve_head("exact")
+    hs = eng.resolve_head("screened-cuda").prepare()
+    B, d = h.shape
+    L = eng.W.shape[0]
+    with torch.inference_mode():
+        t = timer.turns({"exact": lambda: hx.next(h),
+                         "screened-cuda": lambda: hs.next(h)})
+        cl = torch.argmax(h.float() @ eng.screen.v.T, dim=-1)
+        blocks = eng.screen.cand_idx[cl]
+        n_blk = -(-L // V_BLK)
+        tiles = int(blocks[blocks < n_blk].unique().numel())
+        per_row = int((blocks < n_blk).sum())
+    bounds = {"exact": bound_ms(2 * (L * (d + 1) + B * d), 2 * B * L * d),
+              "screened-cuda": bound_ms(
+                  4 * eng.screen.v.numel() + 2 * tiles * V_BLK * (d + 1) +
+                  2 * B * d, 2 * d * (B * eng.screen.r + per_row * V_BLK))}
+    return {n: (t[n], bounds[n]) for n in t}, tiles
+
+
+def phase_dense_gemma(torch, np):
+    """[dense] gemma-2b at full width in its config's bfloat16 (2.5 B
+    parameters drawn on the card) on DecodeEngine(device="cuda",
+    cache_dtype=bfloat16, max_len=544): greedy 4 x 512 + 32 through
+    exact, the plain `screened` head and screened-cuda fused and unfused
+    (fused == unfused tokens; screened-cuda == the plain head under the
+    bf16 gap rule), beam 4, a sampled run (== the head's own draws), a
+    full-cover screen (2,000 tiles a row) whose screened-cuda tokens equal
+    exact's under the same rule; graphs == the eager step bodies bit for
+    bit (greedy exact and screened-cuda, beam); launches from zero (the
+    cache pair 18 a decode step, the bf16 L2S bodies only); profiles of
+    the unfused and the fused run (device calls == counted launches of
+    the route, gather, fused and cache-pair kernels; the fused run's idle
+    share); on the host clock the
+    decode step (median of 8 replays, both heads) and prefill tokens/s;
+    one step's exact head against screened-cuda's in device time (clean
+    L2), and the weight-read bound of a step. → (launches of the path,
+    the model dict, numbers for the kernels line)."""
+    from repro_torch import heads
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.testing import (eager_beam_search, eager_generate,
+                                     head_sampled_generate)
+
+    g = dense_model(torch, np, "gemma-2b", "[dense]")
+    model, params = g["model"], g["params"]
+    cfg = model.cfg
+    check((cfg.d_model, cfg.vocab_size, cfg.num_kv_heads, cfg.head_dim,
+           cfg.num_layers) == (GD, GV, 1, 256, 18),
+          "gemma-2b: config drifted from the smoke's shapes")
+    prompts = g["rng"].integers(0, GV, (GB, GT))
+    g["prompts"] = prompts
+    kw = dict(cache_dtype=torch.bfloat16, device="cuda")
+    eng = DecodeEngine(model, params, screen=g["screen"], max_len=GMAX, **kw)
+    eng_full = DecodeEngine(model, params, screen=g["full"], max_len=GMAX,
+                            **kw)
+    unfused = heads.get("screened-cuda", W=eng.W, b=eng.b, screen=eng.screen,
+                        fused=False)
+    packed = eng.resolve_head("screened-cuda")
+    check(packed.prepare()._Wb.dtype == torch.bfloat16 and
+          packed.packed_shape == (GV // V_BLK, V_BLK, GD),
+          f"gemma-2b: packed head {packed.packed_shape}")
+    for e in (eng, eng_full):                     # warm-up: loads, graphs
+        e.generate(prompts[:, :16], 2, head="screened-cuda")
+        e.generate(prompts[:, :16], 2, head="exact")
+    t_prefill = prefill_s(torch, model, params, prompts, GMAX, torch.bfloat16)
+
+    ops.reset_launches()
+    exact, t_exact = host_timed(torch, lambda: eng.generate(prompts, GNEW,
+                                                            head="exact"))
+    scr, t_scr = host_timed(torch, lambda: eng.generate(
+        prompts, GNEW, head="screened-cuda"))
+    scr_u = eng.generate(prompts, GNEW, head=unfused)
+    beam, t_beam = host_timed(torch, lambda: eng.beam_search(
+        prompts[0], 4, GNEW, head="screened-cuda"))
+    smp = eng.generate(prompts, GNEW, head="screened-cuda", temperature=1.0,
+                       seed=21)
+    f_exact = eng_full.generate(prompts, GNEW, head="exact")
+    f_scr = eng_full.generate(prompts, GNEW, head="screened-cuda")
+    launches = dict(ops.LAUNCHES)
+    n_runs = 6                                   # generate runs and the beam
+    for name, r in (("exact", exact), ("screened-cuda", scr),
+                    ("unfused", scr_u), ("sampled", smp)):
+        check(r.tokens.shape == (GB, GNEW) and r.tokens.min() >= 0 and
+              r.tokens.max() < GV, f"[dense] gemma-2b {name}: tokens out of "
+              f"range")
+    check(np.array_equal(scr.tokens, scr_u.tokens),
+          "[dense] gemma-2b: screened-cuda fused and unfused tokens differ")
+    check(beam.tokens.shape == (1, GNEW) and np.isfinite(beam.scores).all(),
+          "[dense] gemma-2b beam search: bad result")
+    check(launches["cache_slot_update"] == cfg.num_layers * (GNEW - 1) *
+          (n_runs + 1),
+          f"[dense] gemma-2b: launches {launches}, expected "
+          f"{cfg.num_layers} cache pairs a decode step")
+    check(all(launches[k] > 0 for k in BF16_KERNELS) and
+          not any(launches[k] for k in L2S_KERNELS),
+          f"[dense] gemma-2b: the bf16 L2S bodies did not carry the path: "
+          f"{launches}")
+    own = head_sampled_generate(eng, prompts, GNEW, "screened-cuda", 1.0,
+                                1.0, 21)
+    check(np.array_equal(smp.tokens, own),
+          "[dense] gemma-2b: graph-sampled tokens differ from the head's own "
+          "sample draws")
+
+    plain = eng.generate(prompts, GNEW, head="screened")
+    near_plain = bf16_gap_rule(torch, np, "[dense] gemma-2b against plain",
+                               model, params, prompts, scr.tokens,
+                               plain.tokens, GMAX, screened_gap_fn(torch, eng))
+    near_full = bf16_gap_rule(torch, np, "[dense] gemma-2b full cover", model,
+                              params, prompts, f_scr.tokens, f_exact.tokens,
+                              GMAX, exact_gap_fn(torch, eng))
+
+    # graphs == the eager step bodies, bit for bit, with equal launches
+    ops.reset_launches()
+    e_runs = {n: eager_generate(eng, prompts, GNEW, head=n)
+              for n in ("exact", "screened-cuda")}
+    e_beam = eager_beam_search(eng, prompts[0], 4, GNEW, head="screened-cuda")
+    torch.cuda.synchronize()
+    e_launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    g_runs = {n: eng.generate(prompts, GNEW, head=n)
+              for n in ("exact", "screened-cuda")}
+    g_beam = eng.beam_search(prompts[0], 4, GNEW, head="screened-cuda")
+    torch.cuda.synchronize()
+    g_launches = dict(ops.LAUNCHES)
+    check(all(np.array_equal(g_runs[n].tokens, e_runs[n].tokens)
+              for n in e_runs) and
+          np.array_equal(g_beam.tokens, e_beam.tokens) and
+          np.array_equal(g_beam.scores, e_beam.scores) and
+          g_launches == e_launches,
+          f"[dense] gemma-2b: graph replays differ from the eager step "
+          f"bodies (launches {g_launches} against {e_launches})")
+    counts = eng.compiled_step_counts()
+
+    # the gather kernel runs on the unfused head: held to the profiler too
+    profile_counted(torch, "[dense] gemma-2b greedy screened-cuda unfused",
+                    lambda: eng.generate(prompts, GNEW, head=unfused))
+    kern = profile_counted(torch, "[dense] gemma-2b greedy screened-cuda",
+                           lambda: eng.generate(prompts, GNEW,
+                                                head="screened-cuda"))
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    step_ms = median_step_ms(torch, eng, "screened-cuda", prompts, 8,
+                             eager=False)
+    step_x_ms = median_step_ms(torch, eng, "exact", prompts, 8, eager=False)
+    timer = Timer(torch)
+    h = torch.randn((GB, GD), generator=torch.Generator().manual_seed(90))
+    heads_t, tiles = gemma_head_rows(torch, timer, eng,
+                                     h.cuda().to(torch.bfloat16))
+    stack_b, head_b = step_weight_bytes(params)
+    scr_b = 4 * g["screen"].v.numel() + tiles * V_BLK * (GD + 1) * 2
+    tok = GB * GNEW
+    log(f"[dense] gemma-2b bf16 weights {g['nbytes'] / 1e9:.3f} GB; packed "
+        f"head {packed.packed_shape} bf16 {packed.packed_nbytes / 1e6:.1f} MB")
+    log(f"[dense] gemma-2b d={GD} V={GV} on DecodeEngine(device='cuda', "
+        f"max_len={GMAX}, cache_dtype=bfloat16): greedy {GB}x{GT}+{GNEW} "
+        f"exact {t_exact:.3f} s ({tok / t_exact:.1f} tok/s), screened-cuda "
+        f"{t_scr:.3f} s ({tok / t_scr:.1f} tok/s), beam(4) {t_beam:.3f} s "
+        f"(score {float(beam.scores[0]):.4f}); fused == unfused tokens; "
+        f"sampled T=1 == the head's own draws; screened-cuda == the plain "
+        f"screened head's except rows first differing after a step with a "
+        f"gap < {GAP_BF16}: {near_plain}; full cover (K={g['full'].c_max}) "
+        f"screened-cuda == exact under the same rule: {near_full}")
+    log(f"[dense] gemma-2b graphs == eager step bodies bit for bit (greedy "
+        f"exact and screened-cuda, beam 4; launches equal, each side from "
+        f"zero: {json.dumps(g_launches)}); compiled_step_counts "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in sorted(counts.items())} }")
+    log(f"[dense] gemma-2b profile, greedy {GB}x{GT}+{GNEW} screened-cuda: "
+        f"device busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled "
+        f"wall (idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
+        f"{sum(e.count for e in kern)} device kernels; "
+        f"{fused_share(kern, busy_ms, 'fused_screened_topk_bf16')}; top "
+        f"kernels: " +
+        "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
+                  f" x{e.count}" for e in top))
+    log(f"[dense] gemma-2b host clock, information only: decode step (median "
+        f"of 8 graph replays, B={GB}) screened-cuda {step_ms:.3f} ms, exact "
+        f"{step_x_ms:.3f} ms; prefill {GB}x{GT} {t_prefill:.3f} s "
+        f"({GB * GT / t_prefill:.0f} tok/s)")
+    log(f"[dense] gemma-2b one step's head, device time (clean L2, CUDA "
+        f"events, B={GB}): exact {heads_t['exact'][0]:.5f} ms (bound "
+        f"{heads_t['exact'][1][0]:.5f} ms, {heads_t['exact'][1][1]}), "
+        f"screened-cuda {heads_t['screened-cuda'][0]:.5f} ms (bound "
+        f"{heads_t['screened-cuda'][1][0]:.5f} ms, "
+        f"{heads_t['screened-cuda'][1][1]}; {tiles} distinct tiles), ratio "
+        f"{heads_t['exact'][0] / heads_t['screened-cuda'][0]:.1f}")
+    log(f"[dense] gemma-2b weight-read bound of a decode step at 3.35 TB/s: "
+        f"layers {stack_b / 1e9:.4f} GB + exact head {head_b / 1e9:.4f} GB = "
+        f"{(stack_b + head_b) / HBM_BYTES_PER_S * 1e3:.4f} ms; with "
+        f"screened-cuda's {scr_b / 1e6:.2f} MB of head instead "
+        f"{(stack_b + scr_b) / HBM_BYTES_PER_S * 1e3:.4f} ms; the exact head "
+        f"is {head_b / (stack_b + head_b):.1%} of the exact step's bytes")
+    log(f"[dense] gemma-2b launches on the path ({n_runs} generate runs and "
+        f"a beam, counted from zero): {json.dumps(launches)}")
+    return launches, g
+
+
+def dense_traffic(np, varied=False, n=8):
+    """[dense] paged's requests: 2 prompts of 256 tokens, each with a
+    distinct suffix of 40 tokens (``varied``: of 16-61 tokens), 16 new."""
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(31)
+    bases = rng.integers(0, GV, (2, 256))
+    return [ServeRequest(prompt=np.concatenate(
+        [bases[i % 2], rng.integers(0, GV, 16 + (i * 13) % 46 if varied
+                                    else 40)]),
+        max_new=16) for i in range(n)]
+
+
+def phase_dense_paged(torch, np, g):
+    """[dense] gemma-2b paged: a width-4 PagedDecodeStream (pages of 16,
+    544 = 34 pages a row) over 8 requests sharing 2 prompts of 256 tokens
+    (prompts of one length, 296) == a plain width-4 DecodeStream bit for
+    bit, both screened-cuda; radix hits and prefill tokens skipped; the
+    same with suffixes of 16-61 tokens, equal but after near ties (a
+    shared page holds the K/V of another prompt's prefill, and on the card
+    a prefill's rows depend in their last bits on the prompt's length,
+    through the GEMMs' kernel choice); the paged step against the plain
+    one (host clock per tick); a profile of the paged drain (device calls
+    == counted launches); then a ContinuousScheduler drain on a pool too
+    small for the traffic (PoolExhausted, preemption, completed requests
+    bit-identical). → launches of the path's runs."""
+    from repro_torch.serving import (DecodeEngine, PagePool, ServeResult,
+                                     StaticPolicy)
+    model, params = g["model"], g["params"]
+    t_phase = time.perf_counter()
+    eng = DecodeEngine(model, params, screen=g["screen"], max_len=GMAX,
+                       cache_dtype=torch.bfloat16, device="cuda")
+    reqs = dense_traffic(np)
+    plan = [0] * len(reqs)
+    head = "screened-cuda"
+    plain, _, _, plain_s = drive_stream(eng.open_stream(head, width=DENSE_W),
+                                        reqs, plan)
+    acc = {}
+    pool = PagePool(256, GPAGE)
+    got, ticks, _, step_s = counted(torch, acc, lambda: drive_stream(
+        eng.open_paged_stream(pool, head=head, width=DENSE_W), reqs, plan))
+    check(all(np.array_equal(got[i], plain[i]) for i in plain),
+          "[dense] gemma-2b paged tokens differ from the plain stream's")
+    rx = pool.radix.telemetry()
+    varied = dense_traffic(np, varied=True)
+    v_plain, _, _, _ = drive_stream(eng.open_stream(head, width=DENSE_W),
+                                    varied, plan)
+    v_got, _, _, _ = counted(torch, acc, lambda: drive_stream(
+        eng.open_paged_stream(PagePool(256, GPAGE), head=head,
+                              width=DENSE_W), varied, plan))
+    near_varied = []
+    for i, r in enumerate(varied):
+        if not np.array_equal(v_got[i], v_plain[i]):
+            near_varied += [(i,) + d_[1:] for d_ in bf16_gap_rule(
+                torch, np, f"[dense] paged, varied lengths, request {i}",
+                model, params, r.prompt[None], v_got[i][None],
+                v_plain[i][None], GMAX, screened_gap_fn(torch, eng))]
+    check(rx["tokens_hit"] > 0 and pool.store.k.dtype == torch.bfloat16,
+          f"[dense] paged: no radix hit: {rx}")
+    check(acc["cache_slot_update"] == 0 and
+          acc["fused_screened_topk_bf16"] > 0,
+          f"[dense] paged: launches {acc}")
+    # one graph per paged slab, and a paged slab serves one store: the two
+    # pools above hold two
+    counts = eng.compiled_step_counts()
+    check(counts.get((head, "greedy-paged")) == 2,
+          f"[dense] paged: compiled_step_counts {counts}")
+    pool2 = PagePool(256, GPAGE)
+    _, t_drain = host_timed(torch, lambda: drive_stream(
+        eng.open_paged_stream(pool2, head=head, width=DENSE_W), reqs, plan))
+    busy, idle, ours, n_kern = device_profile(
+        torch, "[dense] gemma-2b paged drain", lambda: drive_stream(
+            eng.open_paged_stream(PagePool(256, GPAGE), head=head,
+                                  width=DENSE_W), reqs, plan), t_drain)
+    log(f"[dense] gemma-2b paged: PagedDecodeStream width {DENSE_W}, page "
+        f"{GPAGE}, {len(reqs)} requests on 2 shared prompts of 256 tokens "
+        f"(+ 40 distinct), 16 new: tokens == a plain width-{DENSE_W} "
+        f"{head} stream bit for bit; radix lookups {rx['lookups']}, hits "
+        f"{rx['lookup_hits']}, prompt tokens on shared pages "
+        f"{rx['tokens_hit']} of {rx['tokens_total']} (hit rate "
+        f"{rx['hit_rate']:.4f}; the join still prefills solo), COW copies "
+        f"{pool.cow_copies}, peak pages {pool.peak_in_use}, store "
+        f"{pool.store.nbytes / 2 ** 20:.1f} MiB ({pool.bytes_per_page()} B a "
+        f"page); compiled_step_counts "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in sorted(counts.items())} }; "
+        f"with suffixes of 16-61 tokens: == the plain stream but requests "
+        f"first differing after a step with a gap < {GAP_BF16} (request, "
+        f"step, gap): {near_varied}")
+    log(f"[dense] gemma-2b paged step against the plain step (host clock per "
+        f"tick ending in the guard's copy, information only): paged median "
+        f"{statistics.median(step_s) * 1e3:.3f} ms over {ticks} ticks, plain "
+        f"median {statistics.median(plain_s) * 1e3:.3f} ms over "
+        f"{len(plain_s)}; profile of the paged drain: device busy "
+        f"{busy:.3f} ms of {t_drain * 1e3:.3f} ms (idle share {idle:.3f}), "
+        f"{n_kern} device kernels; per launch: " +
+        "; ".join(f"{k} {ms / n * 1e3:.2f} us x{n}"
+                  for k, (ms, n) in ours.items()))
+    # the scheduler's streams are LSTM_W wide: its plain twin is too
+    plain8, _, _, _ = drive_stream(eng.open_stream(head, width=LSTM_W), reqs,
+                                   plan)
+    small = PagePool(41, GPAGE)                 # 40 pages for 8 requests
+    out, sched, _ = counted(torch, acc, lambda: run_sched(
+        eng, reqs, StaticPolicy(head), per_tick=len(reqs), kv_pool=small))
+    snap = sched.stats.snapshot()
+    done = [i for i, r in enumerate(out) if isinstance(r, ServeResult)]
+    check(len(out) == len(reqs) and snap["pool"]["stalled_ticks"] > 0 and
+          snap["preempted"] > 0 and done,
+          f"[dense] paged: the small pool's drain: {len(out)} results, "
+          f"stalled {snap['pool']['stalled_ticks']} ticks, preempted "
+          f"{snap['preempted']}, {len(done)} completed")
+    check(all(np.array_equal(out[i].tokens, plain8[i]) for i in done),
+          "[dense] paged: a completed request of the small pool's drain "
+          "differs from a plain width-8 stream's")
+    log(f"[dense] gemma-2b ContinuousScheduler(max_slots={LSTM_W}, kv_pool="
+        f"PagePool({small.num_pages}, {GPAGE})) over the {len(reqs)} "
+        f"requests at once: PoolExhausted stalled "
+        f"{snap['pool']['stalled_ticks']} ticks, preempted "
+        f"{snap['preempted']}, completed {len(done)} (== a plain width-"
+        f"{LSTM_W} stream bit for bit), every request ended with a result in "
+        f"{snap['ticks']} ticks")
+    log(f"[dense] gemma-2b paged launches of the path's own runs (from "
+        f"zero): {json.dumps(acc)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return acc
+
+
+def phase_dense_spec(torch, np, g):
+    """[dense] gemma-2b spec: a width-4 SpecDecodeStream (draft
+    screened-cuda on the random screen, verify exact, draft_len 4) over 4
+    prompts of 512, 32 new: tokens == a plain width-4 exact stream under
+    the bf16 gap rule, rejections > 0, no snapshot ring (0 MiB, no row
+    restored), a profiled round; the round's host time against the plain
+    step's. → launches of the path's run."""
+    from repro_torch.serving import DecodeEngine, ServeRequest
+    model, params = g["model"], g["params"]
+    t_phase = time.perf_counter()
+    eng = DecodeEngine(model, params, screen=g["screen"], max_len=GSPEC_MAX,
+                       cache_dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(32)
+    prompts = rng.integers(0, GV, (DENSE_W, GT))
+    reqs = [ServeRequest(prompt=p, max_new=GNEW) for p in prompts]
+    plan = [0] * len(reqs)
+    plain, _, _, plain_s = drive_stream(eng.open_stream("exact",
+                                                        width=DENSE_W),
+                                        reqs, plan)
+    acc = {}
+    s = eng.open_spec_stream("screened-cuda", "exact", width=DENSE_W,
+                             draft_len=SPEC_N)
+    t0 = time.perf_counter()
+    got, ticks, _, step_s = counted(torch, acc, lambda: drive_stream(
+        s, reqs, plan))
+    wall = time.perf_counter() - t0
+    want = np.stack([plain[i] for i in range(len(reqs))])
+    near = bf16_gap_rule(torch, np, "[dense] gemma-2b spec", model, params,
+                         prompts, np.stack([got[i] for i in range(len(reqs))]),
+                         want, GSPEC_MAX, exact_gap_fn(torch, eng))
+    c = s.spec_counters()
+    check(c["drafted"] - c["accepted"] > 0,
+          f"[dense] spec: no draft was rejected: {c}")
+    slab = eng._lend_stream_slab(DENSE_W, s._slab_key(), spec_depth=SPEC_N)
+    ring = slab.spec.ring_nbytes
+    eng._return_stream_slab(slab)
+    check(ring == 0 and s.restored_rows == 0 and not s._snapshot,
+          f"[dense] spec: a snapshot ring of {ring} bytes, "
+          f"{s.restored_rows} rows restored")
+    s2 = eng.open_spec_stream("screened-cuda", "exact", width=DENSE_W,
+                              draft_len=SPEC_N)
+    for i, r in enumerate(reqs):
+        s2.join(r, tag=i)
+    kern = profile_counted(torch, "[dense] gemma-2b spec round", s2.step)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    while s2.n_active:
+        s2.step()
+    log(f"[dense] gemma-2b spec: SpecDecodeStream width {DENSE_W}, draft "
+        f"screened-cuda (random screen), verify exact, draft_len {SPEC_N}, "
+        f"{len(reqs)} prompts of {GT}, {GNEW} new, max_len {GSPEC_MAX}: "
+        f"tokens == a plain width-{DENSE_W} exact stream except rows first "
+        f"differing after a step with a gap < {GAP_BF16}: {near}; "
+        f"{spec_summary(s, step_s)}; live draft length at the end "
+        f"{s.controller.n}; no snapshot ring ({ring / 2 ** 20:.1f} MiB), "
+        f"rollback by position alone; {ticks} rounds in {wall:.3f} s against "
+        f"the plain stream's {len(plain_s)} steps at median "
+        f"{statistics.median(plain_s) * 1e3:.3f} ms (host clock); one "
+        f"profiled round (the first after the joins): device busy "
+        f"{busy:.3f} ms; launches of the run (from zero): {json.dumps(acc)}; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return acc
+
+
+def dense_greedy(torch, np, tag, g, T, new, max_len):
+    """Greedy 4 x T + new through exact, screened-cuda and the plain
+    `screened` head on a full-width dense model in bf16: screened-cuda ==
+    the plain head under the bf16 gap rule; launches from zero over the
+    exact and screened-cuda runs (the cache pair a layer a decode step,
+    only the bf16 L2S bodies). → launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeEngine
+    model, params = g["model"], g["params"]
+    cfg = model.cfg
+    prompts = g["rng"].integers(0, cfg.vocab_size, (GB, T))
+    eng = DecodeEngine(model, params, screen=g["screen"], max_len=max_len,
+                       cache_dtype=torch.bfloat16, device="cuda")
+    for name in ("screened-cuda", "exact"):
+        eng.generate(prompts[:, :16], 2, head=name)
+    ops.reset_launches()
+    exact, t_exact = host_timed(torch, lambda: eng.generate(prompts, new,
+                                                            head="exact"))
+    scr, t_scr = host_timed(torch, lambda: eng.generate(
+        prompts, new, head="screened-cuda"))
+    launches = dict(ops.LAUNCHES)
+    check(launches["cache_slot_update"] == 2 * cfg.num_layers * (new - 1) and
+          launches["cluster_route_bf16"] == launches[
+              "fused_screened_topk_bf16"] == new and
+          not any(launches[k] for k in L2S_KERNELS),
+          f"{tag}: launches {launches}")
+    for r in (exact, scr):
+        check(r.tokens.shape == (GB, new) and r.tokens.min() >= 0 and
+              r.tokens.max() < cfg.vocab_size, f"{tag}: tokens out of range")
+    plain = eng.generate(prompts, new, head="screened")
+    near = bf16_gap_rule(torch, np, f"{tag} against plain", model, params,
+                         prompts, scr.tokens, plain.tokens, max_len,
+                         screened_gap_fn(torch, eng))
+    step_ms = median_step_ms(torch, eng, "screened-cuda", prompts, 8,
+                             eager=False)
+    tok = GB * new
+    log(f"{tag} greedy {GB}x{T}+{new} on DecodeEngine(device='cuda', "
+        f"max_len={max_len}, cache_dtype=bfloat16): exact {t_exact:.3f} s "
+        f"({tok / t_exact:.1f} tok/s), screened-cuda {t_scr:.3f} s "
+        f"({tok / t_scr:.1f} tok/s); screened-cuda == the plain screened "
+        f"head's except rows first differing after a step with a gap < "
+        f"{GAP_BF16}: {near}; decode step (median of 8 graph replays, host "
+        f"clock) {step_ms:.3f} ms; launches (from zero, exact and "
+        f"screened-cuda): {json.dumps(launches)}")
+    return launches
+
+
+def phase_dense_starcoder2(torch, np):
+    """[dense] starcoder2-3b at full width in bf16 (30 layers, d = 3072,
+    layernorm, gelu, qkv biases, GQA kv = 2 hd = 128; V = 49,152):
+    greedy 4 x 128 + 16 through exact, screened-cuda and the plain head.
+    → launches."""
+    s = dense_model(torch, np, "starcoder2-3b", "[dense]", seed=3)
+    check(s["model"].cfg.d_model == SD, "starcoder2-3b: config drifted")
+    out = dense_greedy(torch, np, "[dense] starcoder2-3b", s, 128, 16, 144)
+    del s
+    return out
+
+
+def phase_dense_qwen(torch, np):
+    """[dense] qwen1.5-110b at its full widths (d = 8192, 64 heads, kv 8,
+    SwiGLU d_ff = 49,152, V = 152,064, untied lm_head, qkv biases) cut to
+    2 of its 80 layers, in bf16: greedy 4 x 128 + 16 through exact and
+    screened-cuda, held to the plain head; the route kernel at d = 8192.
+    → launches."""
+    q = dense_model(torch, np, "qwen1.5-110b", "[dense]", layers=Q_LAYERS,
+                    seed=4)
+    check(q["model"].cfg.d_model == QD, "qwen1.5-110b: config drifted")
+    out = dense_greedy(torch, np, "[dense] qwen1.5-110b", q, 128, 16, 144)
+    del q
+    return out
+
+
+def cli_dense(torch):
+    """[serve-cli] ``python -m repro_torch.launch.serve --arch gemma-2b
+    --reduced --device cuda --l2s --scheduler --head screened-cuda
+    --draft-head screened-cuda``: the launcher serves the dense family on
+    the card over a page pool (its ``kv pool`` line) and spec lanes, and
+    returns 0. (Full width waits for a corpus of 256,000 words: the
+    synthetic corpus draws each word's successors in O(V), O(V²) in all.)"""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    argv = ["--arch", "gemma-2b", "--reduced", "--device", "cuda", "--l2s",
+            "--scheduler", "--head", "screened-cuda", "--draft-head",
+            "screened-cuda", "--budget", "256", "--clusters", "4",
+            "--train-steps", "5", "--requests", "6", "--max-new", "8"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(argv)
+    secs = time.perf_counter() - t0
+    text = out.getvalue()
+    check(rc == 0 and "kv pool" in text and "spec[screened-cuda]" in text,
+          f"[serve-cli] gemma-2b: exit code {rc}:\n{text}")
+    for ln in text.splitlines():
+        log(ln)
+    log(f"[serve-cli] python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"exit 0 in {secs:.1f} s")
+
+
+def phase_dense_kernels(torch, np):
+    """[parity] and [timing] at the dense family's new shapes: the route
+    (bf16 h) at gemma-2b's d = 2048 and qwen1.5-110b's d = 8192 (float32
+    and bf16 h, B in 1, 4, 130; routes equal but near-ties, and a tie
+    across the blocks of the thread block cluster to the first index), the
+    bf16 gather and fused kernels over gemma's 2,000 tiles at B in 1, 4, 8,
+    k in 1, 5, 128 (rtol = atol = 1e-5, fused == unfused bit for bit), the
+    gather and fused kernels at d = 8192, and the cache pair at gemma's
+    (4, 544, 1, 256), smollm's (.., 5, 64) and starcoder2's (.., 2, 128)
+    bf16 rows, bit for bit. Then timing rows in turns under the clean-L2
+    timer: route, gather and fused (bf16) at gemma's width, B = 4, K = 16,
+    k = 1; the route at d = 8192 (bf16 h); the cache pair at gemma's
+    shape. → ({kernel: max abs err}, {kernel: {shape: timing dict}})."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update_plain)
+    from repro_torch.kernels.fused_topk import (fused_screened_topk,
+                                                fused_screened_topk_plain)
+    from repro_torch.kernels.route import cluster_route, cluster_route_plain
+    from repro_torch.kernels.screen import (screened_logits,
+                                            screened_logits_plain)
+    err = {"cluster_route": 0.0, "cluster_route_bf16": 0.0,
+           "screened_logits_bf16": 0.0, "fused_screened_topk_bf16": 0.0,
+           "cache_slot_update": 0.0}
+    near = 0
+
+    def route_check(h, v, name):
+        nonlocal near
+        route, plain = cluster_route(h, v), cluster_route_plain(h, v)
+        scores = h.float() @ v.T
+        s_r = scores.gather(1, route.long()[:, None])[:, 0]
+        s_p = scores.gather(1, plain.long()[:, None])[:, 0]
+        diff = route != plain
+        check(bool(((s_r - s_p).abs()[diff] < 1e-5 * s_p.abs()[diff]).all()),
+              f"{name} d={h.shape[1]}: routes differ beyond near-ties")
+        near += int(diff.sum())
+        err[name] = max(err[name], float((s_r - s_p).abs().max()))
+
+    g = torch.Generator(device="cuda").manual_seed(91)
+    for d in (GD, QD):
+        v = torch.randn((R, d), generator=g, device="cuda")
+        for B in (1, 4, 130):
+            h = torch.randn((B, d), generator=g, device="cuda")
+            route_check(h.bfloat16(), v, "cluster_route_bf16")
+            if d == QD:
+                route_check(h, v, "cluster_route")
+        tv = torch.round(torch.randn((R, d), generator=g, device="cuda") *
+                         2) / 2
+        tv[3] = tv[50] = tv[99] = 4.0
+        th = torch.round(torch.rand((4, d), generator=g, device="cuda") *
+                         3) * 0.5 + 0.5
+        for hh in (th, th.bfloat16()):
+            check(bool((cluster_route(hh, tv) == 3).all()) and
+                  bool((cluster_route_plain(hh, tv) == 3).all()),
+                  f"cluster_route d={d}: a tie across the blocks of the "
+                  f"cluster did not go to the first index")
+    W = torch.randn((GV, GD), generator=g, device="cuda") * 0.05
+    b = torch.randn((GV,), generator=g, device="cuda") * 0.1
+    Wb, bb = ops.pack_head_blocks(W.bfloat16(), b.bfloat16())
+    del W, b
+    n_blk = Wb.shape[0]
+    v = torch.randn((R, GD), generator=g, device="cuda")
+    cand = torch.from_numpy(make_screen_blocks(np, 92, n_blk)).cuda()
+    for B in (1, 4, 8):
+        h = torch.randn((B, GD), generator=g, device="cuda").bfloat16()
+        ids = cand[cluster_route_plain(h, v).long()].contiguous()
+        raw = screened_logits(Wb, bb, h, ids)
+        praw = screened_logits_plain(Wb, bb, h, ids)
+        torch.testing.assert_close(raw, praw, **TOL)
+        err["screened_logits_bf16"] = max(err["screened_logits_bf16"],
+                                          float((raw - praw).abs().max()))
+        for k in (1, 5, 128):
+            fi, fv, fz = fused_screened_topk(Wb, bb, h, ids, k)
+            pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+            torch.testing.assert_close(fv, pv, **TOL)
+            torch.testing.assert_close(fz, pz, **TOL)
+            err["fused_screened_topk_bf16"] = max(
+                err["fused_screened_topk_bf16"], float((fv - pv).abs().max()))
+            ui, uv, _ = unfused_topk(Wb, bb, h, ids, k)
+            check(torch.equal(fi, ui) and torch.equal(fv, uv),
+                  f"fused bf16 != unfused at gemma's shape (B={B}, k={k})")
+    # the gather and fused kernels at d = 8192 (200 tiles)
+    Wq = (torch.randn((200 * V_BLK, QD), generator=g, device="cuda") *
+          0.05).bfloat16()
+    Wqb, bqb = ops.pack_head_blocks(Wq, torch.zeros(200 * V_BLK,
+                                                    dtype=torch.bfloat16,
+                                                    device="cuda"))
+    del Wq
+    hq = torch.randn((4, QD), generator=g, device="cuda").bfloat16()
+    idq = torch.randint(0, 202, (4, K), generator=g, device="cuda",
+                        dtype=torch.int32)
+    torch.testing.assert_close(screened_logits(Wqb, bqb, hq, idq),
+                               screened_logits_plain(Wqb, bqb, hq, idq),
+                               **TOL)
+    for k in (1, 5):
+        fi, fv, fz = fused_screened_topk(Wqb, bqb, hq, idq, k)
+        ui, uv, _ = unfused_topk(Wqb, bqb, hq, idq, k)
+        pi, pv, pz = fused_screened_topk_plain(Wqb, bqb, hq, idq, k)
+        torch.testing.assert_close(fv, pv, **TOL)
+        check(torch.equal(fi, ui) and torch.equal(fv, uv),
+              f"fused bf16 != unfused at d={QD} (k={k})")
+    del Wqb, bqb
+    gc_ = torch.Generator().manual_seed(93)
+    for KV_, hd in ((1, 256), (5, 64), (2, 128)):
+        ck, cv = (torch.randn((GB, GMAX, KV_, hd), generator=gc_).to(
+            "cuda", torch.bfloat16) for _ in range(2))
+        uk, uv_ = (torch.randn((GB, KV_, hd), generator=gc_).to(
+            "cuda", torch.bfloat16) for _ in range(2))
+        for slot in (0, GMAX - 1, GMAX + 3,
+                     torch.tensor([5, 511, GMAX + 2, -1], dtype=torch.int32,
+                                  device="cuda")):
+            gk, gv = cache_kv_update(ck.clone(), uk, cv.clone(), uv_, slot)
+            check(torch.equal(gk, cache_slot_update_plain(ck.clone(), uk,
+                                                          slot)) and
+                  torch.equal(gv, cache_slot_update_plain(cv.clone(), uv_,
+                                                          slot)),
+                  f"cache_kv_update at (KV, hd) = ({KV_}, {hd}) bf16: not "
+                  f"bit for bit")
+    log(f"[parity] dense shapes: route at d={GD} (bf16 h) and d={QD} "
+        f"(float32 and bf16 h), B in 1, 4, 130, == plain but near-ties "
+        f"({near}), a tie across the blocks of the cluster to the first "
+        f"index at both widths; bf16 gather and fused over gemma-2b's "
+        f"{n_blk} tiles, B in 1, 4, 8, k in 1, 5, 128 (rtol=atol=1e-5), fused "
+        f"== unfused bit for bit; gather and fused at d={QD}; the cache pair "
+        f"bit for bit at (KV, hd) = (1, 256), (5, 64), (2, 128) bf16, "
+        f"S={GMAX}; max abs err {json.dumps(err)}")
+
+    timer = Timer(torch)
+    rows = {}
+    gem = l2s_rows(torch, np, timer, Wb, bb, v, cand, GB, 1, 94)
+    for name, row in gem.items():
+        rows.setdefault(name, {})["at_gemma_width"] = row
+    del Wb, bb
+    vq = torch.randn((R, QD), generator=g, device="cuda")
+    hq = torch.randn((GB, QD), generator=g, device="cuda").bfloat16()
+    t = timer.turns({"library_ms": lambda: torch.argmax(hq.float() @ vq.T,
+                                                        dim=-1),
+                     "ms": lambda: cluster_route(hq, vq),
+                     "plain_ms": lambda: cluster_route_plain(hq, vq)})
+    t["bound"] = bound_ms(2 * GB * QD + 4 * (R * QD + GB), 2 * GB * R * QD)
+    rows["cluster_route_bf16"]["at_qwen_width"] = t
+    log(f"[timing] torch.bfloat16 d={QD} B={GB} cluster_route_bf16 (4 rows "
+        f"of h a cluster): {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+        f"library {t['library_ms']:.5f} ms, bound {t['bound'][0]:.7f} ms "
+        f"({t['bound'][1]})")
+    ck, cv = (torch.zeros((GB, GMAX, 1, 256), dtype=torch.bfloat16,
+                          device="cuda") for _ in range(2))
+    uk, uv_ = (torch.randn((GB, 1, 256), device="cuda").bfloat16()
+               for _ in range(2))
+    slots = torch.tensor([GT] * GB, dtype=torch.int32, device="cuda")
+    rows_idx = torch.arange(GB, device="cuda")
+
+    def library():
+        ck[rows_idx, slots.long()] = uk
+        cv[rows_idx, slots.long()] = uv_
+    t = timer.turns({"library_ms": library,
+                     "ms": lambda: cache_kv_update(ck, uk, cv, uv_, slots),
+                     "plain_ms": lambda: (
+                         cache_slot_update_plain(ck, uk, slots),
+                         cache_slot_update_plain(cv, uv_, slots))})
+    t["bound"] = bound_ms(2 * 2 * 2 * GB * 256, 0)
+    rows["cache_slot_update"] = {"at_gemma_cache": t}
+    log(f"[timing] torch.bfloat16 cache_kv_update (K and V) at gemma-2b's "
+        f"({GB}, {GMAX}, 1, 256): {t['ms']:.5f} ms, plain "
+        f"{t['plain_ms']:.5f} ms, library (indexed writes, twice) "
+        f"{t['library_ms']:.5f} ms, bound {t['bound'][0]:.7f} ms "
+        f"({t['bound'][1]})")
+    return err, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4100,6 +4882,21 @@ def main() -> int:
                                  torch, np, ctx)
     del ctx
     costs = walled("launch costs", launch_costs, torch, np)
+    dense_err, dense_rows = walled("dense kernels", phase_dense_kernels,
+                                   torch, np)
+    for name, e in dense_err.items():
+        err[name] = max(err[name], e)
+    gemma, g = walled("dense gemma", phase_dense_gemma, torch, np)
+    gemma_paged = walled("dense paged", phase_dense_paged, torch, np, g)
+    gemma_spec = walled("dense spec", phase_dense_spec, torch, np, g)
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    starcoder = walled("dense starcoder2", phase_dense_starcoder2, torch, np)
+    qwen = walled("dense qwen", phase_dense_qwen, torch, np)
+    walled("dense serve-cli", cli_dense, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     # training last, so the serving phases' profiles, held to the wrappers'
     # counts, run in the process state they were written for: with these
     # two phases ahead of them, the profiler left the zamba2 adaptive
@@ -4125,7 +4922,10 @@ def main() -> int:
              "zamba2-2.7b adaptive": adaptive_z,
              "nmt-deen-lstm spec": spec_lstm,
              "nmt-deen-lstm paged": pool_lstm,
-             "zamba2-2.7b spec": spec_hybrid, **train_ssm}
+             "zamba2-2.7b spec": spec_hybrid,
+             "gemma-2b bf16": gemma, "gemma-2b paged": gemma_paged,
+             "gemma-2b spec": gemma_spec, "starcoder2-3b bf16": starcoder,
+             "qwen1.5-110b bf16": qwen, **train_ssm}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),
@@ -4157,6 +4957,13 @@ def main() -> int:
                     "at_mamba2_chunk"):
             if key in t:
                 kernels[-1][key] = t[key]
+        for shape, row in dense_rows.get(name, {}).items():
+            kernels[-1][shape] = {
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+                "library_ms": row["library_ms"],
+                **({"unfused_ms": row["unfused_ms"]}
+                   if "unfused_ms" in row else {})}
         if name == "fused_screened_topk_bf16":
             f = t["full_cover_k128"]
             kernels[-1]["full_cover_k128"] = {

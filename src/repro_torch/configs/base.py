@@ -1,5 +1,5 @@
 """Model configuration: the reference ``ModelConfig`` fields that the ported
-families (``lstm``, ``ssm``, ``hybrid``) read, ``SSMConfig``, and the
+families (``lstm``, ``dense``, ``ssm``, ``hybrid``) read, ``SSMConfig``, and the
 training side's ``L2SConfig`` (Algorithm 1) and ``TrainConfig`` (the LM
 trainer), field for field with the reference's defaults.
 

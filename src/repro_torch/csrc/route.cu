@@ -13,9 +13,12 @@
 // Design: parallel over the clusters t, not over the rows of h (one block
 // per row would use 4 of 132 SMs at B = 4 and read all of v in each).
 //   * One thread block cluster of up to 16 blocks of 8 warps covers r = 100
-//     in one wave (13 blocks, one warp per t); the grid is ceil(B / 8) such
-//     clusters, each owning ROUTE_BT = 8 rows of h, staged (zero-padded) in
-//     shared memory. 16 is Hopper's non-portable cluster size: 13 blocks
+//     in one wave (13 blocks, one warp per t); the grid is ceil(B / BT) such
+//     clusters, each owning BT rows of h, staged (zero-padded) in shared
+//     memory. BT is 8 where eight rows of d floats fit ROUTE_SMEM (220 KB:
+//     d <= 7,040), else 4, 2 or 1 (d <= 56,320): qwen1.5-110b's d = 8192
+//     stages 4 rows in 128 KB. A row's sums do not depend on BT, so every
+//     BT gives the same routes. 16 is Hopper's non-portable cluster size: 13 blocks
 //     of 8 warps spread the reads of v over twice the SMs that 7 blocks of
 //     16 warps would, and one SM streams only a small share of the card's
 //     memory rate.
@@ -23,7 +26,7 @@
 //     warps of the cluster): it reads v_t from device memory once, with
 //     ROUTE_LOADS = 10 16-byte loads per lane in flight before the first FMA
 //     (the first batch is issued before h is staged, so the two round trips
-//     overlap), dots it with all 8 rows (8 partial sums per lane, fmaf in
+//     overlap), dots it with all BT rows (BT partial sums per lane, fmaf in
 //     ascending chunk order), and reduces them with xor shuffles. A ragged d
 //     (d % 4 != 0) takes 4-byte loads instead.
 //   * Reduction warp -> block -> cluster: lane b of each warp keeps row b's
@@ -51,7 +54,7 @@
 
 namespace cg = cooperative_groups;
 
-#define ROUTE_BT 8            // rows of h per thread block cluster
+#define ROUTE_SMEM (220 * 1024)  // shared memory for the staged rows of h
 #define ROUTE_THREADS 256     // 8 warps per block
 #define ROUTE_WARPS (ROUTE_THREADS / 32)
 #define ROUTE_MAX_CLUSTER 16  // a non-portable cluster size (Hopper allows 16)
@@ -78,9 +81,9 @@ __device__ __forceinline__ void route_load(float4 (&w)[ROUTE_LOADS],
   }
 }
 
-// ROUTE_BT rows of h from row b0 (rows of them real, the rest zero) into
-// h_s as float32: float4 chunks when VEC (d % 4 == 0), else single values.
-template <bool VEC>
+// BT rows of h from row b0 (rows of them real, the rest zero) into h_s as
+// float32: float4 chunks when VEC (d % 4 == 0), else single values.
+template <bool VEC, int BT>
 __device__ __forceinline__ void route_stage(const float* __restrict__ h, float* h_s,
                                             int b0, int rows, int d) {
   const int n = VEC ? d >> 2 : d;
@@ -89,10 +92,10 @@ __device__ __forceinline__ void route_stage(const float* __restrict__ h, float* 
     float4* h4 = reinterpret_cast<float4*>(h_s);
     const float4* src = reinterpret_cast<const float4*>(h + (size_t)b0 * d);
 #pragma unroll 4
-    for (int i = threadIdx.x; i < ROUTE_BT * n; i += ROUTE_THREADS)
+    for (int i = threadIdx.x; i < BT * n; i += ROUTE_THREADS)
       h4[i] = i < rows * n ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
   } else {
-    for (int i = threadIdx.x; i < ROUTE_BT * dp; i += ROUTE_THREADS) {
+    for (int i = threadIdx.x; i < BT * dp; i += ROUTE_THREADS) {
       const int b = i / dp, c = i - b * dp;
       h_s[i] = (b < rows && c < d) ? __ldg(h + (size_t)(b0 + b) * d + c) : 0.f;
     }
@@ -100,7 +103,7 @@ __device__ __forceinline__ void route_stage(const float* __restrict__ h, float* 
 }
 
 // The same from a bfloat16 h: 8-byte chunks of 4 values when VEC.
-template <bool VEC>
+template <bool VEC, int BT>
 __device__ __forceinline__ void route_stage(const __nv_bfloat16* __restrict__ h,
                                             float* h_s, int b0, int rows, int d) {
   const int n = VEC ? d >> 2 : d;
@@ -109,7 +112,7 @@ __device__ __forceinline__ void route_stage(const __nv_bfloat16* __restrict__ h,
     float4* h4 = reinterpret_cast<float4*>(h_s);
     const uint2* src = reinterpret_cast<const uint2*>(h + (size_t)b0 * d);
 #pragma unroll 4
-    for (int i = threadIdx.x; i < ROUTE_BT * n; i += ROUTE_THREADS) {
+    for (int i = threadIdx.x; i < BT * n; i += ROUTE_THREADS) {
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (i < rows * n) {
         const uint2 w = __ldg(src + i);
@@ -119,7 +122,7 @@ __device__ __forceinline__ void route_stage(const __nv_bfloat16* __restrict__ h,
       h4[i] = x;
     }
   } else {
-    for (int i = threadIdx.x; i < ROUTE_BT * dp; i += ROUTE_THREADS) {
+    for (int i = threadIdx.x; i < BT * dp; i += ROUTE_THREADS) {
       const int b = i / dp, c = i - b * dp;
       h_s[i] = (b < rows && c < d) ? __bfloat162float(h[(size_t)(b0 + b) * d + c]) : 0.f;
     }
@@ -127,22 +130,22 @@ __device__ __forceinline__ void route_stage(const __nv_bfloat16* __restrict__ h,
 }
 
 // VEC: d % 4 == 0, v read as float4; else as single floats (ragged d).
-// HT: h's type, float or __nv_bfloat16.
-template <bool VEC, typename HT>
+// HT: h's type, float or __nv_bfloat16. BT: rows of h per cluster.
+template <bool VEC, int BT, typename HT>
 __device__ __forceinline__ void route_body(const HT* __restrict__ h,
                                            const float* __restrict__ v,
                                            int* __restrict__ out, int B, int r, int d) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);  // ROUTE_BT x dp floats
-  __shared__ float warp_val[ROUTE_WARPS][ROUTE_BT];
-  __shared__ int warp_idx[ROUTE_WARPS][ROUTE_BT];
-  __shared__ float blk_val[ROUTE_BT];
-  __shared__ int blk_idx[ROUTE_BT];
+  float* h_s = reinterpret_cast<float*>(smem4);  // BT x dp floats
+  __shared__ float warp_val[ROUTE_WARPS][BT];
+  __shared__ int warp_idx[ROUTE_WARPS][BT];
+  __shared__ float blk_val[BT];
+  __shared__ int blk_idx[BT];
 
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
-  const int b0 = (int)(blockIdx.x / csize) * ROUTE_BT;
+  const int b0 = (int)(blockIdx.x / csize) * BT;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = csize * ROUTE_WARPS;
@@ -154,17 +157,17 @@ __device__ __forceinline__ void route_body(const HT* __restrict__ h,
   // staged, so the two round trips to memory overlap.
   float4 w[ROUTE_LOADS];
   if (t_first < r) route_load<VEC>(w, v + (size_t)t_first * d, lane, n);
-  const int rows = min(ROUTE_BT, B - b0);
-  route_stage<VEC>(h, h_s, b0, rows, d);
+  const int rows = min(BT, B - b0);
+  route_stage<VEC, BT>(h, h_s, b0, rows, d);
   __syncthreads();
 
-  // lane b < ROUTE_BT keeps row b's best (score, t) over this warp's clusters
+  // lane b < BT keeps row b's best (score, t) over this warp's clusters
   float best = -INFINITY;
   int best_t = -1;
   for (int t = t_first; t < r; t += nwarps) {
-    float acc[ROUTE_BT];
+    float acc[BT];
 #pragma unroll
-    for (int b = 0; b < ROUTE_BT; ++b) acc[b] = 0.f;
+    for (int b = 0; b < BT; ++b) acc[b] = 0.f;
     const float* row = v + (size_t)t * d;
     for (int c0 = lane; c0 < n; c0 += 32 * ROUTE_LOADS) {
       if (t != t_first || c0 != lane) route_load<VEC>(w, row, c0, n);
@@ -173,7 +176,7 @@ __device__ __forceinline__ void route_body(const HT* __restrict__ h,
         const int c = c0 + 32 * u;
         if (c >= n) break;
 #pragma unroll
-        for (int b = 0; b < ROUTE_BT; ++b) {
+        for (int b = 0; b < BT; ++b) {
           if (VEC) {
             const float4 x = reinterpret_cast<const float4*>(h_s)[b * n + c];
             acc[b] = fmaf(w[u].x, x.x, acc[b]);
@@ -188,7 +191,7 @@ __device__ __forceinline__ void route_body(const HT* __restrict__ h,
     }
     float mine = 0.f;
 #pragma unroll
-    for (int b = 0; b < ROUTE_BT; ++b) {
+    for (int b = 0; b < BT; ++b) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
@@ -199,12 +202,12 @@ __device__ __forceinline__ void route_body(const HT* __restrict__ h,
       best_t = t;
     }
   }
-  if (lane < ROUTE_BT) {
+  if (lane < BT) {
     warp_val[warp][lane] = best;
     warp_idx[warp][lane] = best_t;
   }
   __syncthreads();
-  if (threadIdx.x < ROUTE_BT) {
+  if (threadIdx.x < BT) {
     const int b = threadIdx.x;
     float m = -INFINITY;
     int mt = -1;
@@ -218,7 +221,7 @@ __device__ __forceinline__ void route_body(const HT* __restrict__ h,
     blk_idx[b] = mt;
   }
   cluster.sync();
-  if (rank == 0 && threadIdx.x < ROUTE_BT) {
+  if (rank == 0 && threadIdx.x < BT) {
     const int b = threadIdx.x;
     float m = blk_val[b];
     int mt = blk_idx[b];
@@ -235,30 +238,35 @@ __device__ __forceinline__ void route_body(const HT* __restrict__ h,
   cluster.sync();  // every block's shared memory lives until rank 0 has read it
 }
 
-template <bool VEC>
+template <bool VEC, int BT>
 __global__ void __launch_bounds__(ROUTE_THREADS)
 route_kernel(const float* __restrict__ h, const float* __restrict__ v,
              int* __restrict__ out, int B, int r, int d) {
-  route_body<VEC>(h, v, out, B, r, d);
+  route_body<VEC, BT>(h, v, out, B, r, d);
 }
 
-template <bool VEC>
+template <bool VEC, int BT>
 __global__ void __launch_bounds__(ROUTE_THREADS)
 route_bf16_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ v,
                   int* __restrict__ out, int B, int r, int d) {
-  route_body<VEC>(h, v, out, B, r, d);
+  route_body<VEC, BT>(h, v, out, B, r, d);
 }
 
+// The kernels of one h type, by [!VEC][log2 BT].
+typedef const void* RouteKernels[2][4];
+
 template <typename HT>
-static int route_launch(const void* vec_kernel, const void* ragged_kernel,
-                        const HT* h, const float* v, int* out, int B, int r, int d,
-                        void* stream) {
+static int route_launch(const RouteKernels& kernels, const HT* h, const float* v,
+                        int* out, int B, int r, int d, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (r <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)ROUTE_BT * ((d + 3) & ~3) * sizeof(float);
-  if (smem > 220 * 1024) return (int)cudaErrorInvalidValue;
-  const bool vec = (d & 3) == 0;
-  const void* kernel = vec ? vec_kernel : ragged_kernel;
+  const size_t row = (size_t)((d + 3) & ~3) * sizeof(float);
+  int lbt = 3;                                   // BT = 8, 4, 2, 1
+  while (lbt > 0 && (row << lbt) > ROUTE_SMEM) --lbt;
+  if (row > ROUTE_SMEM) return (int)cudaErrorInvalidValue;
+  const int bt = 1 << lbt;
+  const size_t smem = row << lbt;
+  const void* kernel = kernels[(d & 3) != 0][lbt];
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && smem > 48 * 1024)
@@ -266,7 +274,7 @@ static int route_launch(const void* vec_kernel, const void* ragged_kernel,
   if (err != cudaSuccess) return (int)err;
   int csize = (r + ROUTE_WARPS - 1) / ROUTE_WARPS;
   if (csize > ROUTE_MAX_CLUSTER) csize = ROUTE_MAX_CLUSTER;
-  const int groups = (B + ROUTE_BT - 1) / ROUTE_BT;
+  const int groups = (B + bt - 1) / bt;
 
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -286,19 +294,25 @@ static int route_launch(const void* vec_kernel, const void* ragged_kernel,
   return (int)cudaGetLastError();
 }
 
+#define ROUTE_ROW(K, VEC) \
+  { (const void*)K<VEC, 1>, (const void*)K<VEC, 2>, (const void*)K<VEC, 4>, \
+    (const void*)K<VEC, 8> }
+
 // h (B, d) f32, v (r, d) f32, out (B,) int32; all contiguous on one device,
-// h and v 16-byte aligned; r >= 1, and d at most ~7,200 (eight rows of h must
-// fit one block's shared memory). Returns a cudaError_t (0 on success).
+// h and v 16-byte aligned; r >= 1, and d at most 56,320 (one row of h must
+// fit ROUTE_SMEM). Returns a cudaError_t (0 on success).
 extern "C" int l2s_cluster_route(const float* h, const float* v, int* out, int B,
                                  int r, int d, void* stream) {
-  return route_launch((const void*)route_kernel<true>, (const void*)route_kernel<false>,
-                      h, v, out, B, r, d, stream);
+  static const RouteKernels k = {ROUTE_ROW(route_kernel, true),
+                                 ROUTE_ROW(route_kernel, false)};
+  return route_launch(k, h, v, out, B, r, d, stream);
 }
 
 // The same with h in bfloat16 (v stays float32).
 extern "C" int l2s_cluster_route_bf16(const void* h, const float* v, int* out, int B,
                                       int r, int d, void* stream) {
-  return route_launch((const void*)route_bf16_kernel<true>,
-                      (const void*)route_bf16_kernel<false>,
-                      static_cast<const __nv_bfloat16*>(h), v, out, B, r, d, stream);
+  static const RouteKernels k = {ROUTE_ROW(route_bf16_kernel, true),
+                                 ROUTE_ROW(route_bf16_kernel, false)};
+  return route_launch(k, static_cast<const __nv_bfloat16*>(h), v, out, B, r, d,
+                      stream);
 }

@@ -3,9 +3,10 @@
 Twin of ``repro/kernels/route.py``. scores = h (B, d) · vᵀ (d, r);
 cluster = argmax over r, the first index winning a tie. On a CUDA tensor
 ``cluster_route`` launches ``csrc/route.cu`` (one warp per cluster t, one
-thread block cluster per 8 rows of h, merged through distributed shared
-memory), which never writes the (B, r) score matrix; on a CPU tensor it runs
-``cluster_route_plain``.
+thread block cluster per 8 rows of h, or per 4, 2 or 1 where eight rows of
+d floats do not fit 220 KB of shared memory — 4 at qwen1.5-110b's d = 8192
+— merged through distributed shared memory), which never writes the (B, r)
+score matrix; on a CPU tensor it runs ``cluster_route_plain``.
 
 h may be float32 or bfloat16 (a bf16 model's hidden state); v is float32,
 as ``fit_l2s`` makes it. A bfloat16 h is promoted to float32 exactly, as the
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-MAX_D = 7040    # eight rows of h staged in 220 KB of one block's shared memory
+MAX_D = 56_320  # one row of h staged in 220 KB of one block's shared memory
 
 
 def cluster_route_plain(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

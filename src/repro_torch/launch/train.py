@@ -1,6 +1,8 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch
-ptb-small-lstm ...``. Twin of ``repro/launch/train.py`` for the ported
-families: the LSTMs, ``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid).
+ptb-small-lstm ...``. Twin of ``repro/launch/train.py`` for the LSTMs,
+``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid). The dense family is
+served, not yet trained, by the port: a dense arch is refused with
+NotImplementedError (ROADMAP.md, Queue 1).
 
 Trains on the synthetic Zipf–Markov corpus on ``--device`` (the card by
 default; ``--device cpu`` with ``--reduced`` is the CPU smoke), printing the
@@ -44,6 +46,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.family == "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the dense family is not ported yet "
+            f"(ROADMAP.md, Queue 1); repro_torch.launch.serve serves it")
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)

@@ -14,10 +14,12 @@ attention kernel and leaves them to XLA. Their products accumulate in
 float32 from the storage dtype, as the reference's
 ``preferred_element_type=float32`` einsums do. The decode step's K and V
 cache writes go through ``kernels/cache_update.py::cache_kv_update`` — one
-launch of the CUDA kernel on the card.
+launch of the CUDA kernel on the card. ``attn_decode_paged`` writes its
+token into a page pool with a plain indexed write, as the reference does
+with an XLA scatter (no Pallas kernel).
 
 Not ported yet (each raises NotImplementedError, ROADMAP.md Queue 1):
-ring-buffer (sliding-window) caches, M-RoPE and ``attn_decode_paged``.
+ring-buffer (sliding-window) caches and M-RoPE.
 """
 from __future__ import annotations
 
@@ -43,17 +45,20 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
 
 
-def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+              stack: Optional[int] = None):
+    """One layer's projections, or ``stack`` layers' along a leading axis."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = {"wq": dense_init(generator, (d, h, hd), dtype),
-         "wk": dense_init(generator, (d, kv, hd), dtype),
-         "wv": dense_init(generator, (d, kv, hd), dtype),
-         "wo": dense_init(generator, (h, hd, d), dtype)}
+    p = {"wq": dense_init(generator, (d, h, hd), dtype, stack=stack),
+         "wk": dense_init(generator, (d, kv, hd), dtype, stack=stack),
+         "wv": dense_init(generator, (d, kv, hd), dtype, stack=stack),
+         "wo": dense_init(generator, (h, hd, d), dtype, stack=stack)}
     if cfg.qkv_bias:
+        lead = () if stack is None else (stack,)
         dev = generator.device
-        p["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
-        p["bk"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
-        p["bv"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
+        p["bq"] = torch.zeros(lead + (h, hd), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(lead + (kv, hd), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(lead + (kv, hd), dtype=dtype, device=dev)
     return p
 
 
@@ -244,6 +249,50 @@ def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
     return _proj_out(out, params["wo"]), {"k": ck, "v": cv}
 
 
-def attn_decode_paged(*args, **kwargs):
-    """One-token decode against block-paged KV storage: not ported yet."""
-    raise _not_ported("attn_decode_paged (paged KV decode)")
+def attn_decode_paged(params, x1, pk, pv, page_table, pos, cfg: ModelConfig):
+    """One-token decode against block-paged KV storage (one layer's pool).
+
+    pk/pv: (N_pages, P, KV, hd) page pool, written IN PLACE; page_table:
+    (B, n_pages) int32 mapping each row's sequence pages to pool pages;
+    pos: a (B,) int32 tensor of per-row positions (or an int / 0-dim
+    tensor for every row). Returns (out (B, 1, d), pk, pv).
+
+    Each row writes its new K/V at (page_table[row, min(pos // P,
+    n_pages − 1)], pos % P) — a plain indexed write, the reference's XLA
+    scatter — and attends over the gathered view pk[page_table] reshaped to
+    a dense (B, n_pages·P, KV, hd): the contiguous cache's exact shape when
+    n_pages·P == max_len, with identical values at every position <= pos
+    and the identical ``arange(S) <= pos`` keep-mask. So paged decode gives
+    ``attn_decode``'s tensor-pos outputs bit for bit: masked scores are
+    NEG_INF exactly, their probabilities exp to exact 0.0, and 0.0 times a
+    finite stale row adds exact zeros.
+
+    Stale rows: a freed page keeps its last occupant's rows until someone
+    writes it, and page 0 (the trash page) takes every idle row's parked
+    write at (0, 0) (rows writing one place at once leave one of their
+    values there). Neither can leak: positions beyond a row's ``pos`` are
+    masked, a join writes every row of its prompt pages before they become
+    visible, and idle rows' outputs are discarded. This rests only on stale
+    contents staying FINITE; nothing writes inf or NaN into a page."""
+    B = x1.shape[0]
+    if isinstance(pos, torch.Tensor):
+        pvec = pos.to(torch.int32).expand(B)
+    else:
+        pvec = torch.full((B,), int(pos), dtype=torch.int32, device=x1.device)
+    q, k, v = _project_qkv(params, x1, cfg, pvec[:, None])
+    P = pk.shape[1]
+    n_pages = page_table.shape[1]
+    S = n_pages * P
+    rows = torch.arange(B, device=x1.device)
+    # clamp like the contiguous path's write past the end: an idle slot
+    # parked at 0 lands on the trash page its table row points at anyway
+    page = page_table[rows, torch.clamp(pvec // P, max=n_pages - 1)].long()
+    off = (pvec % P).long()
+    pk[page, off] = k[:, 0].to(pk.dtype)
+    pv[page, off] = v[:, 0].to(pv.dtype)
+    table = page_table.long()
+    ck = pk[table].reshape(B, S, pk.shape[2], pk.shape[3])
+    cv = pv[table].reshape(B, S, pv.shape[2], pv.shape[3])
+    valid = torch.arange(S, device=x1.device)[None, :] <= pvec[:, None]
+    out = _sdpa(q, ck, cv, valid[:, None, :], cfg)
+    return _proj_out(out, params["wo"]), pk, pv

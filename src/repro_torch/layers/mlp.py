@@ -11,14 +11,17 @@ from repro_torch.layers.initializers import dense_init
 GATED = ("swiglu", "geglu")
 
 
-def mlp_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+def mlp_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+             stack=None):
+    """One layer's MLP, or ``stack`` layers' along a leading axis."""
     d, ff = cfg.d_model, cfg.d_ff
+    kw = dict(stack=stack)
     if cfg.mlp_activation in GATED:
-        return {"w_gate": dense_init(generator, (d, ff), dtype),
-                "w_up": dense_init(generator, (d, ff), dtype),
-                "w_down": dense_init(generator, (ff, d), dtype)}
-    return {"w_up": dense_init(generator, (d, ff), dtype),
-            "w_down": dense_init(generator, (ff, d), dtype)}
+        return {"w_gate": dense_init(generator, (d, ff), dtype, **kw),
+                "w_up": dense_init(generator, (d, ff), dtype, **kw),
+                "w_down": dense_init(generator, (ff, d), dtype, **kw)}
+    return {"w_up": dense_init(generator, (d, ff), dtype, **kw),
+            "w_down": dense_init(generator, (ff, d), dtype, **kw)}
 
 
 def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Layer stacks of the ``ssm`` (mamba2) and ``hybrid`` (zamba2) families.
-Twin of ``repro/layers/transformer.py``'s SSM branches.
+"""Layer stacks of the ``dense``, ``ssm`` (mamba2) and ``hybrid`` (zamba2)
+families. Twin of ``repro/layers/transformer.py``'s branches for them.
 
+  * dense: pre-norm attention + pre-norm MLP
   * ssm (mamba2): pre-norm SSD block only
   * hybrid (zamba2): SSD layers with ONE weight-shared attention+MLP block
     applied after every ``hybrid_shared_period`` layers
@@ -8,9 +9,12 @@ Twin of ``repro/layers/transformer.py``'s SSM branches.
 Per-layer params keep the reference's stacked layout, a leading L axis on
 every leaf of ``params["blocks"]``; Python loops over the layers replace
 ``lax.scan``. The decode caches are stacked the same way —
+``{"attn": {k, v (L, B, S, KV, hd)}}`` for the dense stack,
 ``{"ssm": {conv_tail (L, B, W-1, C), state (L, B, H, P, N)},
-"shared_attn": {k, v (L / period, B, S, KV, hd)}}`` — and prefill and decode
-update them IN PLACE (the reference returns new caches).
+"shared_attn": {k, v (L / period, B, S, KV, hd)}}`` for the others — and
+prefill and decode update them IN PLACE (the reference returns new caches).
+``stack_decode_paged`` decodes the dense stack against a page pool
+``{k, v (L, N_pages, P, KV, hd)}`` instead, also in place.
 
 A full-sequence pass reads the stacked params through ``unbind``, whose
 backward stacks the layers' gradients once, rather than through one
@@ -21,8 +25,7 @@ application), as the reference's ``jax.checkpoint`` around ``inner`` and
 ``super_body`` does; the stacks draw no random numbers, so no RNG state is
 stashed for the recompute.
 
-The dense / moe / vlm / audio stacks are not ported yet (ROADMAP.md,
-Queue 1).
+The moe / vlm / audio stacks are not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.layers.attention import (attn_decode, attn_forward_kv,
-                                          attn_init)
+from repro_torch.layers.attention import (attn_decode, attn_decode_paged,
+                                          attn_forward_kv, attn_init)
 from repro_torch.layers.attention import init_cache as attn_init_cache
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.norms import norm_apply, norm_init
@@ -42,13 +45,15 @@ from repro_torch.layers.ssm import (ssm_decode_step, ssm_forward, ssm_init,
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 SSM_FAMILIES = ("ssm", "hybrid")
+STACK_FAMILIES = ("dense",) + SSM_FAMILIES
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in SSM_FAMILIES:
+    if cfg.family not in STACK_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} stack is not ported yet (repro_torch "
-            f"ports the lstm, ssm and hybrid families; ROADMAP.md, Queue 1)")
+            f"ports the lstm, dense, ssm and hybrid families; ROADMAP.md, "
+            f"Queue 1)")
 
 
 def _period(cfg: ModelConfig) -> int:
@@ -83,12 +88,20 @@ def _copy_into(dst, src) -> None:
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                stack: Optional[int] = None) -> Dict[str, Any]:
-    """One SSM layer's params, or ``stack`` layers' along a leading axis."""
+    """One layer's params for the cfg's family, or ``stack`` layers' along
+    a leading axis."""
     _check_family(cfg)
-    norm = norm_init(cfg.d_model, cfg.norm, dtype, generator.device)
-    if stack is not None:
-        norm = {k: v.expand(stack, -1).contiguous() for k, v in norm.items()}
-    return {"norm": norm, "ssm": ssm_init(generator, cfg, dtype, stack=stack)}
+
+    def norm():
+        n = norm_init(cfg.d_model, cfg.norm, dtype, generator.device)
+        if stack is not None:
+            n = {k: v.expand(stack, -1).contiguous() for k, v in n.items()}
+        return n
+    if cfg.family in SSM_FAMILIES:
+        return {"norm": norm(),
+                "ssm": ssm_init(generator, cfg, dtype, stack=stack)}
+    return {"norm1": norm(), "attn": attn_init(generator, cfg, dtype, stack),
+            "norm2": norm(), "mlp": mlp_init(generator, cfg, dtype, stack)}
 
 
 def shared_block_init(generator: torch.Generator, cfg: ModelConfig,
@@ -125,6 +138,40 @@ def _shared_block(sp, x, cfg: ModelConfig, positions):
                                   window=cfg.sliding_window)
     h = x + a_out
     return h + mlp_apply(sp["mlp"], norm_apply(sp["norm2"], h, cfg.norm), cfg), k, v
+
+
+def _mlp_residual(p, h, cfg: ModelConfig):
+    """h + the layer's pre-norm MLP of h."""
+    return h + mlp_apply(p["mlp"], norm_apply(p["norm2"], h, cfg.norm), cfg)
+
+
+def _dense_layer(p, x, cfg: ModelConfig, positions, cache=None):
+    """One pre-norm attention + MLP layer over a full sequence; with
+    ``cache`` (this layer's {k, v}) the prompt's K/V are written into slots
+    [0, T) in place."""
+    a_out, k, v = attn_forward_kv(p["attn"], norm_apply(p["norm1"], x, cfg.norm),
+                                  cfg, positions, causal=not cfg.is_encoder,
+                                  window=cfg.sliding_window)
+    if cache is not None:
+        S = cache["k"].shape[1]
+        n = min(x.shape[1], S)
+        cache["k"][:, :n].copy_(k[:, -S:])
+        cache["v"][:, :n].copy_(v[:, -S:])
+    return _mlp_residual(p, x + a_out, cfg)
+
+
+def _dense_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
+    """Prefill (``cache`` given: filled in place) or plain forward of the
+    dense stack, with ``remat`` each layer checkpointed."""
+    positions = _positions(x)
+    for li, p in enumerate(_unstack(params["blocks"], cfg.num_layers)):
+        if remat:
+            x = checkpoint(_dense_layer, p, x, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _dense_layer(p, x, cfg, positions, None if cache is None
+                             else _layer(cache["attn"], li))
+    return norm_apply(params["final_norm"], x, cfg.norm)
 
 
 def _ssm_layer(p, x, cfg: ModelConfig):
@@ -173,15 +220,23 @@ def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
 
 def stack_forward(params, x, cfg: ModelConfig, remat: bool = False):
     """Full-sequence stack. x: (B, T, d) → (h (B, T, d), aux loss 0.0).
-    ``remat=True`` checkpoints each layer and each super-block: the
-    backward recomputes them instead of keeping their activations."""
+    ``remat=True`` checkpoints each layer (and each super-block of the SSM
+    stacks): the backward recomputes them instead of keeping their
+    activations."""
+    _check_family(cfg)
+    if cfg.family == "dense":
+        return _dense_stack_run(params, x, cfg, remat=remat), 0.0
     return _ssm_stack_run(params, x, cfg, remat=remat), 0.0
 
 
 def stack_prefill(params, x, cfg: ModelConfig, cache):
-    """Forward pass that also fills the decode cache with the final SSM
-    states and conv tails and the prompt's K/V (slots [0, T)), in place.
-    x: (B, T, d) → (h, cache)."""
+    """Forward pass that also fills the decode cache, in place: the
+    prompt's K/V (slots [0, T)), and the SSM stacks' final states and conv
+    tails. x: (B, T, d) → (h, cache). The prompt occupies slots [0, T),
+    as in the reference's non-resumable prefill."""
+    _check_family(cfg)
+    if cfg.family == "dense":
+        return _dense_stack_run(params, x, cfg, cache), cache
     return _ssm_stack_run(params, x, cfg, cache), cache
 
 
@@ -189,12 +244,17 @@ def stack_prefill(params, x, cfg: ModelConfig, cache):
 
 def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.float32, device=None):
-    """Stacked per-layer caches (leading L axis) + shared-block caches.
+    """Stacked per-layer caches (leading L axis) + shared-block caches:
+    the dense stack's K/V caches of ``max_len`` slots, or the SSM stacks'.
     Only the K/V caches take ``dtype``: conv tails and SSM states are
     float32, because the reference's prefill and decode replace its
     ``dtype`` conv tails with the float32 tails they compute, and this
     cache is written in place."""
     _check_family(cfg)
+    if cfg.family == "dense":
+        return {"attn": attn_init_cache(cfg, batch, max_len, dtype,
+                                        window=cfg.sliding_window,
+                                        device=device, stack=cfg.num_layers)}
     cache = {"ssm": ssm_init_cache(cfg, batch, torch.float32, device,
                                    stack=cfg.num_layers)}
     if cfg.family == "hybrid":
@@ -207,9 +267,18 @@ def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def stack_decode(params, x1, cache, pos, cfg: ModelConfig):
     """One-token decode through the stack. x1: (B, 1, d) → (h (B, 1, d),
     cache), the cache updated in place. ``pos`` (an int, a 0-dim or a (B,)
-    int32 tensor, see ``attn_decode``) reaches the shared attention block;
-    the Mamba2 layers ignore it."""
+    int32 tensor, see ``attn_decode``) reaches the attention layers; the
+    Mamba2 layers ignore it."""
     _check_family(cfg)
+    if cfg.family == "dense":
+        for li in range(cfg.num_layers):
+            p = _layer(params["blocks"], li)
+            a_out, _ = attn_decode(p["attn"],
+                                   norm_apply(p["norm1"], x1, cfg.norm),
+                                   _layer(cache["attn"], li), pos, cfg,
+                                   window=cfg.sliding_window)
+            x1 = _mlp_residual(p, x1 + a_out, cfg)
+        return norm_apply(params["final_norm"], x1, cfg.norm), cache
     period = _period(cfg)
     for i in range(cfg.num_layers // period):
         for j in range(period):
@@ -229,3 +298,24 @@ def stack_decode(params, x1, cache, pos, cfg: ModelConfig):
             x1 = h + mlp_apply(sp["mlp"], norm_apply(sp["norm2"], h, cfg.norm), cfg)
     return norm_apply(params["final_norm"], x1, cfg.norm), cache
 
+
+
+def stack_decode_paged(params, x1, pool, page_table, pos, cfg: ModelConfig):
+    """One-token decode through the dense stack against block-paged KV
+    storage. ``pool``: {"k", "v"} (L, N_pages, P, KV, hd), written in
+    place; ``page_table``: (B, n_pages) int32 shared by every layer (layer
+    l of sequence page j lives at pool[l, page_table[:, j]]). → (h (B, 1,
+    d), pool). The same block body and op order as ``stack_decode``, with
+    ``attn_decode_paged`` in place of the cache write, which keeps paged
+    greedy tokens bit-identical to the contiguous path."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: paged decode takes the dense stack (and, in the "
+            f"reference, moe), not {cfg.family}")
+    for li in range(cfg.num_layers):
+        p = _layer(params["blocks"], li)
+        a_out, _, _ = attn_decode_paged(
+            p["attn"], norm_apply(p["norm1"], x1, cfg.norm), pool["k"][li],
+            pool["v"][li], page_table, pos, cfg)
+        x1 = _mlp_residual(p, x1 + a_out, cfg)
+    return norm_apply(params["final_norm"], x1, cfg.norm), pool

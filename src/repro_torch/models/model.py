@@ -1,9 +1,9 @@
-"""Model wrapper over the ported families: ``lstm``, ``ssm`` (mamba2) and
-``hybrid`` (zamba2). Twin of ``repro/models/model.py``.
+"""Model wrapper over the ported families: ``lstm``, ``dense``, ``ssm``
+(mamba2) and ``hybrid`` (zamba2). Twin of ``repro/models/model.py``.
 
 Params are plain dicts of tensors with the reference's layout (LSTM:
-``{"embed", "lstm": {"layers": [...]}}``; SSM/hybrid: ``{"embed", "stack":
-{"blocks" (stacked, leading L axis), "final_norm", "shared"}}``);
+``{"embed", "lstm": {"layers": [...]}}``; dense/SSM/hybrid: ``{"embed",
+"stack": {"blocks" (stacked, leading L axis), "final_norm", "shared"}}``);
 ``repro_torch.interop.params_from_numpy`` converts the reference's.
 """
 from __future__ import annotations
@@ -18,12 +18,13 @@ from repro_torch.layers.embeddings import (embed_init, embed_tokens,
                                           head_matrix, lm_logits)
 from repro_torch.layers.lstm import (lstm_decode_step, lstm_forward,
                                      lstm_init, lstm_init_state)
-from repro_torch.layers.transformer import (SSM_FAMILIES, stack_decode,
+from repro_torch.layers.transformer import (STACK_FAMILIES, stack_decode,
+                                            stack_decode_paged,
                                             stack_forward, stack_init,
                                             stack_init_cache, stack_prefill)
 from repro_torch.tree import tree_map
 
-FAMILIES = ("lstm",) + SSM_FAMILIES
+FAMILIES = ("lstm",) + STACK_FAMILIES
 
 
 class Model:
@@ -42,9 +43,9 @@ class Model:
         in ``dtype or cfg.dtype`` as the reference's ``Model.init`` takes
         them: bfloat16 for mamba2-1.3b and zamba2-2.7b, float32 for the
         LSTMs. The SSM layers' A_log, D and dt_bias stay float32 either way,
-        as the reference keeps them. A CPU generator gives the same weights
-        on any device; a CUDA generator draws them on the card (the fast way
-        to a full-width model)."""
+        as the reference keeps them; the dense configs are bfloat16 too. A
+        CPU generator gives the same weights on any device; a CUDA generator
+        draws them on the card (the fast way to a full-width model)."""
         dev = resolve_device(device)
         dtype = dtype or getattr(torch, self.cfg.dtype)
         params = {"embed": embed_init(generator, self.cfg, dtype)}
@@ -56,8 +57,8 @@ class Model:
 
     def forward(self, params, batch: Dict[str, torch.Tensor],
                 remat: bool = False):
-        """→ (h (B, T, d), aux loss 0.0). ``remat`` checkpoints the SSM
-        and hybrid stacks' layers and super-blocks (the LSTM has none)."""
+        """→ (h (B, T, d), aux loss 0.0). ``remat`` checkpoints the
+        stacks' layers (and the hybrid's super-blocks; the LSTM has none)."""
         x = embed_tokens(params["embed"], batch["tokens"])
         if self.cfg.family == "lstm":
             h, _ = lstm_forward(params["lstm"], x, self.cfg)
@@ -77,13 +78,14 @@ class Model:
         raises without a GPU unless ``device="cpu"``), ``dtype`` bfloat16
         by default as in the reference. LSTM: the recurrent state in
         ``dtype``, which does not grow with the sequence (``max_len``
-        unused). SSM/hybrid: stacked float32 conv tails and SSM states,
+        unused). Dense: each layer's K/V caches of ``max_len`` slots in
+        ``dtype``. SSM/hybrid: stacked float32 conv tails and SSM states,
         plus the shared block's K/V caches of ``max_len`` slots in
         ``dtype``."""
         dev = resolve_device(device)
         if self.cfg.family == "lstm":
             return {"lstm": lstm_init_state(self.cfg, batch, dtype, dev)}
-        if max_len is None and self.cfg.family == "hybrid":
+        if max_len is None and self.cfg.family in ("dense", "hybrid"):
             raise ValueError(f"{self.cfg.name}: init_cache needs max_len")
         return stack_init_cache(self.cfg, batch, max_len or 0, dtype, dev)
 
@@ -92,8 +94,9 @@ class Model:
 
         ``resume=True`` (LSTM only) continues from ``cache``'s recurrent
         state instead of zeros: the same cell sequence, so resumed prefill
-        over a suffix equals one-shot prefill over the full prompt. SSM and
-        hybrid caches are filled in place, the prompt at slots [0, T).
+        over a suffix equals one-shot prefill over the full prompt. Dense,
+        SSM and hybrid caches are filled in place, the prompt at slots
+        [0, T); their prefill does not resume, as in the reference.
         → (h (B, T, d), cache)."""
         x = embed_tokens(params["embed"], batch["tokens"])
         if self.cfg.family == "lstm":
@@ -109,8 +112,8 @@ class Model:
         """token: (B,) int; ``pos``: the token's absolute position — an int,
         a 0-dim int32 tensor or a (B,) int32 tensor of per-row positions on
         the token's device (see ``layers/attention.py::attn_decode``); the
-        LSTM and the SSM layers ignore it. SSM/hybrid caches are updated in
-        place. → (h (B, d), cache)."""
+        LSTM and the SSM layers ignore it. Dense/SSM/hybrid caches are
+        updated in place. → (h (B, d), cache)."""
         x1 = embed_tokens(params["embed"], token)
         if self.cfg.family == "lstm":
             h, new_state = lstm_decode_step(params["lstm"], x1, cache["lstm"],
@@ -118,6 +121,21 @@ class Model:
             return h, {"lstm": new_state}
         h, cache = stack_decode(params["stack"], x1[:, None], cache, pos, self.cfg)
         return h[:, 0], cache
+
+    def decode_step_paged(self, params, token, pool, page_table, pos):
+        """Paged decode step (the dense family): K/V live in a page pool
+        ``{k, v (L, N_pages, P, KV, hd)}`` shared by every paged stream,
+        addressed through ``page_table`` (B, n_pages) int32, instead of a
+        contiguous cache; the pool is written in place. → (h (B, d),
+        pool). See ``layers/transformer.py::stack_decode_paged``."""
+        if self.cfg.family == "lstm":
+            raise NotImplementedError(
+                "LSTM decode carries no per-token KV: paged LSTM streams "
+                "use the ordinary decode_step with logical page accounting")
+        x1 = embed_tokens(params["embed"], token)
+        h, pool = stack_decode_paged(params["stack"], x1[:, None], pool,
+                                     page_table, pos, self.cfg)
+        return h[:, 0], pool
 
 
 def to_device(tree, device):

@@ -1,8 +1,7 @@
 """Batched decode engine: prefill → token-by-token generation through a
 pluggable ``SoftmaxHead``. Twin of ``repro/serving/engine.py`` (the lstm,
-ssm and hybrid families, ``DecodeStream``, and the speculative and paged
-LSTM streams; the attention families' paged steps come with ROADMAP.md
-Queue 1 item 9.1).
+dense, ssm and hybrid families, ``DecodeStream``, and the speculative and
+paged streams).
 
 The head is the ONE seam: greedy decode, temperature/nucleus sampling, and
 beam search all route next-token selection through ``head.next`` /
@@ -24,12 +23,14 @@ Step cache, the twin of the reference's LRU of jitted steps: at most 32
 cached steps, keyed by ``head.step_key()`` and the step kind —
 ``(key, "greedy")``, ``(key, "sample", temperature, top_p)`` and
 ``(key, "decode")``, beam search's decode composed with
-``head.topk_logprobs`` at k = the beam width, and the speculative streams'
-``(key, "spec-verify", n_max)`` / ``(key, "spec-dist", ...)``, steps of
-the head alone over a spec slab's stacked hidden states. On the card an
-entry holds one captured ``torch.cuda.CUDAGraph`` per batch width, as a
-jit holds one executable per shape, and ``compiled_step_counts`` counts
-them. A graph
+``head.topk_logprobs`` at k = the beam width, the paged streams'
+``(key, "greedy-paged")`` / ``(key, "sample-paged", temperature, top_p)``
+(the dense family's decode over a page store), and the speculative
+streams' ``(key, "spec-verify", n_max)`` / ``(key, "spec-dist", ...)``,
+steps of the head alone over a spec slab's stacked hidden states. On the
+card an entry holds one captured ``torch.cuda.CUDAGraph`` per batch width,
+as a jit holds one executable per shape, and ``compiled_step_counts``
+counts them. A graph
 replays ``model.decode_step`` and the head's call on static buffers (a
 ``_Slab``: token, 0-dim device position, cache): it writes the next token
 into the token buffer and advances the position itself, so a step of
@@ -132,9 +133,13 @@ class _Slab:
     the n-th stream slab (``pos`` (B,), one position per row). A stream
     slab serves one step, ``owner`` (its step-cache key), and has
     ``saved``: copies of the cache's recurrent leaves (the LSTM state; the
-    SSM states and conv tails), which every step on it takes first, so a
-    step the guard refuses can be undone. A speculative stream's slab also
-    has ``spec``, the buffers of a draft/verify round (``_SpecBuffers``)."""
+    SSM states and conv tails; none for the dense K/V caches), which every
+    step on it takes first, so a step the guard refuses can be undone. A
+    speculative stream's slab also has ``spec``, the buffers of a
+    draft/verify round (``_SpecBuffers``). A paged stream's slab has
+    ``table`` (B, n_pages) int32, the page table its steps read, and its
+    ``cache`` is the page store's {k, v}, shared by every paged slab of
+    that store."""
     cache: dict
     tok: torch.Tensor
     pos: torch.Tensor
@@ -144,6 +149,7 @@ class _Slab:
     owner: object = None
     saved: Optional[List[torch.Tensor]] = None
     spec: Optional["_SpecBuffers"] = None
+    table: Optional[torch.Tensor] = None
 
     def uniforms(self, shape: tuple) -> torch.Tensor:
         if shape not in self.noise:
@@ -361,11 +367,17 @@ class DecodeEngine:
 
     def _model_body(self, kind: str) -> Callable:
         """The model's part of a step → h: ``"advance"`` (greedy and
-        sampled), or ``"reorder"`` (beam search: the cache rows gathered by
-        ``slab.src`` first)."""
+        sampled), ``"reorder"`` (beam search: the cache rows gathered by
+        ``slab.src`` first) or ``"paged"`` (the dense family's decode over
+        the page store ``slab.cache`` through ``slab.table``)."""
         model, params = self.model, self.params
 
         def body(slab):
+            if kind == "paged":
+                h, _ = model.decode_step_paged(params, slab.tok, slab.cache,
+                                               slab.table, slab.pos)
+                slab.pos.add_(1)
+                return h
             if kind == "reorder":
                 _reorder_cache(slab.cache, slab.src, model.cfg)
             return _advance(model, params, slab)
@@ -405,22 +417,25 @@ class DecodeEngine:
 
     @staticmethod
     def _token_step_key(head: SoftmaxHead, temperature: Optional[float],
-                        top_p: float) -> tuple:
+                        top_p: float, paged: bool = False) -> tuple:
         """The step-cache key of greedy (``temperature`` None) or sampled
-        decoding through ``head``."""
+        decoding through ``head``, over a page store with ``paged``."""
+        sfx = "-paged" if paged else ""
         if temperature is None:
-            return (head.step_key(), "greedy")
-        return (head.step_key(), "sample", float(temperature), float(top_p))
+            return (head.step_key(), "greedy" + sfx)
+        return (head.step_key(), "sample" + sfx, float(temperature),
+                float(top_p))
 
-    def _greedy_step(self, head: SoftmaxHead) -> _Step:
+    def _greedy_step(self, head: SoftmaxHead, paged: bool = False) -> _Step:
         def head_fn(slab, h):
             slab.tok.copy_(head.next(h))
             return h
-        return self._cached_step(self._token_step_key(head, None, 1.0), head,
-                                 "advance", head_fn)
+        return self._cached_step(
+            self._token_step_key(head, None, 1.0, paged), head,
+            "paged" if paged else "advance", head_fn)
 
     def _sample_step(self, head: SoftmaxHead, temperature: float,
-                     top_p: float) -> _Step:
+                     top_p: float, paged: bool = False) -> _Step:
         def head_fn(slab, h):
             shape = head.noise_shape(h.shape[0], temperature)
             gumbel = (None if shape is None else
@@ -428,8 +443,22 @@ class DecodeEngine:
             slab.tok.copy_(head.sample(h, temperature, top_p, gumbel=gumbel))
             return h
         return self._cached_step(
-            self._token_step_key(head, temperature, top_p), head, "advance",
-            head_fn)
+            self._token_step_key(head, temperature, top_p, paged), head,
+            "paged" if paged else "advance", head_fn)
+
+    def _paged_greedy_step(self, head: SoftmaxHead) -> _Step:
+        """The greedy step of a paged stream: the dense family's decode
+        over the page store and ``head.next``, cached under
+        ``(head.step_key(), "greedy-paged")`` in the same LRU; on the card
+        one graph per paged slab, the page table, ``tok`` and ``pos`` its
+        static inputs."""
+        return self._greedy_step(head, paged=True)
+
+    def _paged_sample_step(self, head: SoftmaxHead, temperature: float,
+                           top_p: float) -> _Step:
+        """The sampled twin of ``_paged_greedy_step``, keyed with the
+        sampling statics as ``_sample_step`` is."""
+        return self._sample_step(head, temperature, top_p, paged=True)
 
     def _decode_step(self, head: SoftmaxHead) -> _Step:
         """Beam search's step: the cache rows gathered by ``slab.src``, one
@@ -488,11 +517,14 @@ class DecodeEngine:
         return step(slab, self._stream, self._pool)
 
     # -- prefill --------------------------------------------------------------
-    def _new_slab(self, batch: int, key, pos_shape: tuple) -> _Slab:
+    def _new_slab(self, batch: int, key, pos_shape: tuple,
+                  cache: Optional[dict] = None) -> _Slab:
         dev = self.device
+        if cache is None:
+            cache = self.model.init_cache(batch, self.max_len,
+                                          dtype=self.cache_dtype, device=dev)
         return _Slab(
-            cache=self.model.init_cache(batch, self.max_len,
-                                        dtype=self.cache_dtype, device=dev),
+            cache=cache,
             tok=torch.zeros((batch,), dtype=torch.int32, device=dev),
             pos=torch.zeros(pos_shape, dtype=torch.int32, device=dev),
             src=torch.arange(batch, device=dev), key=key)
@@ -505,7 +537,7 @@ class DecodeEngine:
         return slab
 
     def _lend_stream_slab(self, width: int, key: tuple,
-                          spec_depth: int = 0) -> _Slab:
+                          spec_depth: int = 0, store=None) -> _Slab:
         """A slab of ``width`` for one stream of the step under ``key``
         until the stream gives it back (``_return_stream_slab``): a free
         one that served the step before — it holds the step's graph on the
@@ -513,16 +545,28 @@ class DecodeEngine:
         of one step never lose their slab (and graph) to another step's.
         Its contents are whatever the last stream left; a join overwrites
         the rows it takes. ``spec_depth`` n_max > 0: a speculative stream's
-        slab, with its round buffers (``_SpecBuffers``) made with it."""
+        slab, with its round buffers (``_SpecBuffers``) made with it.
+        ``store`` (a ``PagedKVStore``): a paged stream's slab over that
+        store, with a page table and no cache of its own; it serves the
+        streams of that store only."""
+        if store is not None:
+            # the slab holds store.k, so its id names this store while the
+            # slab lives
+            key = key + (id(store.k),)
         pool = [s for s in (r() for r in self._free_stream_slabs.get(
             (width, key), ())) if s is not None]
         if pool:
             slab = pool.pop(0)
         else:
             self._n_stream_slabs += 1
-            slab = self._new_slab(width, (width, self._n_stream_slabs),
-                                  (width,))
+            slab = self._new_slab(
+                width, (width, self._n_stream_slabs), (width,),
+                None if store is None else {"k": store.k, "v": store.v})
             slab.owner = key
+            if store is not None:
+                slab.table = torch.zeros(
+                    (width, self.max_len // store.page_size),
+                    dtype=torch.int32, device=self.device)
             slab.saved = [torch.empty_like(leaf)
                           for leaf in _recurrent_leaves(slab.cache)]
             if spec_depth:
@@ -545,14 +589,17 @@ class DecodeEngine:
 
     def _prefill(self, prompts, max_new: int) -> tuple:
         """prompts (B, Tp) → (the slab of width B, its cache primed by the
-        prompt and its position at Tp, h_last (B, d)). Raises if the hybrid
-        family's K/V cache of ``max_len`` slots cannot hold the prompt and
-        ``max_new`` tokens; the LSTM and SSM states do not grow, and decode
-        past ``max_len`` as the reference does. The prefill runs eagerly."""
+        prompt and its position at Tp, h_last (B, d)). Raises if the dense
+        or hybrid family's K/V cache of ``max_len`` slots cannot hold the
+        prompt and ``max_new`` tokens, where the reference clamps the writes
+        past the end to slot S − 1 and decodes on; the LSTM and SSM states
+        do not grow, and decode past ``max_len`` as the reference does. The
+        prefill runs eagerly."""
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=self.device)
         B, Tp = tokens.shape
-        if self.model.cfg.family == "hybrid" and Tp + max_new > self.max_len:
+        if self.model.cfg.family in ("dense", "hybrid") and \
+                Tp + max_new > self.max_len:
             raise ValueError(f"a prompt of {Tp} tokens and {max_new} new ones "
                              f"need {Tp + max_new} cache slots; max_len is "
                              f"{self.max_len}")
@@ -752,13 +799,13 @@ class DecodeEngine:
                           temperature: Optional[float] = None,
                           top_p: float = 1.0, seed: int = 0):
         """Open a continuous decode stream backed by a ``PagePool``: per-slot
-        logical LSTM pages with shared-prefix radix reuse (a prefix hit
-        resumes the prefill from a cached recurrent state) and
-        copy-on-write. Same contract as ``open_stream`` — greedy tokens
-        equal a plain stream's, and LSTM streams reuse the dense steps
-        outright. The attention families' page store is not ported
-        (ROADMAP.md, Queue 1 item 9.1). See
-        ``repro_torch.serving.kvpool.PagedDecodeStream``."""
+        page chains with shared-prefix radix reuse and copy-on-write — K/V
+        rows in the pool's device page store for the dense family (decoded
+        by the ``"greedy-paged"`` / ``"sample-paged"`` steps), logical
+        pages for the LSTM (a prefix hit resumes the prefill from a cached
+        recurrent state; decode reuses the plain stream's steps outright).
+        Same contract as ``open_stream`` — greedy tokens equal a plain
+        stream's. See ``repro_torch.serving.kvpool.PagedDecodeStream``."""
         from repro_torch.serving.kvpool.stream import PagedDecodeStream
         name = head if isinstance(head, str) else None
         hd = self.resolve_head(head)
@@ -1085,8 +1132,12 @@ def _write_back(dst, src) -> None:
 
 def _recurrent_leaves(cache) -> List[torch.Tensor]:
     """The leaves a decode step overwrites whole: the LSTM state, or the
-    SSM states and conv tails (not the hybrid's K/V caches)."""
-    return tree_leaves(cache["lstm"] if "lstm" in cache else cache["ssm"])
+    SSM states and conv tails; none of the K/V caches (the dense family's,
+    the hybrid's, a page store's), which a step writes one slot of."""
+    for name in ("lstm", "ssm"):
+        if name in cache:
+            return tree_leaves(cache[name])
+    return []
 
 
 def _splice_cache(group, solo, slot: int, cfg) -> None:

@@ -1,8 +1,7 @@
 """Block-paged KV memory: refcounted fixed-size pages + typed exhaustion.
-Twin of ``repro/serving/kvpool/pool.py`` for the LSTM family: ``bind``
-raises NotImplementedError for the attention families, whose device-side
-page store and paged attention decode are not ported yet (ROADMAP.md,
-Queue 1 items 9.1 and 9.4).
+Twin of ``repro/serving/kvpool/pool.py`` for the LSTM and dense families:
+``bind`` raises NotImplementedError for moe, whose stack is not ported yet
+(ROADMAP.md, Queue 1), and for the SSM families, as the reference does.
 
 ``PagePool`` is the bookkeeping core of the paged serving path: KV capacity
 is carved into ``num_pages`` pages of ``page_size`` token slots each, and
@@ -10,18 +9,19 @@ every live occupant — a stream slot's page chain, or the radix prefix
 cache pinning shared prompt pages — holds an explicit reference. Sharing is
 refcounting (``retain``); divergence is copy-on-write (``ensure_writable``:
 a page with more than one holder is re-allocated privately before its first
-write; the LSTM's pages have no rows to copy).
+write, its K/V rows copied for the dense family; the LSTM's pages have no
+rows to copy).
 
 The pool is deliberately split from physical storage:
 
   * pure bookkeeping (this class, unbound) is what the hypothesis property
     suite drives through thousands of random alloc/share/COW/free
     sequences — no tensors, no graphs, just the invariants;
-  * ``bind(engine)`` attaches the model-specific substance: for the LSTM
-    family nothing, its "pages" being logical accounting over
-    recurrent-state snapshots held by the radix cache (see radix.py); the
-    reference's device-side ``PagedKVStore`` for attention families is
-    not ported — admission and telemetry stay uniform either way.
+  * ``bind(engine)`` attaches the model-specific substance: the
+    device-side ``PagedKVStore`` (store.py) for the dense family; for the
+    LSTM family nothing, its "pages" being logical accounting over
+    recurrent-state snapshots held by the radix cache (see radix.py) —
+    admission and telemetry stay uniform either way.
 
 Page 0 is RESERVED as the trash page: idle stream slots park their page
 table entries (and their per-step scatter writes) there, so the decode
@@ -81,6 +81,7 @@ class PagePool:
         self.peak_in_use = 0
         self.reclaimer: Optional[Callable[[int], int]] = None
         self.radix = None                # RadixCache (set by bind/attach)
+        self.store = None                # PagedKVStore (dense, set by bind)
         self._engine = None
 
     # -- core refcounted alloc/free ------------------------------------------
@@ -150,13 +151,15 @@ class PagePool:
 
     def ensure_writable(self, page: int) -> int:
         """Return a page the caller may write: ``page`` itself when it is
-        the sole holder, else a COW copy (the new page is taken BEFORE the
-        old reference is dropped, as the reference's store-aware copy
-        needs)."""
+        the sole holder, else a COW copy (its rows duplicated when a device
+        store is bound; the copy is taken BEFORE the old reference is
+        dropped, so no reallocation can clobber the source)."""
         page = int(page)
         if self.writable(page):
             return page
         new = self.alloc()
+        if self.store is not None:
+            self.store.copy_page(page, new)
         self.release(page)
         self.cow_copies += 1
         return new
@@ -164,9 +167,11 @@ class PagePool:
     # -- binding to an engine -------------------------------------------------
     def bind(self, engine) -> None:
         """Attach this pool to a ``DecodeEngine`` (idempotent; one engine
-        per pool). The LSTM family stays logical: its pages are accounting
-        over the recurrent-state snapshots the radix cache holds. Called by
-        ``PagedDecodeStream`` — users just construct ``PagePool(...)``."""
+        per pool). Builds the device ``PagedKVStore`` for the dense family,
+        in the engine's cache dtype on its device; the LSTM family stays
+        logical: its pages are accounting over the recurrent-state
+        snapshots the radix cache holds. Called by ``PagedDecodeStream`` —
+        users just construct ``PagePool(...)``."""
         if self._engine is engine:
             return
         if self._engine is not None:
@@ -177,16 +182,23 @@ class PagePool:
                 f"{engine.max_len} (the paged view must have the dense "
                 f"cache's exact shape for bit-identical decode)")
         cfg = engine.model.cfg
-        if cfg.family in ("dense", "moe"):
+        if cfg.family == "moe":
             raise NotImplementedError(
-                f"repro_torch: paged KV for the {cfg.family} family "
-                f"({cfg.name}) needs the attention page store and "
-                f"attn_decode_paged, not ported yet (ROADMAP.md, Queue 1 "
-                f"items 9.1 and 9.4)")
-        if cfg.family != "lstm":
+                f"repro_torch: paged KV for the moe family ({cfg.name}) "
+                f"needs its stack, not ported yet (ROADMAP.md, Queue 1 "
+                f"item 9.4)")
+        if cfg.family == "dense":
+            if cfg.sliding_window is not None:
+                raise NotImplementedError(
+                    "paged KV does not support sliding-window (ring) "
+                    f"caches: {cfg.name}")
+            from repro_torch.serving.kvpool.store import PagedKVStore
+            self.store = PagedKVStore(cfg, self.num_pages, self.page_size,
+                                      engine.cache_dtype, engine.device)
+        elif cfg.family != "lstm":
             raise NotImplementedError(
-                f"paged KV supports the lstm family (and, in the reference, "
-                f"dense/moe), not {cfg.family} ({cfg.name})")
+                f"paged KV supports the lstm and dense families (and, in "
+                f"the reference, moe), not {cfg.family} ({cfg.name})")
         if self.radix is None:
             from repro_torch.serving.kvpool.radix import RadixCache
             self.radix = RadixCache(self)
@@ -195,10 +207,13 @@ class PagePool:
 
     # -- telemetry -------------------------------------------------------------
     def bytes_per_page(self) -> int:
-        """Device bytes one resident page costs: the LSTM recurrent-state
-        snapshot a cached page carries (2 * L * d floats) — its pages are
-        logical, so this is the accounting rate for residency, not a tensor
-        stride (0 while unbound)."""
+        """Device bytes one resident page costs. Dense: the store's K/V
+        rows of a page. LSTM: the recurrent-state snapshot a cached page
+        carries (2 * L * d floats) — its pages are logical, so this is the
+        accounting rate for residency, not a tensor stride (0 while
+        unbound)."""
+        if self.store is not None:
+            return self.store.bytes_per_page
         eng = self._engine
         if eng is None:
             return 0
@@ -218,7 +233,7 @@ class PagePool:
             "cow_copies": self.cow_copies,
             "bytes_per_page": self.bytes_per_page(),
             "hbm_resident_bytes": self.pages_in_use * self.bytes_per_page(),
-            "store_bytes": 0,            # the attention page store's
+            "store_bytes": self.store.nbytes if self.store is not None else 0,
         }
         if self.radix is not None:
             out["prefix"] = self.radix.telemetry()

@@ -1,10 +1,27 @@
-"""Paged continuous-batching decode stream over logical LSTM pages. Twin of
-``repro/serving/kvpool/stream.py`` for the LSTM family.
+"""Paged continuous-batching decode stream: page tables instead of padding.
+Twin of ``repro/serving/kvpool/stream.py`` for the dense and LSTM families.
 
 ``PagedDecodeStream`` is ``DecodeStream``'s drop-in sibling (same
 ``join``/``step``/``evict``/``pop_finished`` surface, same fixed width and
-graph discipline) with each slot's cache accounted as a chain of pool
-pages.
+graph discipline) with each slot's cache held as a chain of pool pages.
+
+For the DENSE family K/V rows live in the pool's device ``PagedKVStore``;
+each slot owns a page chain, and the batched step decodes through
+``decode_step_paged`` over (the store, the page table, the positions): the
+engine's ``"greedy-paged"`` / ``"sample-paged"`` steps, one graph per
+paged slab on the card, the page table a static input buffer. The page
+table rows live on the host and are copied into the slab's table before
+each replay. The gathered paged view has the contiguous cache's exact
+shape (``page_size`` divides ``max_len``), identical values at every
+unmasked position and the identical keep-mask, so greedy tokens are
+bit-identical to a plain stream's. Prefix reuse is STORAGE sharing: fully
+covered prompt pages are shared by reference, and the join still prefills
+solo (the first token's bit-identity), writing only its private pages
+(``write_prompt`` from the first unshared page on). A shared page holds
+the K/V of the prefill that wrote it: on the CPU the same values as the
+joining prompt's own, on the card the same where the prompts have one
+length, while a prefill of another length may round the prefix rows'
+last bits otherwise (its GEMMs' kernels follow the prompt length).
 
 For the LSTM family (the paper's architecture) decode carries no per-token
 KV, so pages are LOGICAL accounting (uniform admission / telemetry /
@@ -18,14 +35,12 @@ resumed prefill starts from a copy of it, never from the payload itself.
 Decode rides the engine's dense stream steps outright (the same graphs a
 ``DecodeStream`` of the head and width replays).
 
-The attention families' branch — K/V rows in a device page store, decoded
-by ``decode_step_paged`` — is not ported (ROADMAP.md, Queue 1 item 9.1):
-``PagePool.bind`` refuses every family but the LSTM.
-
 Sharing is copy-on-write: a slot's first write into a page with other
 holders (a cache-pinned prompt tail, a sibling slot's shared prefix)
-re-allocates it privately (pure accounting for the LSTM) before the
-batched step runs. Slots grow page-by-page on demand between steps;
+re-allocates it privately — its rows copied in the store for the dense
+family, pure accounting for the LSTM — before the batched step runs, so a
+step writes only sole-holder pages (or the trash page, for idle rows).
+Slots grow page-by-page on demand between steps;
 ``PoolExhausted`` propagates to the scheduler as the pool-pressure signal
 (nothing is consumed or advanced when it fires, so the tick can simply
 retry after eviction/preemption frees pages).
@@ -63,10 +78,25 @@ class PagedDecodeStream(DecodeStream):
                          top_p=top_p, seed=seed, head_name=head_name)
         self.pool = pool
         self._pages: List[List[int]] = [[] for _ in range(self.width)]
+        # dense: each slot's sequence page → pool page (0 = the trash page,
+        # so idle rows gather junk their mask and discard never surface)
+        self.table = None
+        if pool.store is not None:
+            self.table = np.zeros(
+                (self.width, engine.max_len // pool.page_size), np.int32)
 
     @property
     def pages_held(self) -> int:
         return sum(len(c) for c in self._pages)
+
+    def _step_entry(self):
+        if self.table is None:
+            return super()._step_entry()
+        eng = self.engine
+        if self.sampled:
+            return eng._paged_sample_step(self.head, self.temperature,
+                                          self.top_p)
+        return eng._paged_greedy_step(self.head)
 
     def _first_token(self, h_last) -> int:
         hd = self.head
@@ -82,10 +112,12 @@ class PagedDecodeStream(DecodeStream):
     @torch.inference_mode()
     def join(self, request: ServeRequest, tag: object = None) -> int:
         """Admit one request: radix-match its prompt, share/COW/allocate its
-        page chain, resume the prefill from the deepest cached snapshot,
-        splice. Raises ``PoolExhausted`` — with every page reference this
-        join took rolled back, and the generator's state restored — when
-        the pool cannot back the prompt."""
+        page chain, prefill (resumed from the deepest cached snapshot for
+        the LSTM, solo for the dense family), then splice (LSTM) or write
+        the private prompt pages (dense). Raises ``PoolExhausted`` — with
+        every page reference this join took rolled back, and the
+        generator's state restored — when the pool cannot back the
+        prompt."""
         eng = self.engine
         Tp = int(request.prompt.shape[0])
         if Tp + request.max_new > eng.max_len:
@@ -98,7 +130,10 @@ class PagedDecodeStream(DecodeStream):
         held: List[int] = []                      # page refs this join owns
         state = None if self._gen is None else self._gen.get_state()
         try:
-            first, solo = self._join_lstm(request, toks, match, held)
+            if self.table is None:
+                first, solo = self._join_lstm(request, toks, match, held)
+            else:
+                first, solo = self._join_attn(request, toks, match, held), None
         except (PoolExhausted, HeadFault):
             # same rollback either way: the pool cannot back the prompt OR
             # the head faulted mid-join — every page ref this join took is
@@ -109,6 +144,9 @@ class PagedDecodeStream(DecodeStream):
                 self._gen.set_state(state)
             raise
         self._pages[slot] = held
+        if self.table is not None:
+            self.table[slot, :] = 0
+            self.table[slot, :len(held)] = held
         entry = _StreamSlot(tag=tag, request=request, tokens=[first],
                             remaining=request.max_new - 1)
         if entry.remaining == 0:
@@ -117,10 +155,13 @@ class PagedDecodeStream(DecodeStream):
             self._on_free(slot)
             return slot
         if self._slab is None:
+            paged = self.table is not None
             self._slab = eng._lend_stream_slab(
                 self.width, eng._token_step_key(self.head, self.temperature,
-                                                self.top_p))
-        _splice_cache(self._slab.cache, solo, slot, eng.model.cfg)
+                                                self.top_p, paged),
+                store=self.pool.store)
+        if solo is not None:
+            _splice_cache(self._slab.cache, solo, slot, eng.model.cfg)
         self.tok[slot] = first
         self.pos[slot] = Tp
         self.slots[slot] = entry
@@ -175,6 +216,35 @@ class PagedDecodeStream(DecodeStream):
         pool.radix.record(t, Tp)
         return first, cache1
 
+    def _join_attn(self, request, toks, match, held) -> int:
+        """Solo full prefill (the first token's bit-identity), fully
+        covered prefix pages shared by reference, private pages written
+        from the solo cache for the rest. → the first token."""
+        eng, pool = self.engine, self.pool
+        P, Tp = pool.page_size, len(toks)
+        n_prompt = (Tp + P - 1) // P
+        # share only FULLY covered grid slots; a partial slot is rewritten
+        # from our own prefill on a private page (counted as a COW when it
+        # displaces a matched partial node's page)
+        for pg, nv in match.chain:
+            if nv == P:
+                held.append(pool.retain(pg))
+        j0 = len(held)
+        if match.chain and match.chain[-1][1] < P:
+            # two steps, so a failing cow leaves the retained ref in held
+            # for join's rollback
+            held.append(pool.retain(match.chain[-1][0]))
+            held[-1] = pool.cow(held[-1])
+        solo, h_last = eng._prefill(request.prompt[None], request.max_new)
+        first = self._first_token(h_last)
+        while len(held) < n_prompt:
+            held.append(pool.alloc())
+        pool.store.write_prompt(held[:n_prompt], solo.cache["attn"],
+                                first_page=j0)
+        pool.radix.insert(toks, held[:n_prompt])
+        pool.radix.record(j0 * P, Tp)
+        return first
+
     # -- step -----------------------------------------------------------------
     def _ensure_pages(self, idx) -> None:
         """Every active row must own a WRITABLE page at its write position
@@ -190,14 +260,21 @@ class PagedDecodeStream(DecodeStream):
                 chain.append(self.pool.alloc())
             else:
                 chain[j] = self.pool.ensure_writable(chain[j])
+            if self.table is not None:
+                self.table[i, j] = chain[j]
 
+    @torch.inference_mode()
     def step(self) -> List[tuple]:
         """One batched decode tick; same contract as ``DecodeStream.step``.
         May raise ``PoolExhausted`` BEFORE any state advances — the
-        scheduler frees pages (cache eviction / preemption) and re-ticks."""
+        scheduler frees pages (cache eviction / preemption) and re-ticks.
+        The dense family's page table goes into the slab's static table
+        first, so the replay reads this tick's chains."""
         idx = [i for i, s in enumerate(self.slots) if s is not None]
         if idx:
             self._ensure_pages(idx)
+            if self.table is not None:
+                self._slab.table.copy_(torch.from_numpy(self.table))
         return super().step()
 
     # -- evict / release -------------------------------------------------------
@@ -207,5 +284,7 @@ class PagedDecodeStream(DecodeStream):
         for pg in self._pages[slot]:
             self.pool.release(pg)
         self._pages[slot] = []
+        if self.table is not None:
+            self.table[slot, :] = 0
         self.pos[slot] = 0
         self.tok[slot] = 0

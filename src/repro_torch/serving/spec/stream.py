@@ -28,9 +28,11 @@ start, pos0 its position):
            the draft tokens from the stream's ``torch.Generator``.
 
 Rollback of rejected draft positions:
-  * the hybrid's K/V caches need NONE — ``attn_decode``'s keep-mask hides
-    slots beyond the resumed position exactly, and decode overwrites them
-    when it re-reaches those positions;
+  * K/V caches need NONE (the dense family's, the hybrid's) —
+    ``attn_decode``'s keep-mask hides slots beyond the resumed position
+    exactly, and decode overwrites them when it re-reaches those
+    positions. A dense stream's slab has no snapshot ring at all: a
+    rejected row resumes by its position alone;
   * recurrent state (the LSTM's (h, c); the SSM states and conv tails) is
     SNAPSHOT per draft step. The port's caches are updated in place, so a
     snapshot is a COPY into a ring preallocated with the stream's slab
@@ -87,9 +89,10 @@ class _SpecSlot:
 
 def _needs_snapshot(cfg) -> bool:
     """Families whose decode state cannot be rolled back by position
-    masking alone: recurrent state advances destructively (every family
-    the port serves), and ring-buffer sliding windows overwrite the oldest
-    slots during the draft run."""
+    masking alone: recurrent state advances destructively (the LSTM, SSM
+    and hybrid families), and ring-buffer sliding windows overwrite the
+    oldest slots during the draft run. A dense stack without a window rolls
+    back by position alone."""
     return cfg.family in ("lstm", "ssm", "hybrid") or \
         getattr(cfg, "sliding_window", None) is not None
 
@@ -314,7 +317,7 @@ class SpecDecodeStream:
 
     def _retire(self, i: int) -> None:
         """Free slot ``i``, parked at position 0 so its idle row's draft
-        writes stay far from the end of the hybrid's K/V cache."""
+        writes stay far from the end of the K/V cache."""
         self.slots[i] = None
         self.tok[i] = 0
         self.pos[i] = 0

@@ -1370,3 +1370,168 @@ def test_cuda_ssm_train_step_matches_the_cpu(cuda, arch):
         p, opt, m = step(p, opt, batch)
         losses.append(float(m["loss"]))
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# -- the dense family's shapes (gemma-2b, smollm-360m, starcoder2-3b,
+#    qwen1.5-110b) -------------------------------------------------------------
+
+@pytest.mark.parametrize("KV,hd", [(1, 256), (5, 64), (2, 128)])
+def test_cuda_cache_kv_update_at_the_dense_shapes(cuda, KV, hd):
+    """The K/V pair in bf16 at gemma-2b's MQA rows (512 bytes),
+    smollm-360m's (640) and starcoder2-3b's (512): bit for bit, per-row
+    slots and one slot for every row."""
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update_plain)
+    g = torch.Generator().manual_seed(KV * hd)
+    B, S = 4, 544
+    ck, cv = (torch.randn((B, S, KV, hd), generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    uk, uv = (torch.randn((B, KV, hd), generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    for slot in (0, S - 1, S + 3, torch.tensor([5, 511, S + 2, -1],
+                                               dtype=torch.int32,
+                                               device=cuda)):
+        ops.reset_launches()
+        gk, gv = cache_kv_update(ck.clone(), uk, cv.clone(), uv, slot)
+        assert ops.LAUNCHES["cache_slot_update"] == 1
+        assert torch.equal(gk, cache_slot_update_plain(ck.clone(), uk, slot))
+        assert torch.equal(gv, cache_slot_update_plain(cv.clone(), uv, slot))
+
+
+@pytest.fixture(scope="module")
+def gemma_head():
+    """gemma-2b's softmax head in bf16 (V = 256,000 → 2,000 tiles of
+    d = 2048), drawn on the card, with a float32 v of 100 clusters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    W = (torch.randn((256_000, 2048), generator=g, device="cuda") * 0.05)
+    b = torch.randn((256_000,), generator=g, device="cuda") * 0.1
+    Wb, bb = ops.pack_head_blocks(W.to(torch.bfloat16), b.to(torch.bfloat16))
+    v = torch.randn((100, 2048), generator=g, device="cuda")
+    return Wb, bb, v
+
+
+@pytest.mark.parametrize("k", [1, 5, 128])
+def test_cuda_bf16_kernels_at_gemma_shapes(cuda, gemma_head, k):
+    """Route, gather and fused (bf16 bodies) at d = 2048 over 2,000 tiles,
+    B = 4, K = 16 (some slots sentinel): routes equal, logits, values and
+    logZ within 1e-5 of the plain versions; fused == unfused bit for bit."""
+    Wb, bb, v = gemma_head
+    n_blk = Wb.shape[0]
+    assert n_blk == 2000
+    g = torch.Generator().manual_seed(k)
+    B, K = 4, 16
+    h = torch.randn((B, 2048), generator=g).to(cuda, torch.bfloat16)
+    ids = torch.randint(0, n_blk + 2, (B, K), generator=g,
+                        dtype=torch.int32).to(cuda)
+    assert torch.equal(cluster_route(h, v), cluster_route_plain(h, v))
+    raw = screened_logits(Wb, bb, h, ids)
+    torch.testing.assert_close(raw, screened_logits_plain(Wb, bb, h, ids),
+                               **TOL)
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    row = torch.where(valid, raw, NEG_INF).reshape(B, -1)
+    lane = torch.arange(V_BLK, device=cuda, dtype=torch.int32)
+    word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    ki, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=k)
+    pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+    torch.testing.assert_close(kv, pv, **TOL)
+    torch.testing.assert_close(kz, pz, **TOL)
+    uv, upos = topk_desc(row, k)
+    assert torch.equal(kv, uv) and torch.equal(ki, torch.gather(word, 1, upos))
+
+
+@pytest.mark.parametrize("B", [1, 4, 130])
+def test_cuda_cluster_route_at_d8192(cuda, B):
+    """qwen1.5-110b's d = 8192 (4 rows of h a thread block cluster): routes
+    equal the plain argmax but where the plain top-2 scores lie within
+    1e-5 relative, in float32 and from a bf16 h; and an exact tie across
+    the blocks of the cluster goes to the first index."""
+    g = torch.Generator().manual_seed(B)
+    d, r = 8192, 100
+    h = torch.randn((B, d), generator=g).to(cuda)
+    v = torch.randn((r, d), generator=g).to(cuda)
+    for hh in (h, h.to(torch.bfloat16)):
+        got, want = cluster_route(hh, v), cluster_route_plain(hh, v)
+        scores = hh.float() @ v.T
+        s_got = scores.gather(1, got.long()[:, None])[:, 0]
+        s_want = scores.gather(1, want.long()[:, None])[:, 0]
+        diff = got != want
+        rel = (s_got - s_want).abs() / s_want.abs().clamp_min(1e-30)
+        assert bool((rel[diff] < 1e-5).all()), (int(diff.sum()), rel[diff])
+    v = torch.round(torch.randn((r, d), generator=g) * 2) / 2
+    v[3] = v[50] = v[99] = 4.0
+    h = torch.round(torch.rand((B, d), generator=g) * 3) * 0.5 + 0.5
+    h, v = h.to(cuda), v.to(cuda)
+    assert bool((cluster_route_plain(h, v) == 3).all())
+    assert bool((cluster_route(h, v) == 3).all())
+
+
+def test_cuda_gather_and_fused_at_d8192(cuda):
+    """The gather and fused kernels take d = 8192 too (the fused merge asks
+    for 33 KB of shared memory there): bf16 head of 200 tiles, B = 4,
+    K = 16, against the plain versions; fused == unfused bit for bit."""
+    Wb, bb, h, ids, _ = _bf16_inputs(cuda, 8192, 25_600, 4, 16, seed=3)
+    n_blk = Wb.shape[0]
+    raw = screened_logits(Wb, bb, h, ids)
+    torch.testing.assert_close(raw, screened_logits_plain(Wb, bb, h, ids),
+                               **TOL)
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    row = torch.where(valid, raw, NEG_INF).reshape(4, -1)
+    for k in (1, 5):
+        _, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=k)
+        _, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+        torch.testing.assert_close(kv, pv, **TOL)
+        torch.testing.assert_close(kz, pz, **TOL)
+        assert torch.equal(kv, topk_desc(row, k)[0])
+
+
+def test_cuda_dense_paged_stream_matches_a_plain_stream(cuda):
+    """gemma-2b at full width, cut to 2 layers, in bf16: a width-3 paged
+    stream (pages of 16, requests sharing a 32-token prefix, prompts of
+    one length: a prefill's rows can differ in their last bits between
+    prompt lengths on the card) gives a plain stream's tokens bit for bit
+    through screened-cuda, on the paged step's graph, and the contiguous
+    decode launches the cache pair."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.screening import ScreenParams
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine, PagePool, ServeRequest
+    cfg = replace(get_config("gemma-2b"), num_layers=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    n_blk = cfg.vocab_size // V_BLK
+    cand = np.sort(rng.choice(n_blk, (8, 16)), axis=1).astype(np.int32)
+    screen = ScreenParams(
+        v=torch.randn((8, cfg.d_model), device=cuda),
+        cand_idx=torch.as_tensor(cand, device=cuda),
+        cand_len=torch.full((8,), 16, dtype=torch.int32, device=cuda),
+        vocab_size=cfg.vocab_size, block=V_BLK)
+    eng = DecodeEngine(model, params, screen=screen, max_len=64,
+                       cache_dtype=torch.bfloat16, device=cuda)
+    base = rng.integers(0, cfg.vocab_size, 32)
+    reqs = [ServeRequest(prompt=np.concatenate(
+        [base, rng.integers(0, cfg.vocab_size, 7)]).astype(np.int32),
+        max_new=8) for i in range(5)]
+
+    def run(stream):
+        done, pending = {}, list(enumerate(reqs))
+        while pending or stream.n_active:
+            while pending and stream.free_slots:
+                i, r = pending.pop(0)
+                stream.join(r, tag=i)
+            done.update({t: toks.tolist() for t, _, toks in stream.step()})
+        return done
+    ops.reset_launches()
+    want = run(eng.open_stream("screened-cuda", width=3))
+    assert ops.LAUNCHES["cache_slot_update"] > 0
+    pool = PagePool(32, 16)
+    got = run(eng.open_paged_stream(pool, head="screened-cuda", width=3))
+    assert got == want
+    assert pool.radix.tokens_hit >= 4 * 32
+    assert eng.compiled_step_counts() == {("screened-cuda", "greedy"): 1,
+                                          ("screened-cuda", "greedy-paged"): 1}

@@ -5,10 +5,14 @@ package's, on the CPU, on the same weights (``torch_serving_fixtures``):
     sequences give the reference's page ids, refcounts, matches, payloads
     and telemetry; the refcount invariants hold under random sequences
     (hypothesis), step by step equal to the reference's pool;
-  * ``bind`` takes the LSTM family and refuses the others;
+  * ``bind`` takes the LSTM family, builds the dense family's device page
+    store (the reference's shape, the engine's cache dtype), and refuses
+    the others;
   * ``PagedDecodeStream`` tokens equal the reference's and solo
     ``generate``'s bit for bit, with the same radix hits, page ids and
-    copy-on-write counts; a join the pool cannot back rolls back; a
+    copy-on-write counts, for the LSTM and (reduced smollm-360m, the
+    reference's fixture) the dense family, whose stale page rows,
+    poisoned, never leak; a join the pool cannot back rolls back; a
     sampled paged stream equals a plain stream;
   * radix payloads never alias the stream's slab: a second join on a
     cached prefix, after the first stream has decoded, gets the same
@@ -21,6 +25,7 @@ package's, on the CPU, on the same weights (``torch_serving_fixtures``):
 Greedy tokens are held equal where the reference's steps are decided by a
 top-2 gap above 1e-4 (asserted).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,8 +49,8 @@ from repro_torch.serving.kvpool import TRASH_PAGE, RadixCache
 from repro_torch.serving.kvpool.radix import MAX_PARTIALS
 from repro_torch.serving.scheduler import AdmissionRejected
 from repro_torch.tree import tree_leaves
-from torch_serving_fixtures import (assert_decided, hybrid_fx, lstm_fx,
-                                    outcome)
+from torch_serving_fixtures import (assert_decided, dense_fx, hybrid_fx,
+                                    lstm_fx, outcome)
 
 
 @pytest.fixture(scope="module")
@@ -304,8 +309,8 @@ def test_bind_requires_page_alignment(lstm):
 
 
 def test_bind_refuses_the_other_families():
-    """The hybrid (as in the reference) and the attention families (their
-    page store is Queue 1 items 9.1 and 9.4) raise NotImplementedError."""
+    """The hybrid (as in the reference) and moe (its stack is Queue 1 item
+    9.4) raise NotImplementedError."""
     hyb = hybrid_fx()
     heng = DecodeEngine(hyb["tmodel"], hyb["tparams"], max_len=24,
                         device="cpu")
@@ -313,13 +318,80 @@ def test_bind_refuses_the_other_families():
         heng.open_paged_stream(PagePool(8, 4))
 
     class _Cfg:
-        name, family = "dense-stub", "dense"
+        name, family = "moe-stub", "moe"
 
     class _Stub:
         max_len = 24
         model = type("M", (), {"cfg": _Cfg})
-    with pytest.raises(NotImplementedError, match="9.1 and 9.4"):
+    with pytest.raises(NotImplementedError, match="9.4"):
         PagePool(8, 4).bind(_Stub)
+
+
+@pytest.fixture(scope="module")
+def dense():
+    return dense_fx("smollm-360m")
+
+
+def test_bind_builds_the_dense_page_store(dense):
+    """``bind`` on a dense engine builds a ``PagedKVStore`` of (L, N_pages,
+    P, KV, hd) in the engine's cache dtype, as the reference's does, and
+    the telemetry reports its bytes."""
+    for dtype, jdtype in ((torch.float32, "float32"),
+                          (torch.bfloat16, "bfloat16")):
+        teng = DecodeEngine(dense["tmodel"], dense["tparams"], max_len=24,
+                            cache_dtype=dtype, device="cpu")
+        jeng = JEngine(dense["jmodel"], dense["jparams"], max_len=24,
+                       cache_dtype=getattr(jnp, jdtype))
+        tpool, jpool = PagePool(8, 4), JPool(8, 4)
+        tpool.bind(teng)
+        jpool.bind(jeng)
+        assert tuple(tpool.store.k.shape) == jpool.store.k.shape
+        assert tpool.store.k.dtype == tpool.store.v.dtype == dtype
+        assert tpool.store.k.device == teng.device
+        assert tpool.telemetry() == jpool.telemetry()
+        assert tpool.bytes_per_page() == jpool.bytes_per_page() > 0
+
+
+def test_dense_paged_stream_parity(dense):
+    """Four requests sharing an 8-token prefix on pages of 4: tokens equal
+    solo ``generate``'s and the reference's paged stream's bit for bit,
+    the same pool and radix telemetry, full prompt pages deduped, and the
+    decode ran the paged steps."""
+    ps = _prefix_prompts(dense, 4, template_len=8, suffix_len=4, seed=3)
+    teng, tpool, jpool, got, want = _paged_both(dense, ps, 4, 2)
+    for i, p in enumerate(ps):
+        ref = teng.generate(p[None], 4).tokens[0]
+        assert_decided(dense, p, ref, screened=False)
+        np.testing.assert_array_equal(got[i], ref)
+        np.testing.assert_array_equal(got[i], want[i])
+    assert tpool.telemetry() == jpool.telemetry()
+    assert tpool.live_pages() == jpool.live_pages()
+    assert tpool.radix.hit_rate > 0.3          # full prompt pages deduped
+    assert ("exact", "greedy-paged") in teng.compiled_step_counts()
+
+
+def test_dense_stale_page_rows_never_leak(dense):
+    """Poison every page with large finite junk after a first round, then
+    decode on reused pages (the pool's LIFO free list hands the poisoned
+    pages out first): the paged keep-mask zeroes the stale rows exactly,
+    so tokens equal solo ``generate``'s bit for bit."""
+    teng, _ = _engines(dense)
+    pool = PagePool(16, 4)
+    stream = teng.open_paged_stream(pool, width=2)
+    reqs1 = [ServeRequest(prompt=p, max_new=4) for p in
+             _prefix_prompts(dense, 2, template_len=8, suffix_len=4, seed=7)]
+    _run_stream(stream, reqs1)
+    pool.radix.clear()
+    assert pool.pages_in_use == 0
+    pool.store.k[:, 1:] = 1e3
+    pool.store.v[:, 1:] = 1e3
+    reqs2 = [ServeRequest(prompt=p, max_new=5) for p in
+             _prefix_prompts(dense, 3, template_len=8, suffix_len=4,
+                             seed=11)]
+    got = _run_stream(stream, reqs2)
+    for i, r in enumerate(reqs2):
+        ref = teng.generate(r.prompt[None], r.max_new).tokens[0]
+        np.testing.assert_array_equal(got[i], ref)
 
 
 # -- paged stream -------------------------------------------------------------

@@ -57,8 +57,8 @@ from repro_torch.serving.spec import (DraftLenController, accept_draft,
                                       accept_step, emission_distribution,
                                       greedy_accept_lengths, row_probs,
                                       spec_step_flops)
-from torch_serving_fixtures import (assert_decided, hybrid_fx, lstm_fx,
-                                    outcome, prompts)
+from torch_serving_fixtures import (assert_decided, dense_fx, hybrid_fx,
+                                    lstm_fx, outcome, prompts)
 
 
 @pytest.fixture(scope="module")
@@ -507,6 +507,31 @@ def test_spec_stream_hybrid_rollback_parity(hybrid):
     c = ts.spec_counters()
     assert c == js.spec_counters()
     assert c["accepted"] < c["drafted"] and ts.restored_rows > 0
+
+
+def test_spec_stream_transformer_rollback_parity():
+    """smollm-360m (reduced; the reference's fixture): attention-family
+    rollback is position masking alone — no snapshot ring on the slab, no
+    row restored — and parity holds under heavy rejection: tokens equal
+    plain exact generate's and the reference spec stream's."""
+    dense = dense_fx("smollm-360m")
+    teng, jeng = _engines(dense, max_len=40)
+    ps = prompts(dense, 3, 6, seed=5)
+    base = teng.generate(ps, 10, head="exact").tokens
+    ts = teng.open_spec_stream("screened", "exact", width=4, draft_len=3)
+    got = _run_stream(ts, [ServeRequest(prompt=p, max_new=10) for p in ps])
+    js = jeng.open_spec_stream("screened", "exact", width=4, draft_len=3)
+    want = _run_stream(js, [JRequest(prompt=p, max_new=10) for p in ps])
+    for i in range(3):
+        assert_decided(dense, ps[i], base[i], screened=False)
+        np.testing.assert_array_equal(got[i], base[i])
+        np.testing.assert_array_equal(got[i], want[i])
+    c = ts.spec_counters()
+    assert c == js.spec_counters()
+    assert c["accepted"] < c["drafted"]           # rejections really happened
+    assert ts.restored_rows == 0 and not ts._snapshot
+    ts.join(ServeRequest(prompt=ps[0], max_new=3))
+    assert ts._slab.spec.ring == [] and ts._slab.spec.ring_nbytes == 0
 
 
 def test_spec_stream_adaptive_controller_shrinks(hybrid):

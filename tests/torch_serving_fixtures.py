@@ -6,7 +6,10 @@ in both packages, initialised in JAX and carried across with
   * ``lstm_fx``: ``nmt-deen-lstm`` reduced (d = 128, V = 512), ``lm_head``
     × 100 (the fixture of ``tests/test_torch_serving.py``);
   * ``hybrid_fx``: ``zamba2-2.7b`` reduced (d = 128, chunk 16), the
-    embedding × 20 (the fixture of ``tests/test_torch_hybrid.py``).
+    embedding × 20 (the fixture of ``tests/test_torch_hybrid.py``);
+  * ``dense_fx(name)``: a dense config reduced (d = 128, 2 layers), its
+    softmax matrix × 20 (the tied embedding, or qwen1.5-110b's
+    ``lm_head``).
 
 ``assert_decided`` holds the CPU comparison rule: every step of the
 reference's greedy decode is decided by a top-2 gap above ``GAP`` (within
@@ -64,6 +67,15 @@ def lstm_fx():
 
 def hybrid_fx():
     return _build("zamba2-2.7b", 7, "embedding", 20.0)
+
+
+DENSE_SEEDS = {"smollm-360m": 1, "gemma-2b": 2, "starcoder2-3b": 3,
+               "qwen1.5-110b": 4}
+
+
+def dense_fx(name):
+    leaf = "embedding" if j_get_config(name).tie_embeddings else "lm_head"
+    return _build(name, DENSE_SEEDS[name], leaf, 20.0)
 
 
 def prompts(fx, n, length, seed):
