@@ -6,8 +6,10 @@ zamba2-2.7b and mamba2-1.3b through the SSD kernel's backward), the
 Mamba2/Zamba2 decode path (zamba2-2.7b), continuous batching (decode
 streams, the scheduler and the serving launcher) on both, the other heads
 (adaptive on the fused kernel, the §4.1 baselines on the host),
-speculative decoding and the page pool, and the dense transformers
-(gemma-2b, starcoder2-3b, qwen1.5-110b) with paged attention decode.
+speculative decoding and the page pool, the dense transformers
+(gemma-2b, starcoder2-3b, qwen1.5-110b) with paged attention decode, the
+moe transformers (mixtral-8x7b with its sliding-window ring cache,
+phi3.5-moe over the page store), and training the dense and moe families.
 
     python3 chip_smoke.py
 
@@ -302,6 +304,33 @@ Phases, one line (or a few) each:
               "gemma-2b bf16",
               "gemma-2b paged", "gemma-2b spec", "starcoder2-3b bf16",
               "qwen1.5-110b bf16";
+  7c. moe    (after the dense phases) [parity] and [timing] at the moe
+              shapes: the route (bf16 h) at d = 4096 with a tie across the
+              cluster's blocks; the bf16 gather and fused kernels over
+              mixtral-8x7b's 250 tiles and phi3.5-moe's 251 (the last tile
+              64 real words, in every row), k in 1, 5, 128, fused ==
+              unfused bit for bit, no padded word in a top-k; the cache
+              pair at mixtral's ring (4, 4096, 8, 128) bf16 at wrapped
+              per-row slots, bit for bit; timing rows at mixtral's width,
+              over phi's tiles and at the ring's shape. Then mixtral-8x7b
+              at full widths cut to 8 of 32 layers in bf16 (11.9 B
+              parameters; 32 do not fit one card): greedy 4 x 512 + 32
+              through exact, the plain screened head, screened-cuda fused
+              and unfused, beam 4, sampled, a full cover, graphs == eager
+              bodies, profiles, the step's weight-read bound (every expert
+              is read each step); a ring run (2 prompts of 4,000 tokens,
+              240 new: the 4,096-slot ring wraps by 144) held to the plain
+              head under the bf16 gap rule; a width-4 SpecDecodeStream on
+              prompts of 4,080 whose drafts cross the wrap (rows restored
+              from a snapshot ring that holds the ring K/V caches whole),
+              == a plain exact stream under the gap rule; a float32 copy at
+              2 layers with no slot dropped: prefill 4,000 + 240 ring
+              decode steps == one windowed forward within 1e-4 of max |h|;
+              phi3.5-moe at full widths cut to 2 layers (layernorm, 16
+              experts, 251 tiles): greedy 4 x 128 + 16 and a width-4
+              paged stream == a plain stream bit for bit; paths
+              "mixtral-8x7b bf16", "mixtral-8x7b ring", "mixtral-8x7b
+              spec", "phi3.5-moe bf16", "phi3.5-moe paged";
   8. train-ssm (after the serving phases and their profiles) the SSD
               backward kernel against ssd_intra_bwd_plain at zamba2's and
               mamba2's chunks: max |kernel - plain| / max
@@ -332,6 +361,17 @@ Phases, one line (or a few) each:
               --l2s --head screened-cuda --budget 1024 --train-steps 2
               --requests 4 --max-new 8 returns 0 with its token-agreement
               line;
+     train-dense python -m repro_torch.launch.train --arch gemma-2b
+              --steps 2 --batch 4 --seq 512 at full width in float32 (the
+              256,000-word corpus built on the host in <= 60 s, s/step,
+              peak device memory); gemma-2b cut to 2 layers, card against
+              CPU gradients at 1 x 256 (within 1e-4 x max |g|, loss 1e-5);
+     train-moe mixtral-8x7b at full widths cut to 2 layers in float32:
+              make_train_step(donate=True), 2 steps of 4 x 512 (the aux
+              loss finite and in the loss, the loss falling, peak memory);
+              1 layer, card against CPU gradients at 1 x 128; paths
+              "gemma-2b train", "mixtral-8x7b train" (no port kernel runs
+              there: 0 launches);
   9. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on each
               path: the two e2e paths, their graph phases, serve, the
@@ -340,7 +380,9 @@ Phases, one line (or a few) each:
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
               paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", the five
-              dense paths, "zamba2-2.7b train" and "mamba2-1.3b train" (the
+              dense paths, the five moe paths, "zamba2-2.7b train",
+              "mamba2-1.3b train", "gemma-2b train" and "mixtral-8x7b
+              train" (the
               "zamba2-2.7b" path is its bfloat16 model), each
               counted from zero over that path's own runs; the bf16 bodies
               as kernels of their own, "cluster_route_bf16",
@@ -354,8 +396,9 @@ Phases, one line (or a few) each:
               cache update's times are the K and V pair's, with "single_ms"
               of one single-cache launch; the SSD backward's, at zamba2's
               chunk, with "at_mamba2_chunk"; the bf16 L2S bodies also
-              "at_gemma_width", the bf16 route "at_qwen_width", the cache
-              pair "at_gemma_cache")
+              "at_gemma_width" and "at_mixtral_width", the bf16 gather and
+              fused "at_phi_tiles", the bf16 route "at_qwen_width", the
+              cache pair "at_gemma_cache" and "at_mixtral_ring")
               and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
@@ -4078,11 +4121,11 @@ SD = 3072                            # starcoder2-3b's d_model
 QD, Q_LAYERS = 8192, 2               # qwen1.5-110b's d_model; its depth here
 
 
-def dense_model(torch, np, name, tag, layers=None, seed=0):
-    """A full-width dense config in its bfloat16, drawn on the card from a
-    seeded CUDA generator (``layers``: its depth cut to that many), a
-    random screen (r = 100, K = 16 over its tiles) and its full cover.
-    → dict (``rng`` goes on drawing inputs)."""
+def dense_model(torch, np, name, tag, layers=None, seed=0, full=False):
+    """A full-width dense or moe config in its bfloat16, drawn on the card
+    from a seeded CUDA generator (``layers``: its depth cut to that many), a
+    random screen (r = 100, K = 16 over its tiles) and (``full``) its full
+    cover. → dict (``rng`` goes on drawing inputs)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -4113,7 +4156,10 @@ def dense_model(torch, np, name, tag, layers=None, seed=0):
         f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}, hd {cfg.head_dim}), "
         f"{cfg.mlp_activation} d_ff={cfg.d_ff}, V={cfg.vocab_size}, "
         f"{'tied' if cfg.tie_embeddings else 'untied lm_head'}, {cfg.norm}"
-        f"{', qkv bias' if cfg.qkv_bias else ''}{cut}: {n_params} parameters "
+        f"{', qkv bias' if cfg.qkv_bias else ''}"
+        f"{f', {cfg.moe.num_experts} experts top-{cfg.moe.top_k}' if cfg.moe else ''}"
+        f"{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}"
+        f"{cut}: {n_params} parameters "
         f"drawn on the card in {t_init:.1f} s, bfloat16, "
         f"{nbytes / 1e9:.3f} GB; device memory allocated "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
@@ -4126,7 +4172,7 @@ def dense_model(torch, np, name, tag, layers=None, seed=0):
                nbytes=nbytes,
                screen=screen_from_numpy(v, cand, (cand < n_blk).sum(1), vocab,
                                         V_BLK))
-    if name == "gemma-2b":
+    if full:
         idx, lens = candidates_to_padded(np.ones((R, n_blk), bool), vocab,
                                          block=V_BLK)
         out["full"] = screen_from_numpy(v, idx, lens, vocab, V_BLK)
@@ -4195,91 +4241,106 @@ def phase_dense_gemma(torch, np):
     one step's exact head against screened-cuda's in device time (clean
     L2), and the weight-read bound of a step. → (launches of the path,
     the model dict, numbers for the kernels line)."""
+    g = dense_model(torch, np, "gemma-2b", "[dense]", full=True)
+    cfg = g["model"].cfg
+    check((cfg.d_model, cfg.vocab_size, cfg.num_kv_heads, cfg.head_dim,
+           cfg.num_layers) == (GD, GV, 1, 256, 18),
+          "gemma-2b: config drifted from the smoke's shapes")
+    prompts = g["rng"].integers(0, GV, (GB, GT))
+    g["prompts"] = prompts
+    return serve_bf16(torch, np, "[dense]", g, prompts, GNEW, GMAX), g
+
+
+def serve_bf16(torch, np, tag, g, prompts, new, max_len):
+    """The greedy, beam, sampled and full-cover runs of a full-width model
+    in bf16 (``g`` from ``dense_model``, with its full cover) on
+    DecodeEngine(device="cuda", cache_dtype=bfloat16, max_len=max_len),
+    prompts (B, T) and ``new`` tokens, held as ``phase_dense_gemma`` says;
+    logged under ``tag``. → launches of the path's runs."""
     from repro_torch import heads
     from repro_torch.kernels import ops
     from repro_torch.serving import DecodeEngine
     from repro_torch.testing import (eager_beam_search, eager_generate,
                                      head_sampled_generate)
 
-    g = dense_model(torch, np, "gemma-2b", "[dense]")
     model, params = g["model"], g["params"]
     cfg = model.cfg
-    check((cfg.d_model, cfg.vocab_size, cfg.num_kv_heads, cfg.head_dim,
-           cfg.num_layers) == (GD, GV, 1, 256, 18),
-          "gemma-2b: config drifted from the smoke's shapes")
-    prompts = g["rng"].integers(0, GV, (GB, GT))
-    g["prompts"] = prompts
+    name, d, V_ = cfg.name, cfg.d_model, cfg.vocab_size
+    B, T = prompts.shape
     kw = dict(cache_dtype=torch.bfloat16, device="cuda")
-    eng = DecodeEngine(model, params, screen=g["screen"], max_len=GMAX, **kw)
-    eng_full = DecodeEngine(model, params, screen=g["full"], max_len=GMAX,
-                            **kw)
+    eng = DecodeEngine(model, params, screen=g["screen"], max_len=max_len,
+                       **kw)
+    eng_full = DecodeEngine(model, params, screen=g["full"],
+                            max_len=max_len, **kw)
     unfused = heads.get("screened-cuda", W=eng.W, b=eng.b, screen=eng.screen,
                         fused=False)
     packed = eng.resolve_head("screened-cuda")
     check(packed.prepare()._Wb.dtype == torch.bfloat16 and
-          packed.packed_shape == (GV // V_BLK, V_BLK, GD),
-          f"gemma-2b: packed head {packed.packed_shape}")
+          packed.packed_shape == (-(-V_ // V_BLK), V_BLK, d),
+          f"{name}: packed head {packed.packed_shape}")
     for e in (eng, eng_full):                     # warm-up: loads, graphs
         e.generate(prompts[:, :16], 2, head="screened-cuda")
         e.generate(prompts[:, :16], 2, head="exact")
-    t_prefill = prefill_s(torch, model, params, prompts, GMAX, torch.bfloat16)
+    t_prefill = prefill_s(torch, model, params, prompts, max_len,
+                          torch.bfloat16)
 
     ops.reset_launches()
-    exact, t_exact = host_timed(torch, lambda: eng.generate(prompts, GNEW,
+    exact, t_exact = host_timed(torch, lambda: eng.generate(prompts, new,
                                                             head="exact"))
     scr, t_scr = host_timed(torch, lambda: eng.generate(
-        prompts, GNEW, head="screened-cuda"))
-    scr_u = eng.generate(prompts, GNEW, head=unfused)
+        prompts, new, head="screened-cuda"))
+    scr_u = eng.generate(prompts, new, head=unfused)
     beam, t_beam = host_timed(torch, lambda: eng.beam_search(
-        prompts[0], 4, GNEW, head="screened-cuda"))
-    smp = eng.generate(prompts, GNEW, head="screened-cuda", temperature=1.0,
+        prompts[0], 4, new, head="screened-cuda"))
+    smp = eng.generate(prompts, new, head="screened-cuda", temperature=1.0,
                        seed=21)
-    f_exact = eng_full.generate(prompts, GNEW, head="exact")
-    f_scr = eng_full.generate(prompts, GNEW, head="screened-cuda")
+    f_exact = eng_full.generate(prompts, new, head="exact")
+    f_scr = eng_full.generate(prompts, new, head="screened-cuda")
     launches = dict(ops.LAUNCHES)
     n_runs = 6                                   # generate runs and the beam
-    for name, r in (("exact", exact), ("screened-cuda", scr),
-                    ("unfused", scr_u), ("sampled", smp)):
-        check(r.tokens.shape == (GB, GNEW) and r.tokens.min() >= 0 and
-              r.tokens.max() < GV, f"[dense] gemma-2b {name}: tokens out of "
+    for hname, r in (("exact", exact), ("screened-cuda", scr),
+                     ("unfused", scr_u), ("sampled", smp)):
+        check(r.tokens.shape == (B, new) and r.tokens.min() >= 0 and
+              r.tokens.max() < V_, f"{tag} {name} {hname}: tokens out of "
               f"range")
     check(np.array_equal(scr.tokens, scr_u.tokens),
-          "[dense] gemma-2b: screened-cuda fused and unfused tokens differ")
-    check(beam.tokens.shape == (1, GNEW) and np.isfinite(beam.scores).all(),
-          "[dense] gemma-2b beam search: bad result")
-    check(launches["cache_slot_update"] == cfg.num_layers * (GNEW - 1) *
+          f"{tag} {name}: screened-cuda fused and unfused tokens differ")
+    check(beam.tokens.shape == (1, new) and np.isfinite(beam.scores).all(),
+          f"{tag} {name} beam search: bad result")
+    check(launches["cache_slot_update"] == cfg.num_layers * (new - 1) *
           (n_runs + 1),
-          f"[dense] gemma-2b: launches {launches}, expected "
+          f"{tag} {name}: launches {launches}, expected "
           f"{cfg.num_layers} cache pairs a decode step")
     check(all(launches[k] > 0 for k in BF16_KERNELS) and
           not any(launches[k] for k in L2S_KERNELS),
-          f"[dense] gemma-2b: the bf16 L2S bodies did not carry the path: "
+          f"{tag} {name}: the bf16 L2S bodies did not carry the path: "
           f"{launches}")
-    own = head_sampled_generate(eng, prompts, GNEW, "screened-cuda", 1.0,
+    own = head_sampled_generate(eng, prompts, new, "screened-cuda", 1.0,
                                 1.0, 21)
     check(np.array_equal(smp.tokens, own),
-          "[dense] gemma-2b: graph-sampled tokens differ from the head's own "
+          f"{tag} {name}: graph-sampled tokens differ from the head's own "
           "sample draws")
 
-    plain = eng.generate(prompts, GNEW, head="screened")
-    near_plain = bf16_gap_rule(torch, np, "[dense] gemma-2b against plain",
+    plain = eng.generate(prompts, new, head="screened")
+    near_plain = bf16_gap_rule(torch, np, f"{tag} {name} against plain",
                                model, params, prompts, scr.tokens,
-                               plain.tokens, GMAX, screened_gap_fn(torch, eng))
-    near_full = bf16_gap_rule(torch, np, "[dense] gemma-2b full cover", model,
+                               plain.tokens, max_len,
+                               screened_gap_fn(torch, eng))
+    near_full = bf16_gap_rule(torch, np, f"{tag} {name} full cover", model,
                               params, prompts, f_scr.tokens, f_exact.tokens,
-                              GMAX, exact_gap_fn(torch, eng))
+                              max_len, exact_gap_fn(torch, eng))
 
     # graphs == the eager step bodies, bit for bit, with equal launches
     ops.reset_launches()
-    e_runs = {n: eager_generate(eng, prompts, GNEW, head=n)
+    e_runs = {n: eager_generate(eng, prompts, new, head=n)
               for n in ("exact", "screened-cuda")}
-    e_beam = eager_beam_search(eng, prompts[0], 4, GNEW, head="screened-cuda")
+    e_beam = eager_beam_search(eng, prompts[0], 4, new, head="screened-cuda")
     torch.cuda.synchronize()
     e_launches = dict(ops.LAUNCHES)
     ops.reset_launches()
-    g_runs = {n: eng.generate(prompts, GNEW, head=n)
+    g_runs = {n: eng.generate(prompts, new, head=n)
               for n in ("exact", "screened-cuda")}
-    g_beam = eng.beam_search(prompts[0], 4, GNEW, head="screened-cuda")
+    g_beam = eng.beam_search(prompts[0], 4, new, head="screened-cuda")
     torch.cuda.synchronize()
     g_launches = dict(ops.LAUNCHES)
     check(all(np.array_equal(g_runs[n].tokens, e_runs[n].tokens)
@@ -4287,15 +4348,15 @@ def phase_dense_gemma(torch, np):
           np.array_equal(g_beam.tokens, e_beam.tokens) and
           np.array_equal(g_beam.scores, e_beam.scores) and
           g_launches == e_launches,
-          f"[dense] gemma-2b: graph replays differ from the eager step "
+          f"{tag} {name}: graph replays differ from the eager step "
           f"bodies (launches {g_launches} against {e_launches})")
     counts = eng.compiled_step_counts()
 
     # the gather kernel runs on the unfused head: held to the profiler too
-    profile_counted(torch, "[dense] gemma-2b greedy screened-cuda unfused",
-                    lambda: eng.generate(prompts, GNEW, head=unfused))
-    kern = profile_counted(torch, "[dense] gemma-2b greedy screened-cuda",
-                           lambda: eng.generate(prompts, GNEW,
+    profile_counted(torch, f"{tag} {name} greedy screened-cuda unfused",
+                    lambda: eng.generate(prompts, new, head=unfused))
+    kern = profile_counted(torch, f"{tag} {name} greedy screened-cuda",
+                           lambda: eng.generate(prompts, new,
                                                 head="screened-cuda"))
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
@@ -4303,16 +4364,16 @@ def phase_dense_gemma(torch, np):
                              eager=False)
     step_x_ms = median_step_ms(torch, eng, "exact", prompts, 8, eager=False)
     timer = Timer(torch)
-    h = torch.randn((GB, GD), generator=torch.Generator().manual_seed(90))
+    h = torch.randn((B, d), generator=torch.Generator().manual_seed(90))
     heads_t, tiles = gemma_head_rows(torch, timer, eng,
                                      h.cuda().to(torch.bfloat16))
     stack_b, head_b = step_weight_bytes(params)
-    scr_b = 4 * g["screen"].v.numel() + tiles * V_BLK * (GD + 1) * 2
-    tok = GB * GNEW
-    log(f"[dense] gemma-2b bf16 weights {g['nbytes'] / 1e9:.3f} GB; packed "
+    scr_b = 4 * g["screen"].v.numel() + tiles * V_BLK * (d + 1) * 2
+    tok = B * new
+    log(f"{tag} {name} bf16 weights {g['nbytes'] / 1e9:.3f} GB; packed "
         f"head {packed.packed_shape} bf16 {packed.packed_nbytes / 1e6:.1f} MB")
-    log(f"[dense] gemma-2b d={GD} V={GV} on DecodeEngine(device='cuda', "
-        f"max_len={GMAX}, cache_dtype=bfloat16): greedy {GB}x{GT}+{GNEW} "
+    log(f"{tag} {name} d={d} V={V_} on DecodeEngine(device='cuda', "
+        f"max_len={max_len}, cache_dtype=bfloat16): greedy {B}x{T}+{new} "
         f"exact {t_exact:.3f} s ({tok / t_exact:.1f} tok/s), screened-cuda "
         f"{t_scr:.3f} s ({tok / t_scr:.1f} tok/s), beam(4) {t_beam:.3f} s "
         f"(score {float(beam.scores[0]):.4f}); fused == unfused tokens; "
@@ -4320,11 +4381,11 @@ def phase_dense_gemma(torch, np):
         f"screened head's except rows first differing after a step with a "
         f"gap < {GAP_BF16}: {near_plain}; full cover (K={g['full'].c_max}) "
         f"screened-cuda == exact under the same rule: {near_full}")
-    log(f"[dense] gemma-2b graphs == eager step bodies bit for bit (greedy "
+    log(f"{tag} {name} graphs == eager step bodies bit for bit (greedy "
         f"exact and screened-cuda, beam 4; launches equal, each side from "
         f"zero: {json.dumps(g_launches)}); compiled_step_counts "
         f"{ {f'{k[0]}/{k[1]}': v for k, v in sorted(counts.items())} }")
-    log(f"[dense] gemma-2b profile, greedy {GB}x{GT}+{GNEW} screened-cuda: "
+    log(f"{tag} {name} profile, greedy {B}x{T}+{new} screened-cuda: "
         f"device busy {busy_ms:.3f} ms of {t_scr * 1e3:.3f} ms unprofiled "
         f"wall (idle share {1 - busy_ms / (t_scr * 1e3):.3f}), "
         f"{sum(e.count for e in kern)} device kernels; "
@@ -4332,26 +4393,26 @@ def phase_dense_gemma(torch, np):
         f"kernels: " +
         "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                   f" x{e.count}" for e in top))
-    log(f"[dense] gemma-2b host clock, information only: decode step (median "
-        f"of 8 graph replays, B={GB}) screened-cuda {step_ms:.3f} ms, exact "
-        f"{step_x_ms:.3f} ms; prefill {GB}x{GT} {t_prefill:.3f} s "
-        f"({GB * GT / t_prefill:.0f} tok/s)")
-    log(f"[dense] gemma-2b one step's head, device time (clean L2, CUDA "
-        f"events, B={GB}): exact {heads_t['exact'][0]:.5f} ms (bound "
+    log(f"{tag} {name} host clock, information only: decode step (median "
+        f"of 8 graph replays, B={B}) screened-cuda {step_ms:.3f} ms, exact "
+        f"{step_x_ms:.3f} ms; prefill {B}x{T} {t_prefill:.3f} s "
+        f"({B * T / t_prefill:.0f} tok/s)")
+    log(f"{tag} {name} one step's head, device time (clean L2, CUDA "
+        f"events, B={B}): exact {heads_t['exact'][0]:.5f} ms (bound "
         f"{heads_t['exact'][1][0]:.5f} ms, {heads_t['exact'][1][1]}), "
         f"screened-cuda {heads_t['screened-cuda'][0]:.5f} ms (bound "
         f"{heads_t['screened-cuda'][1][0]:.5f} ms, "
         f"{heads_t['screened-cuda'][1][1]}; {tiles} distinct tiles), ratio "
         f"{heads_t['exact'][0] / heads_t['screened-cuda'][0]:.1f}")
-    log(f"[dense] gemma-2b weight-read bound of a decode step at 3.35 TB/s: "
+    log(f"{tag} {name} weight-read bound of a decode step at 3.35 TB/s: "
         f"layers {stack_b / 1e9:.4f} GB + exact head {head_b / 1e9:.4f} GB = "
         f"{(stack_b + head_b) / HBM_BYTES_PER_S * 1e3:.4f} ms; with "
         f"screened-cuda's {scr_b / 1e6:.2f} MB of head instead "
         f"{(stack_b + scr_b) / HBM_BYTES_PER_S * 1e3:.4f} ms; the exact head "
         f"is {head_b / (stack_b + head_b):.1%} of the exact step's bytes")
-    log(f"[dense] gemma-2b launches on the path ({n_runs} generate runs and "
+    log(f"{tag} {name} launches on the path ({n_runs} generate runs and "
         f"a beam, counted from zero): {json.dumps(launches)}")
-    return launches, g
+    return launches
 
 
 def dense_traffic(np, varied=False, n=8):
@@ -4620,8 +4681,8 @@ def cli_dense(torch):
     --reduced --device cuda --l2s --scheduler --head screened-cuda
     --draft-head screened-cuda``: the launcher serves the dense family on
     the card over a page pool (its ``kv pool`` line) and spec lanes, and
-    returns 0. (Full width waits for a corpus of 256,000 words: the
-    synthetic corpus draws each word's successors in O(V), O(V²) in all.)"""
+    returns 0. (``[train-dense]`` runs the training launcher on full-width
+    gemma-2b, with its 256,000-word corpus.)"""
     import contextlib
     import io
 
@@ -4814,6 +4875,559 @@ def phase_dense_kernels(torch, np):
     return err, rows
 
 
+# -- the moe family: mixtral-8x7b (a 4,096-slot ring), phi3.5-moe ---------------
+# mixtral-8x7b (arXiv 2401.04088) in its config's bfloat16 at full widths
+# (d = 4096, 32 heads, kv 8, 8 experts top-2 of d_ff = 14,336, V = 32,000,
+# untied, window 4,096) cut to 8 of 32 layers (32 do not fit one card);
+# 4 prompts of 512, 32 new (its ring holds 4,096 slots whatever max_len is)
+XD, XV, X_LAYERS = 4096, 32_000, 8
+XB, XT, XNEW, XMAX = 4, 512, 32, 544
+XWIN = 4096
+XRING_T, XRING_NEW = 4000, 240       # wraps the ring by 144 positions
+XSPEC_T, XSPEC_NEW = 4080, 32        # spec drafts cross the wrap
+XSPEC_MAX = 4160
+XF32_LAYERS = 2                      # the float32 ring check's depth
+# phi3.5-moe-42b-a6.6b (hf:microsoft/Phi-3.5-MoE-instruct) at full widths
+# (16 experts of d_ff = 6,400, layernorm, V = 32,064: 251 tiles, the last
+# holding 64 words) cut to 2 of 32 layers
+PV, P_LAYERS = 32_064, 2
+PMAX, PPAGE = 128, 16                # phi's paged stream: 8 pages of 16
+
+
+def phase_moe_kernels(torch, np):
+    """[parity] and [timing] at the moe family's shapes: the route (bf16 h)
+    at d = 4096, B in 1, 4, 130 (routes equal but near-ties) with a tie
+    across the blocks of its thread block cluster; the bf16 gather and
+    fused kernels over mixtral's 250 tiles and phi's 251 (the last tile
+    64 real words, in every row), B in 1, 4, 8, k in 1, 5, 128 (rtol = atol
+    = 1e-5; fused == unfused bit for bit; no padded word in a top-k); the
+    cache pair at mixtral's ring (4, 4096, 8, 128) bf16 at per-row slots
+    pos % 4096 of positions that wrap, bit for bit. Timing rows in turns
+    under the clean-L2 timer: route, gather and fused (bf16) at mixtral's
+    width (B = 4, K = 16, k = 1), gather and fused over phi's tiles, the
+    cache pair at the ring's shape.
+    → ({kernel: max abs err}, {kernel: {shape: timing dict}})."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update_plain)
+    from repro_torch.kernels.fused_topk import (fused_screened_topk,
+                                                fused_screened_topk_plain)
+    from repro_torch.kernels.route import cluster_route, cluster_route_plain
+    from repro_torch.kernels.screen import (screened_logits,
+                                            screened_logits_plain)
+    err = {k: 0.0 for k in BF16_KERNELS + ("cache_slot_update",)}
+    near = 0
+    g = torch.Generator(device="cuda").manual_seed(95)
+    v = torch.randn((R, XD), generator=g, device="cuda")
+    for B in (1, 4, 130):
+        h = torch.randn((B, XD), generator=g, device="cuda").bfloat16()
+        route, plain = cluster_route(h, v), cluster_route_plain(h, v)
+        scores = h.float() @ v.T
+        s_r = scores.gather(1, route.long()[:, None])[:, 0]
+        s_p = scores.gather(1, plain.long()[:, None])[:, 0]
+        diff = route != plain
+        check(bool(((s_r - s_p).abs()[diff] < 1e-5 * s_p.abs()[diff]).all()),
+              f"cluster_route_bf16 d={XD}: routes differ beyond near-ties")
+        near += int(diff.sum())
+        err["cluster_route_bf16"] = max(err["cluster_route_bf16"],
+                                        float((s_r - s_p).abs().max()))
+    tv = torch.round(torch.randn((R, XD), generator=g, device="cuda") * 2) / 2
+    tv[3] = tv[50] = tv[99] = 4.0
+    th = (torch.round(torch.rand((4, XD), generator=g, device="cuda") * 3) *
+          0.5 + 0.5).bfloat16()
+    check(bool((cluster_route(th, tv) == 3).all()) and
+          bool((cluster_route_plain(th, tv) == 3).all()),
+          f"cluster_route_bf16 d={XD}: a tie across the blocks of the cluster "
+          f"did not go to the first index")
+    heads = {}
+    for L in (XV, PV):
+        W = torch.randn((L, XD), generator=g, device="cuda") * 0.05
+        b = torch.randn((L,), generator=g, device="cuda") * 0.1
+        Wb, bb = ops.pack_head_blocks(W.bfloat16(), b.bfloat16())
+        del W, b
+        n_blk = Wb.shape[0]
+        heads[L] = (Wb, bb)
+        for B in (1, 4, 8):
+            h = torch.randn((B, XD), generator=g, device="cuda").bfloat16()
+            ids = torch.randint(0, n_blk + 2, (B, K), generator=g,
+                                device="cuda", dtype=torch.int32)
+            ids[:, 1] = n_blk - 1                  # the last (partial) tile
+            raw = screened_logits(Wb, bb, h, ids)
+            praw = screened_logits_plain(Wb, bb, h, ids)
+            torch.testing.assert_close(raw, praw, **TOL)
+            err["screened_logits_bf16"] = max(err["screened_logits_bf16"],
+                                              float((raw - praw).abs().max()))
+            for k in (1, 5, 128):
+                fi, fv, fz = fused_screened_topk(Wb, bb, h, ids, k)
+                pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+                torch.testing.assert_close(fv, pv, **TOL)
+                torch.testing.assert_close(fz, pz, **TOL)
+                err["fused_screened_topk_bf16"] = max(
+                    err["fused_screened_topk_bf16"],
+                    float((fv - pv).abs().max()))
+                ui, uv, _ = unfused_topk(Wb, bb, h, ids, k)
+                check(torch.equal(fi, ui) and torch.equal(fv, uv) and
+                      bool((fi < L).all()),
+                      f"fused bf16 != unfused (or a padded word) over "
+                      f"{n_blk} tiles (B={B}, k={k})")
+    gc_ = torch.Generator().manual_seed(96)
+    ck, cv = (torch.randn((XB, XWIN, 8, 128), generator=gc_).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    uk, uv_ = (torch.randn((XB, 8, 128), generator=gc_).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    for pos in ((4095, 4096, 8191, 5000), (0, 1, 4097, 12287)):
+        slot = torch.remainder(torch.tensor(pos, dtype=torch.int32,
+                                            device="cuda"), XWIN)
+        gk, gv = cache_kv_update(ck.clone(), uk, cv.clone(), uv_, slot)
+        check(torch.equal(gk, cache_slot_update_plain(ck.clone(), uk,
+                                                      slot)) and
+              torch.equal(gv, cache_slot_update_plain(cv.clone(), uv_, slot)),
+              f"cache_kv_update at ring slots pos % {XWIN} {pos}: not bit "
+              f"for bit")
+    log(f"[parity] moe shapes: route bf16 h at d={XD}, B in 1, 4, 130, == "
+        f"plain but near-ties ({near}), a tie across the blocks of the "
+        f"cluster to the first index; bf16 gather and fused at d={XD} over "
+        f"mixtral-8x7b's {heads[XV][0].shape[0]} tiles and phi3.5-moe's "
+        f"{heads[PV][0].shape[0]} (the last tile {PV % V_BLK} words, in every "
+        f"row), B in 1, 4, 8, k in 1, 5, 128 (rtol=atol=1e-5), fused == "
+        f"unfused bit for bit, no padded word in a top-k; the cache pair bit "
+        f"for bit at mixtral's ring ({XB}, {XWIN}, 8, 128) bf16, per-row "
+        f"slots pos % {XWIN} of positions that wrap; max abs err "
+        f"{json.dumps(err)}")
+
+    timer = Timer(torch)
+    rows = {}
+    cand = torch.from_numpy(make_screen_blocks(np, 97, XV // V_BLK)).cuda()
+    for name, row in l2s_rows(torch, np, timer, *heads[XV], v, cand, XB, 1,
+                              98).items():
+        rows.setdefault(name, {})["at_mixtral_width"] = row
+    cand = torch.from_numpy(make_screen_blocks(np, 99, -(-PV // V_BLK))).cuda()
+    cand[::2, 0] = PV // V_BLK                      # the partial tile
+    for name, row in l2s_rows(torch, np, timer, *heads[PV], v, cand, XB, 1,
+                              100).items():
+        if name != "cluster_route_bf16":
+            rows.setdefault(name, {})["at_phi_tiles"] = row
+    del heads
+    slots = torch.remainder(torch.tensor([4095, 4096, 8191, 5000],
+                                         dtype=torch.int32, device="cuda"),
+                            XWIN)
+    rows_idx = torch.arange(XB, device="cuda")
+
+    def library():
+        ck[rows_idx, slots.long()] = uk
+        cv[rows_idx, slots.long()] = uv_
+    t = timer.turns({"library_ms": library,
+                     "ms": lambda: cache_kv_update(ck, uk, cv, uv_, slots),
+                     "plain_ms": lambda: (
+                         cache_slot_update_plain(ck, uk, slots),
+                         cache_slot_update_plain(cv, uv_, slots))})
+    t["bound"] = bound_ms(2 * 2 * 2 * XB * 8 * 128, 0)
+    rows["cache_slot_update"] = {"at_mixtral_ring": t}
+    log(f"[timing] torch.bfloat16 cache_kv_update (K and V) at mixtral-8x7b's "
+        f"ring ({XB}, {XWIN}, 8, 128), wrapped per-row slots: "
+        f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library (indexed "
+        f"writes, twice) {t['library_ms']:.5f} ms, bound {t['bound'][0]:.7f} "
+        f"ms ({t['bound'][1]})")
+    return err, rows
+
+
+def phase_moe_ring_f32(torch, np):
+    """[moe] mixtral-8x7b at full widths cut to 2 layers, drawn in float32 with a
+    capacity that drops no slot (cf = E / k = 4, so no token's output
+    depends on another's and a prefill's routing equals a decode's): a
+    prefill of 4,000 tokens and 240 decode steps through the 4,096-slot
+    ring (wrapping it by 144) against one windowed forward over the
+    4,240 tokens. The tolerance: max |h_dec - h_fwd| <= 1e-4 x max
+    |h_fwd| (float32, TF32 off: the GEMVs and GEMMs sum in other orders).
+    → the max relative error."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    base = get_config("mixtral-8x7b")
+    cfg = replace(base, num_layers=XF32_LAYERS,
+                  moe=replace(base.moe, capacity_factor=base.moe.num_experts
+                              / base.moe.top_k))
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(7),
+                        device="cuda", dtype=torch.float32)
+    n = XRING_T + XRING_NEW
+    toks = torch.as_tensor(np.random.default_rng(8).integers(0, XV, (1, n)),
+                           device="cuda")
+    with torch.inference_mode():
+        full, _ = model.forward(params, {"tokens": toks})
+        cache = model.init_cache(1, 16, dtype=torch.float32, device="cuda")
+        check(cache["attn"]["k"].shape[2] == XWIN,
+              "mixtral-8x7b: its cache is not a ring of its window")
+        model.prefill(params, {"tokens": toks[:, :XRING_T]}, cache)
+        hs = [model.decode_step(params, toks[:, i], cache, i)[0]
+              for i in range(XRING_T, n)]
+        dec = torch.stack(hs, 1)
+        want = full[:, XRING_T:]
+        rel = float((dec - want).abs().max() / want.abs().max())
+    check(rel <= 1e-4, f"[moe] mixtral-8x7b float32 ring decode against the "
+          f"windowed forward: max relative error {rel:.3g} > 1e-4")
+    del params, full, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] mixtral-8x7b float32, full widths, {XF32_LAYERS} layers, "
+        f"capacity factor {cfg.moe.capacity_factor:.1f} (no slot dropped): "
+        f"prefill {XRING_T} + {XRING_NEW} decode steps through the "
+        f"{XWIN}-slot ring against one windowed forward over {n} tokens: max "
+        f"relative error of the hidden states {rel:.3g} (<= 1e-4), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rel
+
+
+def phase_moe_mixtral(torch, np):
+    """[moe] mixtral-8x7b at full widths cut to 8 layers in its config's
+    bfloat16 (11.9 B parameters drawn on the card): the runs of
+    ``serve_bf16`` at 4 x 512 + 32 (exact, the plain screened head,
+    screened-cuda fused and unfused, beam 4, sampled, a full cover of its
+    250 tiles, graphs == eager bodies, profiles, the step's weight-read
+    bound: every expert is read each step); then a ring run: 2 prompts of
+    4,000 tokens (the chunked attention path), 240 new through
+    screened-cuda, wrapping the 4,096-slot ring by 144 positions (8 cache
+    pairs a step), held to the plain screened head under the bf16 gap
+    rule. → ({path: launches}, the model dict)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeEngine
+    t_phase = time.perf_counter()
+    g = dense_model(torch, np, "mixtral-8x7b", "[moe]", layers=X_LAYERS,
+                    seed=5, full=True)
+    cfg = g["model"].cfg
+    check((cfg.d_model, cfg.vocab_size, cfg.moe.num_experts,
+           cfg.sliding_window, cfg.num_layers) == (XD, XV, 8, XWIN, X_LAYERS),
+          "mixtral-8x7b: config drifted from the smoke's shapes")
+    prompts = g["rng"].integers(0, XV, (XB, XT))
+    paths = {"mixtral-8x7b bf16": serve_bf16(torch, np, "[moe]", g, prompts,
+                                             XNEW, XMAX)}
+    model, params = g["model"], g["params"]
+    eng = DecodeEngine(model, params, screen=g["screen"], max_len=XMAX,
+                       cache_dtype=torch.bfloat16, device="cuda")
+    long_p = g["rng"].integers(0, XV, (2, XRING_T))
+    eng.generate(long_p[:, :16], 2, head="screened-cuda")      # warm-up
+    acc = {}
+    ring, t_ring = counted(torch, acc, lambda: host_timed(
+        torch, lambda: eng.generate(long_p, XRING_NEW,
+                                    head="screened-cuda")))
+    check(ring.tokens.shape == (2, XRING_NEW) and ring.tokens.min() >= 0 and
+          ring.tokens.max() < XV, "[moe] mixtral-8x7b ring run: tokens out of "
+          "range")
+    check(acc["cache_slot_update"] == X_LAYERS * (XRING_NEW - 1) and
+          acc["cluster_route_bf16"] == acc["fused_screened_topk_bf16"] ==
+          XRING_NEW and not any(acc[k] for k in L2S_KERNELS),
+          f"[moe] mixtral-8x7b ring run: launches {acc}")
+    plain = eng.generate(long_p, XRING_NEW, head="screened")
+    near = bf16_gap_rule(torch, np, "[moe] mixtral-8x7b ring run", model,
+                         params, long_p, ring.tokens, plain.tokens, XMAX,
+                         screened_gap_fn(torch, eng))
+    paths["mixtral-8x7b ring"] = acc
+    log(f"[moe] mixtral-8x7b ring run: 2 prompts of {XRING_T} tokens "
+        f"(chunked attention prefill), {XRING_NEW} new through screened-cuda "
+        f"in {t_ring:.3f} s ({2 * XRING_NEW / t_ring:.1f} tok/s, host clock), "
+        f"positions up to {XRING_T + XRING_NEW - 1}: the {XWIN}-slot ring "
+        f"wrapped by {XRING_T + XRING_NEW - XWIN} positions; == the plain "
+        f"screened head's tokens except rows first differing after a step "
+        f"with a gap < {GAP_BF16}: {near}; launches (from zero): "
+        f"{json.dumps(acc)}")
+    del eng
+    log(f"[moe] mixtral-8x7b phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths, g
+
+
+def phase_moe_spec(torch, np, g):
+    """[moe] mixtral-8x7b spec: a width-4 SpecDecodeStream (draft
+    screened-cuda on the random screen, verify exact, draft_len 4) over 4
+    prompts of 4,080 tokens, 32 new: its rounds draft across the ring's
+    wrap at 4,096, so rejected rows come back from the snapshot ring, which
+    holds the ring K/V caches whole (as the reference's snapshots do);
+    tokens == a plain width-4 exact stream under the bf16 gap rule,
+    rejections > 0, rows restored > 0; the ring's MiB and a slot's copy
+    time. → launches of the spec run."""
+    from repro_torch.serving import DecodeEngine, ServeRequest
+    model, params = g["model"], g["params"]
+    t_phase = time.perf_counter()
+    eng = DecodeEngine(model, params, screen=g["screen"], max_len=XSPEC_MAX,
+                       cache_dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(33)
+    prompts = rng.integers(0, XV, (DENSE_W, XSPEC_T))
+    reqs = [ServeRequest(prompt=p, max_new=XSPEC_NEW) for p in prompts]
+    plan = [0] * len(reqs)
+    plain, _, _, plain_s = drive_stream(eng.open_stream("exact",
+                                                        width=DENSE_W),
+                                        reqs, plan)
+    acc = {}
+    s = eng.open_spec_stream("screened-cuda", "exact", width=DENSE_W,
+                             draft_len=SPEC_N)
+    t0 = time.perf_counter()
+    got, ticks, _, step_s = counted(torch, acc, lambda: drive_stream(
+        s, reqs, plan))
+    wall = time.perf_counter() - t0
+    near = bf16_gap_rule(torch, np, "[moe] mixtral-8x7b spec", model, params,
+                         prompts, np.stack([got[i] for i in range(len(reqs))]),
+                         np.stack([plain[i] for i in range(len(reqs))]),
+                         XSPEC_MAX, exact_gap_fn(torch, eng))
+    c = s.spec_counters()
+    check(c["drafted"] - c["accepted"] > 0 and s.restored_rows > 0 and
+          s._snapshot,
+          f"[moe] mixtral-8x7b spec: no draft rejected and rolled back: {c}, "
+          f"{s.restored_rows} rows restored")
+    slab = eng._lend_stream_slab(DENSE_W, s._slab_key(), spec_depth=SPEC_N)
+    ring = slab.spec.ring_nbytes
+    check(len(slab.spec.ring) == 2 and
+          slab.spec.ring[0].shape[3] == XWIN,
+          f"[moe] mixtral-8x7b spec: the snapshot ring does not hold the "
+          f"ring K/V caches: {[tuple(r.shape) for r in slab.spec.ring]}")
+    with torch.inference_mode():
+        copy = Timer(torch, reps=5)(lambda: slab.spec.snapshot(slab.cache,
+                                                               0))
+    eng._return_stream_slab(slab)
+    log(f"[moe] mixtral-8x7b spec: SpecDecodeStream width {DENSE_W}, draft "
+        f"screened-cuda (random screen), verify exact, draft_len {SPEC_N}, "
+        f"{len(reqs)} prompts of {XSPEC_T}, {XSPEC_NEW} new (positions "
+        f"{XSPEC_T}..{XSPEC_T + XSPEC_NEW + SPEC_N - 2}: drafts cross the "
+        f"wrap at {XWIN}): tokens == a plain width-{DENSE_W} exact stream "
+        f"except rows first differing after a step with a gap < {GAP_BF16}: "
+        f"{near}; {spec_summary(s, step_s)}; snapshot ring "
+        f"{ring / 2 ** 20:.1f} MiB (the ring K/V caches, {SPEC_N} slots), "
+        f"one slot's copy {copy:.4f} ms (CUDA events); {ticks} rounds in "
+        f"{wall:.3f} s against the plain stream's {len(plain_s)} steps at "
+        f"median {statistics.median(plain_s) * 1e3:.3f} ms (host clock); "
+        f"launches of the run (from zero): {json.dumps(acc)}")
+    log(f"[moe] mixtral-8x7b spec phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return acc
+
+
+def moe_traffic(np, vocab, n=8):
+    """[moe] phi paged's requests: 2 prompts of 64 tokens, each with a
+    distinct suffix of 32 (prompts of one length, 96), 16 new."""
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(34)
+    bases = rng.integers(0, vocab, (2, 64))
+    return [ServeRequest(prompt=np.concatenate(
+        [bases[i % 2], rng.integers(0, vocab, 32)]), max_new=16)
+        for i in range(n)]
+
+
+def phase_moe_phi(torch, np):
+    """[moe] phi3.5-moe at full widths cut to 2 layers in bf16 (layernorm,
+    16 experts, 251 tiles): greedy 4 x 128 + 16 through exact,
+    screened-cuda and the plain head (``dense_greedy``); a width-4
+    PagedDecodeStream (pages of 16) over 8 requests sharing 2 prompts ==
+    a plain width-4 stream bit for bit (prompts of one length), both
+    screened-cuda, the paged run with no cache-pair launch.
+    → {path: launches}."""
+    from repro_torch.serving import DecodeEngine, PagePool
+    p = dense_model(torch, np, "phi3.5-moe-42b-a6.6b", "[moe]",
+                    layers=P_LAYERS, seed=6)
+    cfg = p["model"].cfg
+    check((cfg.d_model, cfg.vocab_size, cfg.moe.num_experts, cfg.norm) ==
+          (XD, PV, 16, "layernorm") and cfg.sliding_window is None,
+          "phi3.5-moe: config drifted from the smoke's shapes")
+    out = {"phi3.5-moe bf16": dense_greedy(torch, np, "[moe] phi3.5-moe", p,
+                                           128, 16, 144)}
+    eng = DecodeEngine(p["model"], p["params"], screen=p["screen"],
+                       max_len=PMAX, cache_dtype=torch.bfloat16,
+                       device="cuda")
+    reqs = moe_traffic(np, PV)
+    plan = [0] * len(reqs)
+    head = "screened-cuda"
+    plain, _, _, plain_s = drive_stream(eng.open_stream(head, width=DENSE_W),
+                                        reqs, plan)
+    acc = {}
+    pool = PagePool(128, PPAGE)
+    got, ticks, _, step_s = counted(torch, acc, lambda: drive_stream(
+        eng.open_paged_stream(pool, head=head, width=DENSE_W), reqs, plan))
+    check(all(np.array_equal(got[i], plain[i]) for i in plain),
+          "[moe] phi3.5-moe paged tokens differ from the plain stream's")
+    rx = pool.radix.telemetry()
+    check(rx["tokens_hit"] > 0 and acc["cache_slot_update"] == 0 and
+          acc["fused_screened_topk_bf16"] > 0,
+          f"[moe] phi3.5-moe paged: radix {rx}, launches {acc}")
+    log(f"[moe] phi3.5-moe paged: PagedDecodeStream width {DENSE_W}, page "
+        f"{PPAGE}, {len(reqs)} requests on 2 shared prompts of 64 tokens "
+        f"(+ 32 distinct), 16 new: tokens == a plain width-{DENSE_W} {head} "
+        f"stream bit for bit; prompt tokens on shared pages "
+        f"{rx['tokens_hit']} of {rx['tokens_total']}, store "
+        f"{pool.store.nbytes / 2 ** 20:.1f} MiB; paged step median "
+        f"{statistics.median(step_s) * 1e3:.3f} ms over {ticks} ticks, plain "
+        f"{statistics.median(plain_s) * 1e3:.3f} ms (host clock); launches "
+        f"(from zero): {json.dumps(acc)}")
+    out["phi3.5-moe paged"] = acc
+    del p, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu_grads(torch, np, tag, cfg, T, seed):
+    """loss_and_grads of ``cfg`` (float32, drawn on the card) on 1 x T
+    random tokens, on the card and on the CPU: every leaf within 1e-4 x
+    max |g|, the loss within 1e-5 relative. → a log line's text."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    from repro_torch.tree import tree_flatten
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda", dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, T + 1)))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    tcfg = TrainConfig(remat="none", loss_chunk=None)
+    side = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = params if where == "cuda" else to_device(params, "cpu")
+        loss, grads = loss_and_grads(model, tcfg, p,
+                                     {k: x.to(where) for k, x in batch.items()})
+        side[where] = (float(loss), [x.cpu() for x in tree_flatten(grads)],
+                       time.perf_counter() - t0)
+        del grads, p
+    gerr, gmax = grads_close(torch, f"{tag} card vs CPU", side["cuda"][1],
+                             side["cpu"][1])
+    lrel = abs(side["cuda"][0] - side["cpu"][0]) / abs(side["cpu"][0])
+    check(lrel <= 1e-5, f"{tag} card vs CPU loss rel {lrel:.3g}")
+    del params, side
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"loss_and_grads on the card vs the CPU: max |g_card - g_cpu| "
+            f"{gerr:.3g} <= 1e-4 x max |g| {gmax:.3g}; loss rel {lrel:.2g} "
+            f"<= 1e-5")
+
+
+def phase_train_dense(torch, np):
+    """[train-dense] ``python -m repro_torch.launch.train --arch gemma-2b
+    --steps 2 --batch 4 --seq 512`` at full width in float32 (weights from
+    a CPU generator, the 256,000-word corpus built on the host: its build
+    time printed; s/step; peak device memory), then gemma-2b cut to 2
+    layers, card against CPU gradients at 1 x 256. → {path: launches}."""
+    import contextlib
+    import io
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    argv = ["--arch", "gemma-2b", "--device", "cuda", "--steps", "2",
+            "--batch", "4", "--seq", "512", "--log-every", "1"]
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(argv)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(ops.LAUNCHES)
+    text = out.getvalue()
+    corpus = [ln for ln in text.splitlines() if "[train] corpus" in ln]
+    check(rc == 0 and text.count("[train] step") == 2 and corpus,
+          f"[train-dense] launch.train gemma-2b: exit {rc}:\n{text}")
+    build_s = float(corpus[0].split(" built in ")[1].split(" s")[0])
+    check(build_s <= 60.0, f"[train-dense] the 256,000-word corpus took "
+          f"{build_s:.1f} s > 60 s")
+    for ln in text.splitlines():
+        log(ln)
+    log(f"[train-dense] python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"exit 0 in {secs:.1f} s (full-width gemma-2b, 2.51 B float32 "
+        f"parameters, remat none); corpus build {build_s:.1f} s on the host "
+        f"(<= 60 s); peak device memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = replace(get_config("gemma-2b"), num_layers=2)
+    text = card_vs_cpu_grads(torch, np, "[train-dense] gemma-2b 2 layers",
+                             cfg, 256, 62)
+    log(f"[train-dense] gemma-2b full width, 2 layers, 1 x 256: {text}; phase "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+    return {"gemma-2b train": launches}
+
+
+def phase_train_moe(torch, np):
+    """[train-moe] mixtral-8x7b at full widths cut to 2 layers in float32:
+    ``make_train_step(..., donate=True)``, remat none, 2 steps of 4 x 512
+    (loss, gnorm, s/step, peak device memory; the aux loss finite, > 0 and
+    in the loss: loss == cross-entropy + aux within 1e-5); then 1 layer,
+    card against CPU gradients at 1 x 128. → {path: launches}."""
+    from dataclasses import replace
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.lm import cross_entropy_loss
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_flatten
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    base = get_config("mixtral-8x7b")
+    cfg = replace(base, num_layers=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(72),
+                        device="cuda", dtype=torch.float32)
+    n_params = sum(t.numel() for t in tree_flatten(params))
+    toks = torch.as_tensor(np.random.default_rng(72).integers(
+        0, XV, (TRAIN_SSM_B, TRAIN_SSM_T + 1)), device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    with torch.inference_mode():
+        h, aux = model.forward(params, batch)
+        xent = cross_entropy_loss(model.logits(params, h), batch["labels"])
+        aux, xent = float(aux), float(xent)
+        del h
+    tcfg = TrainConfig(lr=5e-4, warmup_steps=1, total_steps=10,
+                       remat="none", loss_chunk=None)
+    step = make_train_step(model, tcfg, donate=True)
+    opt = adamw_init(params)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, gnorms, secs = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        secs.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(np.isfinite(aux) and aux > 0 and
+          abs(losses[0] - (xent + aux)) <= 1e-5 * abs(losses[0]),
+          f"[train-moe] the aux loss {aux} is not in the first step's loss "
+          f"{losses[0]} (cross-entropy {xent})")
+    check(all(np.isfinite(losses + gnorms)) and losses[1] < losses[0] and
+          peak < 80.0, f"[train-moe] losses {losses}, gnorms {gnorms}, peak "
+          f"{peak:.2f} GiB")
+    log(f"[train-moe] mixtral-8x7b full widths, 2 of 32 layers "
+        f"({n_params} float32 parameters), make_train_step(donate=True), "
+        f"remat none, 2 steps of {TRAIN_SSM_B} x {TRAIN_SSM_T}: loss "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (the first = cross-entropy "
+        f"{xent:.6f} + aux {aux:.6f}), gnorm "
+        f"{', '.join(f'{x:.3f}' for x in gnorms)}; s/step "
+        f"{', '.join(f'{x:.3f}' for x in secs)} (host clock, each ending in a "
+        f"sync; the first pays first-use costs); peak device memory "
+        f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    del params, opt, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    text = card_vs_cpu_grads(torch, np, "[train-moe] mixtral-8x7b 1 layer",
+                             replace(base, num_layers=1), 128, 73)
+    log(f"[train-moe] mixtral-8x7b full widths, 1 layer, 1 x 128: {text}; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"mixtral-8x7b train": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4897,6 +5511,19 @@ def main() -> int:
     walled("dense serve-cli", cli_dense, torch)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_err, moe_rows = walled("moe kernels", phase_moe_kernels, torch, np)
+    for name, e in moe_err.items():
+        err[name] = max(err[name], e)
+    for name, shapes in moe_rows.items():
+        dense_rows.setdefault(name, {}).update(shapes)
+    moe, g = walled("moe mixtral", phase_moe_mixtral, torch, np)
+    moe["mixtral-8x7b spec"] = walled("moe spec", phase_moe_spec, torch, np,
+                                      g)
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    walled("moe ring f32", phase_moe_ring_f32, torch, np)
+    moe.update(walled("moe phi", phase_moe_phi, torch, np))
     # training last, so the serving phases' profiles, held to the wrappers'
     # counts, run in the process state they were written for: with these
     # two phases ahead of them, the profiler left the zamba2 adaptive
@@ -4906,6 +5533,8 @@ def main() -> int:
     err.update(bwd_err)
     times.update(bwd_times)
     walled("serve-cli zamba2", cli_zamba2, torch)
+    train_attn = walled("train-dense", phase_train_dense, torch, np)
+    train_attn.update(walled("train-moe", phase_train_moe, torch, np))
     # each kernel's launches on the path it was ported for, and on each path
     launches = {k: (hybrid if k in BF16_KERNELS or k in ssm_err else
                     lstm)[k] for k in lstm}
@@ -4925,7 +5554,7 @@ def main() -> int:
              "zamba2-2.7b spec": spec_hybrid,
              "gemma-2b bf16": gemma, "gemma-2b paged": gemma_paged,
              "gemma-2b spec": gemma_spec, "starcoder2-3b bf16": starcoder,
-             "qwen1.5-110b bf16": qwen, **train_ssm}
+             "qwen1.5-110b bf16": qwen, **moe, **train_ssm, **train_attn}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),

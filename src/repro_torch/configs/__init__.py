@@ -1,13 +1,16 @@
 """Config registry: ``get_config("<arch-id>")`` over the ported families
 (the paper's LSTMs, the dense transformers smollm-360m, gemma-2b,
-starcoder2-3b and qwen1.5-110b, mamba2-1.3b and zamba2-2.7b)."""
+starcoder2-3b and qwen1.5-110b, the moe transformers mixtral-8x7b and
+phi3.5-moe-42b-a6.6b, mamba2-1.3b and zamba2-2.7b)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (V_BLK, L2SConfig, ModelConfig,
-                                      SSMConfig, TrainConfig)
+                                      MoEConfig, SSMConfig, TrainConfig)
 from repro_torch.configs.gemma_2b import CONFIG as _gemma_2b
 from repro_torch.configs.mamba2_1p3b import CONFIG as _mamba2_1p3b
+from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral_8x7b
 from repro_torch.configs.nmt_deen import CONFIG as _nmt_deen
+from repro_torch.configs.phi35_moe import CONFIG as _phi35_moe
 from repro_torch.configs.ptb_lstm import PTB_LARGE as _ptb_large
 from repro_torch.configs.ptb_lstm import PTB_SMALL as _ptb_small
 from repro_torch.configs.qwen15_110b import CONFIG as _qwen15_110b
@@ -17,7 +20,8 @@ from repro_torch.configs.zamba2_2p7b import CONFIG as _zamba2_2p7b
 
 REGISTRY = {c.name: c for c in (_ptb_small, _ptb_large, _nmt_deen,
                                 _smollm_360m, _gemma_2b, _starcoder2_3b,
-                                _qwen15_110b, _mamba2_1p3b, _zamba2_2p7b)}
+                                _qwen15_110b, _mixtral_8x7b, _phi35_moe,
+                                _mamba2_1p3b, _zamba2_2p7b)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -26,5 +30,5 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["L2SConfig", "ModelConfig", "REGISTRY", "SSMConfig", "TrainConfig",
+__all__ = ["L2SConfig", "ModelConfig", "MoEConfig", "REGISTRY", "SSMConfig", "TrainConfig",
            "V_BLK", "get_config"]

@@ -1,11 +1,13 @@
 """Model configuration: the reference ``ModelConfig`` fields that the ported
-families (``lstm``, ``dense``, ``ssm``, ``hybrid``) read, ``SSMConfig``, and the
-training side's ``L2SConfig`` (Algorithm 1) and ``TrainConfig`` (the LM
-trainer), field for field with the reference's defaults.
+families (``lstm``, ``dense``, ``moe``, ``ssm``, ``hybrid``) read,
+``MoEConfig``, ``SSMConfig``, and the training side's ``L2SConfig``
+(Algorithm 1) and ``TrainConfig`` (the LM trainer), field for field with the
+reference's defaults, and the reference's analytic ``param_count`` /
+``active_param_count``.
 
-The MoE, vision and audio fields come with their families (ROADMAP.md,
-Queue 1). ``reduced()`` gives the same small CPU variant as the reference,
-field for field (``tests/test_torch_ssm.py`` asserts it).
+The vision and audio fields come with their families (ROADMAP.md, Queue 1).
+``reduced()`` gives the same small CPU variant as the reference, field for
+field (``tests/test_torch_ssm.py`` asserts it).
 """
 from __future__ import annotations
 
@@ -17,6 +19,17 @@ from typing import Optional
 V_BLK = 128
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "lstm")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    # capacity factor of the fixed-shape dispatch (slots per expert =
+    # capacity_factor * tokens * top_k / num_experts)
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    router_jitter: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -48,6 +61,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm: str = "rmsnorm"                   # rmsnorm | layernorm
     sliding_window: Optional[int] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): one shared attention block applied every k mamba layers
     hybrid_shared_period: int = 6
@@ -66,9 +80,46 @@ class ModelConfig:
             raise ValueError(f"{self.name}: heads {self.num_heads} not "
                              f"divisible by kv {self.num_kv_heads}")
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula (norm scales
+        counted once a layer, biases not at all)."""
+        d, ff, v, nl = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        hd = self.head_dim
+        n = v * d if self.tie_embeddings else 2 * v * d
+        if self.family == "lstm":
+            return n + nl * 4 * (2 * d + 1) * d
+        per_layer_attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                          + self.num_heads * hd * d)
+        act_mult = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        per_layer_mlp = act_mult * d * ff
+        if self.family == "moe":
+            per_layer_mlp = (per_layer_mlp * self.moe.num_experts
+                             + d * self.moe.num_experts)       # + router
+        if self.family in ("ssm", "hybrid"):
+            s = self.ssm
+            dinner = s.expand * d
+            nh = dinner // s.head_dim
+            bc = 2 * s.n_groups * s.state_dim
+            per_layer_ssm = (d * (2 * dinner + bc + nh) + dinner * d
+                             + s.conv_width * (dinner + bc) + 2 * nh)
+            n += nl * (per_layer_ssm + 2 * d)
+            if self.family == "hybrid":
+                n += per_layer_attn + per_layer_mlp + 2 * d
+            return n
+        return n + nl * (per_layer_attn + per_layer_mlp + 2 * d)
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: for moe, only ``top_k`` experts count."""
+        if self.family != "moe":
+            return self.param_count()
+        act_mult = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        inactive = ((self.moe.num_experts - self.moe.top_k) * act_mult
+                    * self.d_model * self.d_ff * self.num_layers)
+        return self.param_count() - inactive
+
     def reduced(self) -> "ModelConfig":
-        """Same family, tiny: 2 layers, d_model ≤ 128, vocab ≤ 512 (the
-        reference's ``ModelConfig.reduced``)."""
+        """Same family, tiny: 2 layers, d_model ≤ 128, vocab ≤ 512, ≤ 4
+        experts (the reference's ``ModelConfig.reduced``)."""
         d = min(self.d_model, 128)
         heads = min(self.num_heads, 4)
         kv = max(1, min(self.num_kv_heads, heads))
@@ -87,6 +138,9 @@ class ModelConfig:
                             if self.sliding_window else None),
             dtype="float32",
         )
+        if self.moe is not None:
+            kw["moe"] = replace(self.moe,
+                                num_experts=min(self.moe.num_experts, 4))
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, state_dim=min(self.ssm.state_dim, 16),
                                 head_dim=16, chunk=16, expand=2)

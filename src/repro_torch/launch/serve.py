@@ -8,7 +8,8 @@ serves ``ServeRequest`` batches through both heads via
 ``DecodeEngine.serve_batch`` + ``StaticPolicy``, reporting decode time and
 token agreement. ``--device`` is ``cuda`` (the default) or ``cpu``. It
 serves every ported family: the LSTMs, the dense transformers
-(``smollm-360m``, ``gemma-2b``, ``starcoder2-3b``, ``qwen1.5-110b``),
+(``smollm-360m``, ``gemma-2b``, ``starcoder2-3b``, ``qwen1.5-110b``), the
+moe transformers (``mixtral-8x7b``, ``phi3.5-moe-42b-a6.6b``),
 ``mamba2-1.3b`` and ``zamba2-2.7b``, each trained first in float32
 (``--arch zamba2-2.7b`` draws 2.31 B parameters from a CPU generator, tens
 of seconds, as the reference's launcher builds float32 weights).
@@ -17,9 +18,10 @@ of seconds, as the reference's launcher builds float32 weights).
 ``ContinuousScheduler`` instead: mixed latency tiers, a ``BudgetAdmission``
 policy against the head catalog's flops numbers, and a ``ServerStats``
 report (admit/reject/downgrade counts, per-head tokens/s, p50/p95
-latency), for the LSTMs and the dense family over a ``PagePool`` (a
-shared-prefix radix cache over logical LSTM pages, or over the dense
-family's K/V page store). ``--draft-head NAME`` adds speculative
+latency), for the LSTMs and the dense and moe families over a ``PagePool``
+(a shared-prefix radix cache over logical LSTM pages, or over the
+attention families' K/V page store; not for a sliding-window config such
+as mixtral-8x7b, whose ring cache pages do not fit, as in the reference). ``--draft-head NAME`` adds speculative
 decoding: every request carries the draft head, and exact-routed traffic
 decodes on ``SpecDecodeStream`` lanes (the same tokens, fewer exact-head
 weight streams). A kernel head (``screened-cuda``, as ``--head`` or
@@ -249,9 +251,10 @@ def _serve_scheduler(engine, requests, head_name, draft=None,
     (realtime / standard / batch); the fast head (when available) serves
     the realtime tier, "exact" everything else. The flops budget is sized
     to the catalog so a burst sheds load through the typed reject path.
-    The LSTM and dense families serve over a ``PagePool`` (shared-prefix
-    radix cache + COW pages) and report pool utilization in the log; the
-    SSM and hybrid ones have no page pool, as in the reference. With ``draft`` set
+    The LSTM, dense and moe families serve over a ``PagePool``
+    (shared-prefix radix cache + COW pages) and report pool utilization in
+    the log, but not with a sliding window; the SSM and hybrid ones have no
+    page pool, as in the reference. With ``draft`` set
     (--draft-head) every request carries it explicitly and exact-routed
     traffic decodes
     speculatively on ``SpecDecodeStream`` lanes — same tokens, fewer
@@ -276,7 +279,7 @@ def _serve_scheduler(engine, requests, head_name, draft=None,
     spec = SpecPolicy(drafts=(draft,)) if draft is not None else None
 
     kv_pool = None
-    if engine.model.cfg.family in ("lstm", "dense") \
+    if engine.model.cfg.family in ("lstm", "dense", "moe") \
             and engine.model.cfg.sliding_window is None:
         page = 8 if engine.max_len % 8 == 0 else 4
         while engine.max_len % page:

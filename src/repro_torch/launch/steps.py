@@ -1,4 +1,6 @@
-"""The LM train step. Twin of ``repro/launch/steps.py::make_train_step``.
+"""The LM train step. Twin of ``repro/launch/steps.py::make_train_step``,
+for every ported family (lstm, dense, moe, ssm, hybrid; a moe model's loss
+carries its load-balance aux, ``models/lm.py::train_loss``).
 
 Forward and backward run through ``torch.autograd`` over the port's torch
 layers (float32 products stay IEEE float32: ``resolve_device`` turns TF32

@@ -1,8 +1,9 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch
-ptb-small-lstm ...``. Twin of ``repro/launch/train.py`` for the LSTMs,
-``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid). The dense family is
-served, not yet trained, by the port: a dense arch is refused with
-NotImplementedError (ROADMAP.md, Queue 1).
+ptb-small-lstm ...``. Twin of ``repro/launch/train.py`` for every ported
+family: the LSTMs, the dense transformers (``smollm-360m``, ``gemma-2b``,
+``starcoder2-3b``, ``qwen1.5-110b``), the moe transformers
+(``mixtral-8x7b``, ``phi3.5-moe-42b-a6.6b``; the loss carries their
+load-balance aux), ``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid).
 
 Trains on the synthetic Zipf–Markov corpus on ``--device`` (the card by
 default; ``--device cpu`` with ``--reduced`` is the CPU smoke), printing the
@@ -12,7 +13,9 @@ Weights are float32 whatever the config's dtype, and
 ``remat="none"``, ``loss_chunk=None``, as the reference's launcher sets them;
 they are drawn from a CPU generator, so a seed gives the same weights on any
 device (a full-width zamba2-2.7b takes tens of seconds to draw). The step
-updates params and optimizer state in place (``donate=True``).
+updates params and optimizer state in place (``donate=True``). The
+corpus's host build time is printed (``[train] corpus``): gemma-2b's
+256,000 words go through the fast draw of ``data/synthetic.py``.
 """
 from __future__ import annotations
 
@@ -46,10 +49,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if cfg.family == "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the dense family is not ported yet "
-            f"(ROADMAP.md, Queue 1); repro_torch.launch.serve serves it")
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
@@ -68,9 +67,12 @@ def main(argv=None):
         print(f"[train] resumed from step {start}")
 
     step_fn = make_train_step(model, tcfg, donate=True)
+    t0 = time.time()
     corpus = ZipfMarkovCorpus(cfg.vocab_size,
                               branching=min(64, cfg.vocab_size // 4),
                               seed=args.seed)
+    print(f"[train] corpus of {cfg.vocab_size} words built in "
+          f"{time.time() - t0:.1f} s")
     batches = BatchLoader(make_lm_batches(corpus, args.steps - start,
                                           args.batch, args.seq,
                                           seed=args.seed + start), dev)

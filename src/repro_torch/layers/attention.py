@@ -18,8 +18,9 @@ launch of the CUDA kernel on the card. ``attn_decode_paged`` writes its
 token into a page pool with a plain indexed write, as the reference does
 with an XLA scatter (no Pallas kernel).
 
-Not ported yet (each raises NotImplementedError, ROADMAP.md Queue 1):
-ring-buffer (sliding-window) caches and M-RoPE.
+A sliding-window config decodes through a ring-buffer cache of ``window``
+slots (``init_cache(window=w)``): position p lives in slot p % w. Not
+ported yet (raises NotImplementedError, ROADMAP.md Queue 1): M-RoPE.
 """
 from __future__ import annotations
 
@@ -197,12 +198,11 @@ def _proj_out(out, wo):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
                window: Optional[int] = None, device=None,
                stack: Optional[int] = None):
-    """Standard cache of ``max_len`` slots: k/v (B, S, KV, hd), or ``stack``
-    of them along a leading axis. Ring buffers are not ported yet."""
-    if window is not None:
-        raise _not_ported("the ring-buffer (sliding-window) cache")
+    """Standard cache of ``max_len`` slots, or a ring buffer of ``window``
+    slots: k/v (B, S, KV, hd), or ``stack`` of them along a leading axis."""
+    S = window if window is not None else max_len
     lead = () if stack is None else (stack,)
-    shape = lead + (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = lead + (batch, S, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -219,32 +219,41 @@ def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
     caller that needs the old cache must copy it first. A slot past the end
     is clamped to S − 1, as the reference's ``dynamic_update_slice`` does.
 
-    A tensor ``pos`` is never read on the host: the RoPE positions, the
-    keep-mask ``arange(S) <= pos`` and the per-row cache slots are built from
-    it on the device, so a CUDA graph that captures this step reads the
-    position each replay finds in the tensor. For rows at equal positions
-    the tensor and int paths give bit-identical outputs and caches.
+    Ring buffer: when ``window`` (or ``cfg.sliding_window``) is set and the
+    cache holds exactly that many slots, the token goes to slot pos % S and
+    the keep-mask is ``arange(S) < min(pos + 1, S)``: once the ring has
+    wrapped it holds the last S positions, the window.
 
-    Returns (out (B, 1, d), cache). Ring buffers raise NotImplementedError."""
+    A tensor ``pos`` is never read on the host: the RoPE positions, the
+    keep-mask and the per-row cache slots (wrapped on the device for a
+    ring) are built from it on the device, so a CUDA graph that captures
+    this step reads the position each replay finds in the tensor. For rows
+    at equal positions the tensor and int paths give bit-identical outputs
+    and caches.
+
+    Returns (out (B, 1, d), cache)."""
     w = window if window is not None else cfg.sliding_window
     S = cache["k"].shape[1]
-    if w is not None and S == w:
-        raise _not_ported("ring-buffer attention decode")
+    ring = w is not None and S == w
     B = x1.shape[0]
     if isinstance(pos, torch.Tensor):
         if pos.dim() > 1 or (pos.dim() == 1 and pos.shape[0] != B):
             raise ValueError(f"pos must be 0-dim or ({B},), got "
                              f"{tuple(pos.shape)}")
         pvec = pos.to(torch.int32).expand(B).contiguous()
-        slot = pvec
+        slot = torch.remainder(pvec, S) if ring else pvec
     else:
-        slot = int(pos)
-        pvec = torch.full((B,), slot, dtype=torch.int32, device=x1.device)
+        slot = int(pos) % S if ring else int(pos)
+        pvec = torch.full((B,), int(pos), dtype=torch.int32, device=x1.device)
     q, k, v = _project_qkv(params, x1, cfg, pvec[:, None])
     dtype = cache["k"].dtype
     ck, cv = cache_kv_update(cache["k"], k[:, 0].to(dtype).contiguous(),
                              cache["v"], v[:, 0].to(dtype).contiguous(), slot)
-    valid = torch.arange(S, device=x1.device)[None, :] <= pvec[:, None]
+    arange = torch.arange(S, device=x1.device)[None, :]
+    if ring:
+        valid = arange < torch.clamp(pvec + 1, max=S)[:, None]
+    else:
+        valid = arange <= pvec[:, None]
     out = _sdpa(q, ck, cv, valid[:, None, :], cfg)
     return _proj_out(out, params["wo"]), {"k": ck, "v": cv}
 

@@ -1,7 +1,10 @@
-"""Layer stacks of the ``dense``, ``ssm`` (mamba2) and ``hybrid`` (zamba2)
-families. Twin of ``repro/layers/transformer.py``'s branches for them.
+"""Layer stacks of the ``dense``, ``moe``, ``ssm`` (mamba2) and ``hybrid``
+(zamba2) families. Twin of ``repro/layers/transformer.py``'s branches for
+them.
 
   * dense: pre-norm attention + pre-norm MLP
+  * moe: pre-norm attention + pre-norm MoE (``layers/moe.py``); a full
+    sequence returns the aux loss summed over the layers
   * ssm (mamba2): pre-norm SSD block only
   * hybrid (zamba2): SSD layers with ONE weight-shared attention+MLP block
     applied after every ``hybrid_shared_period`` layers
@@ -9,23 +12,24 @@ families. Twin of ``repro/layers/transformer.py``'s branches for them.
 Per-layer params keep the reference's stacked layout, a leading L axis on
 every leaf of ``params["blocks"]``; Python loops over the layers replace
 ``lax.scan``. The decode caches are stacked the same way —
-``{"attn": {k, v (L, B, S, KV, hd)}}`` for the dense stack,
+``{"attn": {k, v (L, B, S, KV, hd)}}`` for the dense and moe stacks (S =
+the window for a sliding-window config: a ring buffer),
 ``{"ssm": {conv_tail (L, B, W-1, C), state (L, B, H, P, N)},
 "shared_attn": {k, v (L / period, B, S, KV, hd)}}`` for the others — and
 prefill and decode update them IN PLACE (the reference returns new caches).
-``stack_decode_paged`` decodes the dense stack against a page pool
+``stack_decode_paged`` decodes the dense or moe stack against a page pool
 ``{k, v (L, N_pages, P, KV, hd)}`` instead, also in place.
 
 A full-sequence pass reads the stacked params through ``unbind``, whose
 backward stacks the layers' gradients once, rather than through one
 ``select`` a layer, whose backward writes a zero-filled copy of the whole
-stacked leaf for every layer. ``remat=True`` checkpoints each Mamba2 layer
-and each super-block (the layers up to and including a shared-block
-application), as the reference's ``jax.checkpoint`` around ``inner`` and
-``super_body`` does; the stacks draw no random numbers, so no RNG state is
-stashed for the recompute.
+stacked leaf for every layer. ``remat=True`` checkpoints each dense or moe
+layer, each Mamba2 layer and each super-block (the layers up to and
+including a shared-block application), as the reference's
+``jax.checkpoint`` around its scan bodies does; the stacks draw no random
+numbers, so no RNG state is stashed for the recompute.
 
-The moe / vlm / audio stacks are not ported yet (ROADMAP.md, Queue 1).
+The vlm / audio stacks are not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -39,20 +43,22 @@ from repro_torch.layers.attention import (attn_decode, attn_decode_paged,
                                           attn_forward_kv, attn_init)
 from repro_torch.layers.attention import init_cache as attn_init_cache
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norms import norm_apply, norm_init
 from repro_torch.layers.ssm import (ssm_decode_step, ssm_forward, ssm_init,
                                     ssm_init_cache)
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
+ATTN_FAMILIES = ("dense", "moe")
 SSM_FAMILIES = ("ssm", "hybrid")
-STACK_FAMILIES = ("dense",) + SSM_FAMILIES
+STACK_FAMILIES = ATTN_FAMILIES + SSM_FAMILIES
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in STACK_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} stack is not ported yet (repro_torch "
-            f"ports the lstm, dense, ssm and hybrid families; ROADMAP.md, "
+            f"ports the lstm, dense, moe, ssm and hybrid families; ROADMAP.md, "
             f"Queue 1)")
 
 
@@ -100,8 +106,13 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32
     if cfg.family in SSM_FAMILIES:
         return {"norm": norm(),
                 "ssm": ssm_init(generator, cfg, dtype, stack=stack)}
-    return {"norm1": norm(), "attn": attn_init(generator, cfg, dtype, stack),
-            "norm2": norm(), "mlp": mlp_init(generator, cfg, dtype, stack)}
+    p = {"norm1": norm(), "attn": attn_init(generator, cfg, dtype, stack),
+         "norm2": norm()}
+    if cfg.family == "moe":
+        p["moe"] = moe_init(generator, cfg, dtype, stack)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, dtype, stack)
+    return p
 
 
 def shared_block_init(generator: torch.Generator, cfg: ModelConfig,
@@ -140,15 +151,20 @@ def _shared_block(sp, x, cfg: ModelConfig, positions):
     return h + mlp_apply(sp["mlp"], norm_apply(sp["norm2"], h, cfg.norm), cfg), k, v
 
 
-def _mlp_residual(p, h, cfg: ModelConfig):
-    """h + the layer's pre-norm MLP of h."""
-    return h + mlp_apply(p["mlp"], norm_apply(p["norm2"], h, cfg.norm), cfg)
+def _ffn_residual(p, h, cfg: ModelConfig):
+    """h + the layer's pre-norm MLP or MoE of h → (x, the MoE's aux loss,
+    or None for an MLP)."""
+    if cfg.family == "moe":
+        y, aux = moe_apply(p["moe"], norm_apply(p["norm2"], h, cfg.norm), cfg)
+        return h + y, aux
+    return h + mlp_apply(p["mlp"], norm_apply(p["norm2"], h, cfg.norm),
+                         cfg), None
 
 
 def _dense_layer(p, x, cfg: ModelConfig, positions, cache=None):
-    """One pre-norm attention + MLP layer over a full sequence; with
-    ``cache`` (this layer's {k, v}) the prompt's K/V are written into slots
-    [0, T) in place."""
+    """One pre-norm attention + MLP (or MoE) layer over a full sequence →
+    (x, aux or None); with ``cache`` (this layer's {k, v}) the prompt's K/V
+    are written into slots [0, T) in place."""
     a_out, k, v = attn_forward_kv(p["attn"], norm_apply(p["norm1"], x, cfg.norm),
                                   cfg, positions, causal=not cfg.is_encoder,
                                   window=cfg.sliding_window)
@@ -157,21 +173,38 @@ def _dense_layer(p, x, cfg: ModelConfig, positions, cache=None):
         n = min(x.shape[1], S)
         cache["k"][:, :n].copy_(k[:, -S:])
         cache["v"][:, :n].copy_(v[:, -S:])
-    return _mlp_residual(p, x + a_out, cfg)
+    return _ffn_residual(p, x + a_out, cfg)
+
+
+def _check_ring_prompt(cfg: ModelConfig, T: int, cache) -> None:
+    """A ring-buffer cache holds position p at slot p % S, and the prefill
+    writes the prompt at slots [0, T): the prompt must fit the ring. The
+    reference writes the last S positions at slots [0, S) and decodes on
+    with them out of place (ROADMAP.md, Queue 3); the port refuses."""
+    S = cache["attn"]["k"].shape[2]
+    if cfg.sliding_window is not None and S == cfg.sliding_window and T > S:
+        raise ValueError(f"{cfg.name}: a prompt of {T} tokens does not fit "
+                         f"the {S}-slot ring-buffer cache of its window")
 
 
 def _dense_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
     """Prefill (``cache`` given: filled in place) or plain forward of the
-    dense stack, with ``remat`` each layer checkpointed."""
+    dense or moe stack, with ``remat`` each layer checkpointed → (h, the
+    aux loss summed over the layers: a float32 tensor for moe, else
+    0.0)."""
     positions = _positions(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if cfg.family == "moe" else 0.0
     for li, p in enumerate(_unstack(params["blocks"], cfg.num_layers)):
         if remat:
-            x = checkpoint(_dense_layer, p, x, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_dense_layer, p, x, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _dense_layer(p, x, cfg, positions, None if cache is None
-                             else _layer(cache["attn"], li))
-    return norm_apply(params["final_norm"], x, cfg.norm)
+            x, a = _dense_layer(p, x, cfg, positions, None if cache is None
+                                else _layer(cache["attn"], li))
+        if a is not None:
+            aux = aux + a
+    return norm_apply(params["final_norm"], x, cfg.norm), aux
 
 
 def _ssm_layer(p, x, cfg: ModelConfig):
@@ -219,13 +252,13 @@ def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
 
 
 def stack_forward(params, x, cfg: ModelConfig, remat: bool = False):
-    """Full-sequence stack. x: (B, T, d) → (h (B, T, d), aux loss 0.0).
-    ``remat=True`` checkpoints each layer (and each super-block of the SSM
-    stacks): the backward recomputes them instead of keeping their
-    activations."""
+    """Full-sequence stack. x: (B, T, d) → (h (B, T, d), aux loss: the moe
+    layers' sum, a float32 tensor; 0.0 for the others). ``remat=True``
+    checkpoints each layer (and each super-block of the SSM stacks): the
+    backward recomputes them instead of keeping their activations."""
     _check_family(cfg)
-    if cfg.family == "dense":
-        return _dense_stack_run(params, x, cfg, remat=remat), 0.0
+    if cfg.family in ATTN_FAMILIES:
+        return _dense_stack_run(params, x, cfg, remat=remat)
     return _ssm_stack_run(params, x, cfg, remat=remat), 0.0
 
 
@@ -233,10 +266,12 @@ def stack_prefill(params, x, cfg: ModelConfig, cache):
     """Forward pass that also fills the decode cache, in place: the
     prompt's K/V (slots [0, T)), and the SSM stacks' final states and conv
     tails. x: (B, T, d) → (h, cache). The prompt occupies slots [0, T),
-    as in the reference's non-resumable prefill."""
+    as in the reference's non-resumable prefill; a ring-buffer cache must
+    hold the whole prompt (``_check_ring_prompt``)."""
     _check_family(cfg)
-    if cfg.family == "dense":
-        return _dense_stack_run(params, x, cfg, cache), cache
+    if cfg.family in ATTN_FAMILIES:
+        _check_ring_prompt(cfg, x.shape[1], cache)
+        return _dense_stack_run(params, x, cfg, cache)[0], cache
     return _ssm_stack_run(params, x, cfg, cache), cache
 
 
@@ -245,13 +280,14 @@ def stack_prefill(params, x, cfg: ModelConfig, cache):
 def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.float32, device=None):
     """Stacked per-layer caches (leading L axis) + shared-block caches:
-    the dense stack's K/V caches of ``max_len`` slots, or the SSM stacks'.
+    the dense and moe stacks' K/V caches of ``max_len`` slots (a ring of
+    ``sliding_window`` slots for a windowed config), or the SSM stacks'.
     Only the K/V caches take ``dtype``: conv tails and SSM states are
     float32, because the reference's prefill and decode replace its
     ``dtype`` conv tails with the float32 tails they compute, and this
     cache is written in place."""
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         return {"attn": attn_init_cache(cfg, batch, max_len, dtype,
                                         window=cfg.sliding_window,
                                         device=device, stack=cfg.num_layers)}
@@ -270,14 +306,14 @@ def stack_decode(params, x1, cache, pos, cfg: ModelConfig):
     int32 tensor, see ``attn_decode``) reaches the attention layers; the
     Mamba2 layers ignore it."""
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         for li in range(cfg.num_layers):
             p = _layer(params["blocks"], li)
             a_out, _ = attn_decode(p["attn"],
                                    norm_apply(p["norm1"], x1, cfg.norm),
                                    _layer(cache["attn"], li), pos, cfg,
                                    window=cfg.sliding_window)
-            x1 = _mlp_residual(p, x1 + a_out, cfg)
+            x1 = _ffn_residual(p, x1 + a_out, cfg)[0]
         return norm_apply(params["final_norm"], x1, cfg.norm), cache
     period = _period(cfg)
     for i in range(cfg.num_layers // period):
@@ -301,21 +337,21 @@ def stack_decode(params, x1, cache, pos, cfg: ModelConfig):
 
 
 def stack_decode_paged(params, x1, pool, page_table, pos, cfg: ModelConfig):
-    """One-token decode through the dense stack against block-paged KV
-    storage. ``pool``: {"k", "v"} (L, N_pages, P, KV, hd), written in
+    """One-token decode through the dense or moe stack against block-paged
+    KV storage. ``pool``: {"k", "v"} (L, N_pages, P, KV, hd), written in
     place; ``page_table``: (B, n_pages) int32 shared by every layer (layer
     l of sequence page j lives at pool[l, page_table[:, j]]). → (h (B, 1,
     d), pool). The same block body and op order as ``stack_decode``, with
     ``attn_decode_paged`` in place of the cache write, which keeps paged
     greedy tokens bit-identical to the contiguous path."""
-    if cfg.family != "dense":
+    if cfg.family not in ATTN_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: paged decode takes the dense stack (and, in the "
-            f"reference, moe), not {cfg.family}")
+            f"{cfg.name}: paged decode takes the dense and moe stacks, not "
+            f"{cfg.family}")
     for li in range(cfg.num_layers):
         p = _layer(params["blocks"], li)
         a_out, _, _ = attn_decode_paged(
             p["attn"], norm_apply(p["norm1"], x1, cfg.norm), pool["k"][li],
             pool["v"][li], page_table, pos, cfg)
-        x1 = _mlp_residual(p, x1 + a_out, cfg)
+        x1 = _ffn_residual(p, x1 + a_out, cfg)[0]
     return norm_apply(params["final_norm"], x1, cfg.norm), pool

@@ -31,9 +31,10 @@ def train_loss(model: Model, params, batch: Dict[str, torch.Tensor],
     ``loss_chunk``: if set, the vocab logits and xent are computed in
     sequence chunks of this size, each under activation checkpointing, so
     the full (B, T, V) logits tensor never exists, in the forward pass or
-    in the backward. ``remat`` checkpoints each layer and super-block of the
-    SSM and hybrid stacks, as the reference's does; for the LSTM it is a
-    no-op, as in the reference."""
+    in the backward. ``remat`` checkpoints each layer (and super-block) of
+    the dense, moe, SSM and hybrid stacks, as the reference's does; for the
+    LSTM it is a no-op, as in the reference. A moe model's load-balance aux
+    (summed over its layers) is added to the loss."""
     h, aux = model.forward(params, batch, remat=remat)
     labels = batch["labels"]
     if loss_chunk is None:

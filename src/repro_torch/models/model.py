@@ -1,5 +1,6 @@
-"""Model wrapper over the ported families: ``lstm``, ``dense``, ``ssm``
-(mamba2) and ``hybrid`` (zamba2). Twin of ``repro/models/model.py``.
+"""Model wrapper over the ported families: ``lstm``, ``dense``, ``moe``,
+``ssm`` (mamba2) and ``hybrid`` (zamba2). Twin of
+``repro/models/model.py``.
 
 Params are plain dicts of tensors with the reference's layout (LSTM:
 ``{"embed", "lstm": {"layers": [...]}}``; dense/SSM/hybrid: ``{"embed",
@@ -43,9 +44,10 @@ class Model:
         in ``dtype or cfg.dtype`` as the reference's ``Model.init`` takes
         them: bfloat16 for mamba2-1.3b and zamba2-2.7b, float32 for the
         LSTMs. The SSM layers' A_log, D and dt_bias stay float32 either way,
-        as the reference keeps them; the dense configs are bfloat16 too. A
-        CPU generator gives the same weights on any device; a CUDA generator
-        draws them on the card (the fast way to a full-width model)."""
+        as the reference keeps them; the dense and moe configs are bfloat16
+        too. A CPU generator gives the same weights on any device; a CUDA
+        generator draws them on the card (the fast way to a full-width
+        model)."""
         dev = resolve_device(device)
         dtype = dtype or getattr(torch, self.cfg.dtype)
         params = {"embed": embed_init(generator, self.cfg, dtype)}
@@ -57,8 +59,10 @@ class Model:
 
     def forward(self, params, batch: Dict[str, torch.Tensor],
                 remat: bool = False):
-        """→ (h (B, T, d), aux loss 0.0). ``remat`` checkpoints the
-        stacks' layers (and the hybrid's super-blocks; the LSTM has none)."""
+        """→ (h (B, T, d), aux loss: the moe layers' summed load-balance
+        loss, a float32 tensor; 0.0 for the other families). ``remat``
+        checkpoints the stacks' layers (and the hybrid's super-blocks; the
+        LSTM has none)."""
         x = embed_tokens(params["embed"], batch["tokens"])
         if self.cfg.family == "lstm":
             h, _ = lstm_forward(params["lstm"], x, self.cfg)
@@ -78,14 +82,15 @@ class Model:
         raises without a GPU unless ``device="cpu"``), ``dtype`` bfloat16
         by default as in the reference. LSTM: the recurrent state in
         ``dtype``, which does not grow with the sequence (``max_len``
-        unused). Dense: each layer's K/V caches of ``max_len`` slots in
-        ``dtype``. SSM/hybrid: stacked float32 conv tails and SSM states,
+        unused). Dense and moe: each layer's K/V caches of ``max_len`` slots
+        in ``dtype`` — of ``sliding_window`` slots, a ring buffer, for a
+        windowed config (mixtral-8x7b), whatever ``max_len`` is. SSM/hybrid: stacked float32 conv tails and SSM states,
         plus the shared block's K/V caches of ``max_len`` slots in
         ``dtype``."""
         dev = resolve_device(device)
         if self.cfg.family == "lstm":
             return {"lstm": lstm_init_state(self.cfg, batch, dtype, dev)}
-        if max_len is None and self.cfg.family in ("dense", "hybrid"):
+        if max_len is None and self.cfg.family in ("dense", "moe", "hybrid"):
             raise ValueError(f"{self.cfg.name}: init_cache needs max_len")
         return stack_init_cache(self.cfg, batch, max_len or 0, dtype, dev)
 
@@ -123,7 +128,7 @@ class Model:
         return h[:, 0], cache
 
     def decode_step_paged(self, params, token, pool, page_table, pos):
-        """Paged decode step (the dense family): K/V live in a page pool
+        """Paged decode step (the dense and moe families): K/V live in a page pool
         ``{k, v (L, N_pages, P, KV, hd)}`` shared by every paged stream,
         addressed through ``page_table`` (B, n_pages) int32, instead of a
         contiguous cache; the pool is written in place. → (h (B, d),

@@ -1,7 +1,7 @@
 """Batched decode engine: prefill → token-by-token generation through a
 pluggable ``SoftmaxHead``. Twin of ``repro/serving/engine.py`` (the lstm,
-dense, ssm and hybrid families, ``DecodeStream``, and the speculative and
-paged streams).
+dense, moe, ssm and hybrid families, ``DecodeStream``, and the speculative
+and paged streams).
 
 The head is the ONE seam: greedy decode, temperature/nucleus sampling, and
 beam search all route next-token selection through ``head.next`` /
@@ -25,7 +25,7 @@ cached steps, keyed by ``head.step_key()`` and the step kind —
 ``(key, "decode")``, beam search's decode composed with
 ``head.topk_logprobs`` at k = the beam width, the paged streams'
 ``(key, "greedy-paged")`` / ``(key, "sample-paged", temperature, top_p)``
-(the dense family's decode over a page store), and the speculative
+(the dense and moe families' decode over a page store), and the speculative
 streams' ``(key, "spec-verify", n_max)`` / ``(key, "spec-dist", ...)``,
 steps of the head alone over a spec slab's stacked hidden states. On the
 card an entry holds one captured ``torch.cuda.CUDAGraph`` per batch width,
@@ -166,9 +166,11 @@ class _Slab:
     def restore(self) -> None:
         """Undo the last step's writes that a retry would not repeat: the
         recurrent leaves it overwrote come back from ``saved``. The K/V
-        caches need nothing: a step writes only slot ``pos[i]`` of row i,
-        nothing reads past a row's own position, and the retry writes the
-        same slot with the same values."""
+        caches need nothing: a step writes only slot ``pos[i]`` of row i
+        (``pos[i] % S`` of a ring, whose old position ``pos[i] − S`` has
+        left the retried step's window), nothing reads past a row's own
+        position, and the retry writes the same slot with the same
+        values."""
         for d, s in zip(_recurrent_leaves(self.cache), self.saved):
             d.copy_(s)
 
@@ -179,29 +181,32 @@ class _SpecBuffers:
     draft depth n_max: ``H`` (n_max, W, d), the draft steps' hidden states,
     which the verify graph reads in one call (a live draft length below
     n_max repeats the last one); ``drafts`` (n_max, W) int32, the drafted
-    ids; and ``ring``, per recurrent leaf of the cache a (n_max, ...) copy:
-    slot 0 the state at the round's start, slot j ≥ 1 the state after draft
-    step j − 1. The port's caches are updated in place, so a snapshot is a
-    copy (the reference keeps references to immutable arrays); a rejected
-    draft's row is restored from the ring in place."""
+    ids; and ``ring``, per rollback leaf of the cache (``_rollback_leaves``:
+    the recurrent leaves, and a sliding-window config's ring K/V caches) a
+    (n_max, ...) copy: slot 0 the state at the round's start, slot j ≥ 1
+    the state after draft step j − 1. The port's caches are updated in
+    place, so a snapshot is a copy (the reference keeps references to
+    immutable arrays); a rejected draft's row is restored from the ring in
+    place. ``window``: whether the ring K/V caches are among the leaves."""
     H: torch.Tensor
     drafts: torch.Tensor
     ring: List[torch.Tensor]
+    window: bool = False
 
     def snapshot(self, cache, j: int) -> None:
-        """Copy the cache's recurrent leaves into ring slot ``j``."""
-        for r, leaf in zip(self.ring, _recurrent_leaves(cache)):
+        """Copy the cache's rollback leaves into ring slot ``j``."""
+        for r, leaf in zip(self.ring, _rollback_leaves(cache, self.window)):
             r[j].copy_(leaf)
 
     def restore_row(self, cache, axis: int, row: int, j: int) -> None:
-        """Row ``row`` of every recurrent leaf back from ring slot ``j``
+        """Row ``row`` of every rollback leaf back from ring slot ``j``
         (``axis``: the leaves' batch axis)."""
-        for r, leaf in zip(self.ring, _recurrent_leaves(cache)):
+        for r, leaf in zip(self.ring, _rollback_leaves(cache, self.window)):
             leaf.select(axis, row).copy_(r[j].select(axis, row))
 
     def restore(self, cache, j: int) -> None:
         """Every row back from ring slot ``j``."""
-        for r, leaf in zip(self.ring, _recurrent_leaves(cache)):
+        for r, leaf in zip(self.ring, _rollback_leaves(cache, self.window)):
             leaf.copy_(r[j])
 
     @property
@@ -571,6 +576,7 @@ class DecodeEngine:
                           for leaf in _recurrent_leaves(slab.cache)]
             if spec_depth:
                 dev = self.device
+                window = self.model.cfg.sliding_window is not None
                 slab.spec = _SpecBuffers(
                     H=torch.zeros((spec_depth, width, self.W.shape[1]),
                                   dtype=self.W.dtype, device=dev),
@@ -578,7 +584,8 @@ class DecodeEngine:
                                        dtype=torch.int32, device=dev),
                     ring=[torch.empty((spec_depth,) + tuple(leaf.shape),
                                       dtype=leaf.dtype, device=dev)
-                          for leaf in slab.saved])
+                          for leaf in _rollback_leaves(slab.cache, window)],
+                    window=window)
         self._free_stream_slabs[(width, key)] = [weakref.ref(s)
                                                  for s in pool]
         return slab
@@ -589,17 +596,21 @@ class DecodeEngine:
 
     def _prefill(self, prompts, max_new: int) -> tuple:
         """prompts (B, Tp) → (the slab of width B, its cache primed by the
-        prompt and its position at Tp, h_last (B, d)). Raises if the dense
-        or hybrid family's K/V cache of ``max_len`` slots cannot hold the
-        prompt and ``max_new`` tokens, where the reference clamps the writes
-        past the end to slot S − 1 and decodes on; the LSTM and SSM states
-        do not grow, and decode past ``max_len`` as the reference does. The
-        prefill runs eagerly."""
+        prompt and its position at Tp, h_last (B, d)). Raises if the dense,
+        moe or hybrid family's K/V cache of ``max_len`` slots cannot hold
+        the prompt and ``max_new`` tokens, where the reference clamps the
+        writes past the end to slot S − 1 and decodes on; the LSTM and SSM
+        states do not grow, and decode past ``max_len`` as the reference
+        does. A sliding-window config's ring of ``window`` slots must hold
+        the prompt (the prefill refuses a longer one) and then decodes on
+        past ``max_len``, wrapping, as the reference does. The prefill runs
+        eagerly."""
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=self.device)
         B, Tp = tokens.shape
-        if self.model.cfg.family in ("dense", "hybrid") and \
-                Tp + max_new > self.max_len:
+        cfg = self.model.cfg
+        if cfg.family in ("dense", "moe", "hybrid") and \
+                cfg.sliding_window is None and Tp + max_new > self.max_len:
             raise ValueError(f"a prompt of {Tp} tokens and {max_new} new ones "
                              f"need {Tp + max_new} cache slots; max_len is "
                              f"{self.max_len}")
@@ -1132,12 +1143,28 @@ def _write_back(dst, src) -> None:
 
 def _recurrent_leaves(cache) -> List[torch.Tensor]:
     """The leaves a decode step overwrites whole: the LSTM state, or the
-    SSM states and conv tails; none of the K/V caches (the dense family's,
-    the hybrid's, a page store's), which a step writes one slot of."""
+    SSM states and conv tails; none of the K/V caches (the dense and moe
+    families', the hybrid's, a page store's), which a step writes one slot
+    of."""
     for name in ("lstm", "ssm"):
         if name in cache:
             return tree_leaves(cache[name])
     return []
+
+
+def _rollback_leaves(cache, window: bool) -> List[torch.Tensor]:
+    """What a speculative round snapshots to roll a row back: the recurrent
+    leaves and, with ``window`` (a sliding-window config), the ring K/V
+    caches. A rejected draft at position p writes ring slot p % S, which
+    held position p − S: still inside the window of the next accepted
+    token, so the slot must come back, as the reference's whole-cache
+    snapshot brings it back."""
+    leaves = _recurrent_leaves(cache)
+    if window:
+        for name in ("attn", "shared_attn"):
+            if name in cache:
+                leaves = leaves + tree_leaves(cache[name])
+    return leaves
 
 
 def _splice_cache(group, solo, slot: int, cfg) -> None:

@@ -1,12 +1,12 @@
 """Paged KV-cache pool: refcounted pages with a copy-on-write shared-prefix
-radix cache. Twin of ``repro/serving/kvpool`` for the dense family, whose
+radix cache. Twin of ``repro/serving/kvpool`` for the dense and moe families, whose
 K/V rows live in a device page store, and the LSTM family, whose pages are
 logical and whose radix nodes carry recurrent-state snapshots.
 
 Layout:
   * pool.py   — ``PagePool``: refcounted fixed-size page allocator,
                 ``PoolExhausted``, COW primitives, telemetry.
-  * store.py  — ``PagedKVStore``: the dense family's (L, N_pages, P, KV,
+  * store.py  — ``PagedKVStore``: the dense and moe families' (L, N_pages, P, KV,
                 hd) K/V page tensors on the engine's device.
   * radix.py  — ``RadixCache``: token-prefix tree mapping page-grid
                 chunks of prompts to shared pages (LSTM nodes also carry

@@ -1,5 +1,5 @@
 """Block-paged KV memory: refcounted fixed-size pages + typed exhaustion.
-Twin of ``repro/serving/kvpool/pool.py`` for the LSTM and dense families:
+Twin of ``repro/serving/kvpool/pool.py`` for the LSTM, dense and moe families:
 ``bind`` raises NotImplementedError for moe, whose stack is not ported yet
 (ROADMAP.md, Queue 1), and for the SSM families, as the reference does.
 
@@ -18,7 +18,7 @@ The pool is deliberately split from physical storage:
     suite drives through thousands of random alloc/share/COW/free
     sequences — no tensors, no graphs, just the invariants;
   * ``bind(engine)`` attaches the model-specific substance: the
-    device-side ``PagedKVStore`` (store.py) for the dense family; for the
+    device-side ``PagedKVStore`` (store.py) for the dense and moe families; for the
     LSTM family nothing, its "pages" being logical accounting over
     recurrent-state snapshots held by the radix cache (see radix.py) —
     admission and telemetry stay uniform either way.
@@ -167,7 +167,7 @@ class PagePool:
     # -- binding to an engine -------------------------------------------------
     def bind(self, engine) -> None:
         """Attach this pool to a ``DecodeEngine`` (idempotent; one engine
-        per pool). Builds the device ``PagedKVStore`` for the dense family,
+        per pool). Builds the device ``PagedKVStore`` for the dense and moe families,
         in the engine's cache dtype on its device; the LSTM family stays
         logical: its pages are accounting over the recurrent-state
         snapshots the radix cache holds. Called by ``PagedDecodeStream`` —
@@ -182,12 +182,7 @@ class PagePool:
                 f"{engine.max_len} (the paged view must have the dense "
                 f"cache's exact shape for bit-identical decode)")
         cfg = engine.model.cfg
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                f"repro_torch: paged KV for the moe family ({cfg.name}) "
-                f"needs its stack, not ported yet (ROADMAP.md, Queue 1 "
-                f"item 9.4)")
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             if cfg.sliding_window is not None:
                 raise NotImplementedError(
                     "paged KV does not support sliding-window (ring) "
@@ -197,8 +192,8 @@ class PagePool:
                                       engine.cache_dtype, engine.device)
         elif cfg.family != "lstm":
             raise NotImplementedError(
-                f"paged KV supports the lstm and dense families (and, in "
-                f"the reference, moe), not {cfg.family} ({cfg.name})")
+                f"paged KV supports the lstm, dense and moe families, not "
+                f"{cfg.family} ({cfg.name})")
         if self.radix is None:
             from repro_torch.serving.kvpool.radix import RadixCache
             self.radix = RadixCache(self)

@@ -32,14 +32,14 @@ from repro_torch.configs.base import ModelConfig
 
 class PagedKVStore:
     """Physical page storage (with per-page copy and write helpers) for one
-    engine's dense attention stack."""
+    engine's dense or moe attention stack."""
 
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int,
                  dtype=torch.float32, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"PagedKVStore takes the dense stack (and, in the reference, "
-                f"moe), not {cfg.family}")
+                f"PagedKVStore takes the dense and moe stacks, not "
+                f"{cfg.family}")
         shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
                  cfg.head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)

@@ -1,5 +1,5 @@
 """Paged continuous-batching decode stream: page tables instead of padding.
-Twin of ``repro/serving/kvpool/stream.py`` for the dense and LSTM families.
+Twin of ``repro/serving/kvpool/stream.py`` for the dense, moe and LSTM families.
 
 ``PagedDecodeStream`` is ``DecodeStream``'s drop-in sibling (same
 ``join``/``step``/``evict``/``pop_finished`` surface, same fixed width and

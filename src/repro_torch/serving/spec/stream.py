@@ -28,11 +28,17 @@ start, pos0 its position):
            the draft tokens from the stream's ``torch.Generator``.
 
 Rollback of rejected draft positions:
-  * K/V caches need NONE (the dense family's, the hybrid's) —
+  * K/V caches need NONE (the dense and moe families', the hybrid's) —
     ``attn_decode``'s keep-mask hides slots beyond the resumed position
     exactly, and decode overwrites them when it re-reaches those
     positions. A dense stream's slab has no snapshot ring at all: a
     rejected row resumes by its position alone;
+  * a sliding-window config's ring K/V caches are the exception: a draft
+    at position p overwrites ring slot p % S, which still held position
+    p − S of the next accepted token's window, so they are snapshotted
+    whole with the recurrent state (``engine._rollback_leaves``), as the
+    reference's snapshots are (537 MB a round's slot for mixtral-8x7b at 8
+    layers, width 4);
   * recurrent state (the LSTM's (h, c); the SSM states and conv tails) is
     SNAPSHOT per draft step. The port's caches are updated in place, so a
     snapshot is a COPY into a ring preallocated with the stream's slab
@@ -101,7 +107,8 @@ def _select_snapshots(spec, cache, sel, n: int, cfg) -> int:
     """Per-row snapshot restore, in place: row i resumes from the state
     after draft step ``sel[i]`` — ring slot ``sel[i] + 1``, or the live
     cache when ``sel[i] == n − 1``. The batch axis is ``_splice_cache``'s:
-    0 for the LSTM state, 1 for the stacked SSM leaves. → rows restored."""
+    0 for the LSTM state, 1 for the stacked SSM leaves and ring K/V caches.
+    → rows restored."""
     axis = 0 if cfg.family == "lstm" else 1
     rows = [i for i, j in enumerate(sel) if j != n - 1]
     for i in rows:

@@ -1535,3 +1535,162 @@ def test_cuda_dense_paged_stream_matches_a_plain_stream(cuda):
     assert pool.radix.tokens_hit >= 4 * 32
     assert eng.compiled_step_counts() == {("screened-cuda", "greedy"): 1,
                                           ("screened-cuda", "greedy-paged"): 1}
+
+
+# -- the moe family's shapes (mixtral-8x7b, phi3.5-moe-42b-a6.6b) and the
+#    sliding-window ring cache --------------------------------------------------
+
+def test_cuda_cache_kv_update_at_ring_slots(cuda):
+    """mixtral-8x7b's ring of 4,096 slots (KV 8, hd 128, bf16): per-row
+    positions that wrap (slot pos % S, wrapped on the device) write what
+    the plain version writes, bit for bit; ``attn_decode`` on a ring with a
+    tensor position equals the int path bit for bit, past the wrap."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update_plain)
+    from repro_torch.layers import attention
+    g = torch.Generator().manual_seed(40)
+    B, S, KV, hd = 4, 4096, 8, 128
+    ck, cv = (torch.randn((B, S, KV, hd), generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    uk, uv = (torch.randn((B, KV, hd), generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    pos = torch.tensor([4095, 4096, 8191, 5000], dtype=torch.int32,
+                       device=cuda)
+    slot = torch.remainder(pos, S)
+    ops.reset_launches()
+    gk, gv = cache_kv_update(ck.clone(), uk, cv.clone(), uv, slot)
+    assert ops.LAUNCHES["cache_slot_update"] == 1
+    assert torch.equal(gk, cache_slot_update_plain(ck.clone(), uk, slot))
+    assert torch.equal(gv, cache_slot_update_plain(cv.clone(), uv, slot))
+    cfg = replace(get_config("mixtral-8x7b").reduced(), sliding_window=8)
+    p = attention.attn_init(torch.Generator().manual_seed(41), cfg)
+    p = {k: t.to(cuda) for k, t in p.items()}
+    x = torch.randn((2, 20, cfg.d_model), generator=g).to(cuda)
+    ci = attention.init_cache(cfg, 2, 20, window=8, device=cuda)
+    ct = attention.init_cache(cfg, 2, 20, window=8, device=cuda)
+    for t in range(20):
+        oi, _ = attention.attn_decode(p, x[:, t:t + 1], ci, t, cfg)
+        ot, _ = attention.attn_decode(p, x[:, t:t + 1], ct, torch.full(
+            (2,), t, dtype=torch.int32, device=cuda), cfg)
+        assert torch.equal(oi, ot)
+    assert torch.equal(ci["k"], ct["k"]) and torch.equal(ci["v"], ct["v"])
+
+
+@pytest.fixture(scope="module", params=[32_000, 32_064],
+                ids=["mixtral-250-tiles", "phi-251-tiles"])
+def moe_head(request):
+    """mixtral-8x7b's (V = 32,000: 250 tiles) or phi3.5-moe's (V = 32,064:
+    251 tiles, the last holding 64 words) bf16 head at d = 4096."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    L, d = request.param, 4096
+    W = torch.randn((L, d), generator=g, device="cuda") * 0.05
+    b = torch.randn((L,), generator=g, device="cuda") * 0.1
+    Wb, bb = ops.pack_head_blocks(W.to(torch.bfloat16), b.to(torch.bfloat16))
+    v = torch.randn((100, d), generator=g, device="cuda")
+    return L, Wb, bb, v
+
+
+@pytest.mark.parametrize("k", [1, 5, 128])
+def test_cuda_bf16_kernels_at_moe_shapes(cuda, moe_head, k):
+    """Route, gather and fused (bf16 bodies) at d = 4096 over 250 or 251
+    tiles, B = 4, K = 16, with the last tile (phi's partial one) in every
+    row and some slots sentinel: routes equal, logits, values and logZ
+    within 1e-5 of the plain versions, fused == unfused bit for bit, and no
+    padded word (id ≥ V) among the top-k."""
+    L, Wb, bb, v = moe_head
+    n_blk = Wb.shape[0]
+    assert n_blk == -(-L // V_BLK)
+    g = torch.Generator().manual_seed(k)
+    B, K = 4, 16
+    h = torch.randn((B, 4096), generator=g).to(cuda, torch.bfloat16)
+    ids = torch.randint(0, n_blk + 2, (B, K), generator=g, dtype=torch.int32)
+    ids[:, 0] = n_blk - 1
+    ids = ids.to(cuda)
+    assert torch.equal(cluster_route(h, v), cluster_route_plain(h, v))
+    raw = screened_logits(Wb, bb, h, ids)
+    torch.testing.assert_close(raw, screened_logits_plain(Wb, bb, h, ids),
+                               **TOL)
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    row = torch.where(valid, raw, NEG_INF).reshape(B, -1)
+    lane = torch.arange(V_BLK, device=cuda, dtype=torch.int32)
+    word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    ki, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=k)
+    pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+    torch.testing.assert_close(kv, pv, **TOL)
+    torch.testing.assert_close(kz, pz, **TOL)
+    uv, upos = topk_desc(row, k)
+    assert torch.equal(kv, uv) and torch.equal(ki, torch.gather(word, 1, upos))
+    assert bool((ki < L).all())
+
+
+def _reduced_mixtral():
+    """Reduced mixtral-8x7b (window 64, 4 experts) in float32 on the CPU
+    from a CPU generator, its lm_head × 20 (greedy steps decided far above
+    float32 rounding), and a random 128-word block screen."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.screening import ScreenParams
+    from repro_torch.models import Model
+    cfg = get_config("mixtral-8x7b").reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(42), device="cpu",
+                        dtype=torch.float32)
+    params["embed"]["lm_head"] *= 20.0
+    screen = ScreenParams(
+        v=torch.randn((4, cfg.d_model),
+                      generator=torch.Generator().manual_seed(43)) * 3,
+        cand_idx=torch.tensor([[0, 3], [1, 2], [0, 1], [1, 3]],
+                              dtype=torch.int32),
+        cand_len=torch.full((4,), 2, dtype=torch.int32),
+        vocab_size=cfg.vocab_size, block=V_BLK)
+    return model, params, screen
+
+
+def test_cuda_mixtral_ring_decode_and_spec_rollback_match_the_cpu(cuda):
+    """Reduced mixtral: ring decode over 3× its 64-slot window on the card
+    against the CPU (hidden states within 1e-4 of max |h|); a width-3
+    SpecDecodeStream (the random screen drafting, exact verifying) whose
+    rounds cross the wrap gives the plain exact tokens on the card, and the
+    CPU's."""
+    from repro_torch.models.model import to_device
+    from repro_torch.serving import DecodeEngine, ServeRequest
+    model, cpu_params, screen = _reduced_mixtral()
+    params = to_device(cpu_params, cuda)
+    toks = np.random.default_rng(44).integers(0, 512, (2, 192))
+    hs = {}
+    for dev, p in (("cpu", cpu_params), (cuda, params)):
+        with torch.inference_mode():
+            cache = model.init_cache(2, 16, dtype=torch.float32, device=dev)
+            t = torch.as_tensor(toks, device=dev)
+            h, _ = model.prefill(p, {"tokens": t[:, :8]}, cache)
+            out = [h[:, -1]]
+            for i in range(8, 192):
+                h1, _ = model.decode_step(p, t[:, i], cache, i)
+                out.append(h1)
+        hs[str(dev)] = torch.stack(out, 1).cpu()
+    want = hs["cpu"]
+    assert float((hs[str(cuda)] - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+    ps = np.random.default_rng(45).integers(0, 512, (3, 12))
+    reqs = [ServeRequest(prompt=p, max_new=60) for p in ps]
+    got = {}
+    for dev, p in (("cpu", cpu_params), (cuda, params)):
+        eng = DecodeEngine(model, p, screen=screen.to(dev), max_len=80,
+                           device=dev)
+        s = eng.open_spec_stream("screened-cuda", "exact", width=3,
+                                 draft_len=4)
+        for i, r in enumerate(reqs):
+            s.join(r, tag=i)
+        done = {}
+        while not s.idle:
+            done.update({t: toks_.tolist() for t, _, toks_ in s.step()})
+        assert s.restored_rows > 0
+        base = eng.generate(ps, 60, head="exact").tokens
+        assert all(done[i] == base[i].tolist() for i in range(3))
+        got[str(dev)] = done
+    assert got["cpu"] == got[str(cuda)]

@@ -309,8 +309,9 @@ def test_bind_requires_page_alignment(lstm):
 
 
 def test_bind_refuses_the_other_families():
-    """The hybrid (as in the reference) and moe (its stack is Queue 1 item
-    9.4) raise NotImplementedError."""
+    """The hybrid and a sliding-window moe (as in the reference) raise
+    NotImplementedError; moe without a window binds
+    (tests/test_torch_moe.py)."""
     hyb = hybrid_fx()
     heng = DecodeEngine(hyb["tmodel"], hyb["tparams"], max_len=24,
                         device="cpu")
@@ -318,12 +319,12 @@ def test_bind_refuses_the_other_families():
         heng.open_paged_stream(PagePool(8, 4))
 
     class _Cfg:
-        name, family = "moe-stub", "moe"
+        name, family, sliding_window = "moe-stub", "moe", 64
 
     class _Stub:
         max_len = 24
         model = type("M", (), {"cfg": _Cfg})
-    with pytest.raises(NotImplementedError, match="9.4"):
+    with pytest.raises(NotImplementedError, match="sliding-window"):
         PagePool(8, 4).bind(_Stub)
 
 

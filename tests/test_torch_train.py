@@ -288,9 +288,7 @@ def test_launch_train_runs_reduced_on_the_cpu(tmp_path, capsys):
                                        str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and out.count("[train] step") == 1
-    # an arch the port has no config for yet (the moe family) is refused,
-    # and so is the dense family, served but not yet trained by the port
-    with pytest.raises(KeyError, match="mixtral-8x7b"):
-        train_cli.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(["--arch", "smollm-360m", "--device", "cpu"])
+    # an arch the port has no config for yet (the vlm family) is refused;
+    # the dense and moe families train (tests/test_torch_train_dense.py)
+    with pytest.raises(KeyError, match="qwen2-vl-2b"):
+        train_cli.main(["--arch", "qwen2-vl-2b", "--device", "cpu"])
