@@ -9,7 +9,10 @@ streams, the scheduler and the serving launcher) on both, the other heads
 speculative decoding and the page pool, the dense transformers
 (gemma-2b, starcoder2-3b, qwen1.5-110b) with paged attention decode, the
 moe transformers (mixtral-8x7b with its sliding-window ring cache,
-phi3.5-moe over the page store), and training the dense and moe families.
+phi3.5-moe over the page store), the vlm (qwen2-vl-2b with M-RoPE over
+256 patch embeddings, through the model API) and audio (hubert-xlarge's
+bidirectional encoder) families, and training the dense, moe, vlm and
+audio families.
 
     python3 chip_smoke.py
 
@@ -331,6 +334,31 @@ Phases, one line (or a few) each:
               paged stream == a plain stream bit for bit; paths
               "mixtral-8x7b bf16", "mixtral-8x7b ring", "mixtral-8x7b
               spec", "phi3.5-moe bf16", "phi3.5-moe paged";
+  7d. vlm, audio  (after the moe phases) [parity] and [timing] at
+              qwen2-vl-2b's shapes: the route (bf16 h) at d = 1536, B in
+              1, 4, with a tie across the cluster's blocks; the bf16 gather
+              and fused kernels over its 1,187 tiles, k in 1, 5, 128 (fused
+              == unfused bit for bit); the cache pair at its cache (4, 544,
+              2, 128) bf16, bit for bit; timing rows at its width and
+              cache. [vlm] qwen2-vl-2b at full width in bf16 (28 layers,
+              d = 1536, kv 2, qkv bias, M-RoPE, V = 151,936, vision_proj;
+              3.09 GB) through Model.prefill / decode_step (the engine
+              refuses the family, as the reference's has no patch path):
+              4 x (256 patches + 256 tokens) + 32 greedy tokens through
+              exact, screened-cuda fused and unfused (r = 100, K = 16) and
+              a full cover: fused == unfused tokens, full cover == exact
+              under the bf16 gap rule, launches from zero (28 cache pairs a
+              step, only the bf16 L2S bodies), profiles, prefill
+              positions/s, the eager step on the host clock and in device
+              time, the heads' times and bounds, the step's weight-read
+              bound; [vlm] card vs CPU: 2 layers in float32, prefill with
+              patches + 8 decode steps, hidden states within 1e-4, tokens
+              equal but near ties; [audio] hubert-xlarge at full width,
+              bf16 weights and float32 frames (float32 activations, as the
+              reference promotes them): 4 x 1,024 frames (frames/s, peak
+              memory, no port kernel), 2,048 frames chunked == unchunked
+              within 1e-5 relative, 2 layers card == CPU within 1e-4;
+              paths "qwen2-vl-2b bf16", "hubert-xlarge";
   8. train-ssm (after the serving phases and their profiles) the SSD
               backward kernel against ssd_intra_bwd_plain at zamba2's and
               mamba2's chunks: max |kernel - plain| / max
@@ -369,9 +397,15 @@ Phases, one line (or a few) each:
      train-moe mixtral-8x7b at full widths cut to 2 layers in float32:
               make_train_step(donate=True), 2 steps of 4 x 512 (the aux
               loss finite and in the loss, the loss falling, peak memory);
-              1 layer, card against CPU gradients at 1 x 128; paths
-              "gemma-2b train", "mixtral-8x7b train" (no port kernel runs
-              there: 0 launches);
+              1 layer, card against CPU gradients at 1 x 128;
+     train-vlm, train-audio  python -m repro_torch.launch.train --arch
+              qwen2-vl-2b (then hubert-xlarge) --steps 2 --batch 4 --seq
+              512 at full width in float32 (4 x (256 patches + 512
+              tokens), the 151,936-word corpus built on the host; 4 x 512
+              frames): s/step, peak device memory under 80 GiB; 2 layers,
+              card against CPU gradients; paths "gemma-2b train",
+              "mixtral-8x7b train", "qwen2-vl-2b train", "hubert-xlarge
+              train" (no port kernel runs there: 0 launches);
   9. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on each
               path: the two e2e paths, their graph phases, serve, the
@@ -380,9 +414,10 @@ Phases, one line (or a few) each:
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
               paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", the five
-              dense paths, the five moe paths, "zamba2-2.7b train",
-              "mamba2-1.3b train", "gemma-2b train" and "mixtral-8x7b
-              train" (the
+              dense paths, the five moe paths, "qwen2-vl-2b bf16",
+              "hubert-xlarge", "zamba2-2.7b train", "mamba2-1.3b train",
+              "gemma-2b train", "mixtral-8x7b train", "qwen2-vl-2b train"
+              and "hubert-xlarge train" (the
               "zamba2-2.7b" path is its bfloat16 model), each
               counted from zero over that path's own runs; the bf16 bodies
               as kernels of their own, "cluster_route_bf16",
@@ -396,9 +431,11 @@ Phases, one line (or a few) each:
               cache update's times are the K and V pair's, with "single_ms"
               of one single-cache launch; the SSD backward's, at zamba2's
               chunk, with "at_mamba2_chunk"; the bf16 L2S bodies also
-              "at_gemma_width" and "at_mixtral_width", the bf16 gather and
-              fused "at_phi_tiles", the bf16 route "at_qwen_width", the
-              cache pair "at_gemma_cache" and "at_mixtral_ring")
+              "at_gemma_width", "at_mixtral_width" and
+              "at_qwen2vl_width", the bf16 gather and fused
+              "at_phi_tiles", the bf16 route "at_qwen_width", the cache
+              pair "at_gemma_cache", "at_mixtral_ring" and
+              "at_qwen2vl_cache")
               and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, and the script exits non-zero. Without a CUDA GPU,
@@ -4199,27 +4236,27 @@ def step_weight_bytes(params):
     return stack, W.numel() * W.element_size() + b.numel() * b.element_size()
 
 
-def gemma_head_rows(torch, timer, eng, h):
+def head_rows(torch, timer, hx, hs, W, screen, h):
     """One decode step's head at ``h`` (B, d) bf16, in turns under the
-    clean-L2 timer: exact (a bf16 GEMV over 256,000 words and an argmax)
-    and screened-cuda (route + fused), with their bounds. → {name: (ms,
-    bound)}."""
-    hx = eng.resolve_head("exact")
-    hs = eng.resolve_head("screened-cuda").prepare()
+    clean-L2 timer: exact ``hx`` (a bf16 GEMV over the vocabulary ``W``
+    and an argmax) and screened-cuda ``hs`` (route + fused over
+    ``screen``), with their bounds. → ({name: (ms, bound)}, distinct
+    tiles)."""
+    hs = hs.prepare()
     B, d = h.shape
-    L = eng.W.shape[0]
+    L = W.shape[0]
     with torch.inference_mode():
         t = timer.turns({"exact": lambda: hx.next(h),
                          "screened-cuda": lambda: hs.next(h)})
-        cl = torch.argmax(h.float() @ eng.screen.v.T, dim=-1)
-        blocks = eng.screen.cand_idx[cl]
+        cl = torch.argmax(h.float() @ screen.v.T, dim=-1)
+        blocks = screen.cand_idx[cl]
         n_blk = -(-L // V_BLK)
         tiles = int(blocks[blocks < n_blk].unique().numel())
         per_row = int((blocks < n_blk).sum())
     bounds = {"exact": bound_ms(2 * (L * (d + 1) + B * d), 2 * B * L * d),
               "screened-cuda": bound_ms(
-                  4 * eng.screen.v.numel() + 2 * tiles * V_BLK * (d + 1) +
-                  2 * B * d, 2 * d * (B * eng.screen.r + per_row * V_BLK))}
+                  4 * screen.v.numel() + 2 * tiles * V_BLK * (d + 1) +
+                  2 * B * d, 2 * d * (B * screen.r + per_row * V_BLK))}
     return {n: (t[n], bounds[n]) for n in t}, tiles
 
 
@@ -4365,8 +4402,9 @@ def serve_bf16(torch, np, tag, g, prompts, new, max_len):
     step_x_ms = median_step_ms(torch, eng, "exact", prompts, 8, eager=False)
     timer = Timer(torch)
     h = torch.randn((B, d), generator=torch.Generator().manual_seed(90))
-    heads_t, tiles = gemma_head_rows(torch, timer, eng,
-                                     h.cuda().to(torch.bfloat16))
+    heads_t, tiles = head_rows(torch, timer, eng.resolve_head("exact"),
+                               eng.resolve_head("screened-cuda"), eng.W,
+                               eng.screen, h.cuda().to(torch.bfloat16))
     stack_b, head_b = step_weight_bytes(params)
     scr_b = 4 * g["screen"].v.numel() + tiles * V_BLK * (d + 1) * 2
     tok = B * new
@@ -5265,8 +5303,9 @@ def phase_moe_phi(torch, np):
 
 def card_vs_cpu_grads(torch, np, tag, cfg, T, seed):
     """loss_and_grads of ``cfg`` (float32, drawn on the card) on 1 x T
-    random tokens, on the card and on the CPU: every leaf within 1e-4 x
-    max |g|, the loss within 1e-5 relative. → a log line's text."""
+    random tokens (vlm: after its patches; audio: T random frames), on the
+    card and on the CPU: every leaf within 1e-4 x max |g|, the loss within
+    1e-5 relative. → a log line's text."""
     from repro_torch.configs import TrainConfig
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import Model
@@ -5275,10 +5314,17 @@ def card_vs_cpu_grads(torch, np, tag, cfg, T, seed):
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed),
                         device="cuda", dtype=torch.float32)
-    toks = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (1, T + 1)))
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, T + 1)))
     batch = {"tokens": toks[:, :-1].contiguous(),
              "labels": toks[:, 1:].contiguous()}
+    if cfg.family == "vlm":          # the text's T tokens after P patches
+        batch["patches"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32))
+    elif cfg.family == "audio":      # T frames and their unit labels
+        batch = {"frames": torch.as_tensor(rng.standard_normal(
+                    (1, T, cfg.d_model)).astype(np.float32)),
+                 "labels": batch["labels"] % cfg.vocab_size}
     tcfg = TrainConfig(remat="none", loss_chunk=None)
     side = {}
     for where in ("cuda", "cpu"):
@@ -5428,6 +5474,589 @@ def phase_train_moe(torch, np):
     return {"mixtral-8x7b train": launches}
 
 
+# -- the vlm and audio families: qwen2-vl-2b, hubert-xlarge ---------------------
+# qwen2-vl-2b (arXiv 2409.12191) in its config's bfloat16 at full width (28
+# layers, d = 1536, 12 heads, kv 2, hd 128, SwiGLU d_ff = 8,960, qkv bias,
+# M-RoPE, V = 151,936: 1,187 tiles, tied) with 256 patch embeddings (a
+# 16 x 16 grid): 4 prompts of 256 patches + 256 tokens, 32 new; its cache
+# holds the patches too (256 + 256 + 32 = 544 slots)
+VD, VV, VP = 1536, 151_936, 256
+VB, VT, VNEW = 4, 256, 32
+VMAX = VP + VT + VNEW
+VCPU_B, VCPU_T, VCPU_NEW = 2, 64, 9  # [vlm] card vs CPU: 8 decode steps
+# the profiled vlm runs are eager (~2,300 host ops a step), so the
+# profiler's host events grow fast: profile 4 tokens, and 4 steps alone
+VPROF = 4
+# hubert-xlarge (arXiv 2106.07447) at full width (48 layers, d = 1280, 16
+# heads, MHA, gelu d_ff = 5,120, layernorm, 504 units), bf16 weights and
+# float32 frames: 4 x 1,024 frames, then one of 2,048 (the chunked path)
+HD, HB, HT, HLONG = 1280, 4, 1024, 2048
+
+
+def phase_vlm_kernels(torch, np):
+    """[parity] and [timing] at qwen2-vl-2b's shapes: the route (bf16 h,
+    float32 v) at d = 1536, B in 1, 4 (routes equal but near-ties) with a
+    tie across the blocks of its thread block cluster; the bf16 gather and
+    fused kernels over its 1,187 tiles, B in 1, 4, k in 1, 5, 128 (rtol =
+    atol = 1e-5; fused == unfused bit for bit); the cache pair at its
+    decode cache (4, 544, 2, 128) bf16, bit for bit. Timing rows in turns
+    under the clean-L2 timer: route, gather and fused (bf16) at its width
+    (B = 4, K = 16, k = 1) and the cache pair at its cache.
+    → ({kernel: max abs err}, {kernel: {shape: timing dict}})."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update_plain)
+    from repro_torch.kernels.fused_topk import (fused_screened_topk,
+                                                fused_screened_topk_plain)
+    from repro_torch.kernels.route import cluster_route, cluster_route_plain
+    from repro_torch.kernels.screen import (screened_logits,
+                                            screened_logits_plain)
+    err = {k: 0.0 for k in BF16_KERNELS + ("cache_slot_update",)}
+    near = 0
+    g = torch.Generator(device="cuda").manual_seed(101)
+    v = torch.randn((R, VD), generator=g, device="cuda")
+    for B in (1, 4):
+        h = torch.randn((B, VD), generator=g, device="cuda").bfloat16()
+        route, plain = cluster_route(h, v), cluster_route_plain(h, v)
+        scores = h.float() @ v.T
+        s_r = scores.gather(1, route.long()[:, None])[:, 0]
+        s_p = scores.gather(1, plain.long()[:, None])[:, 0]
+        diff = route != plain
+        check(bool(((s_r - s_p).abs()[diff] < 1e-5 * s_p.abs()[diff]).all()),
+              f"cluster_route_bf16 d={VD}: routes differ beyond near-ties")
+        near += int(diff.sum())
+        err["cluster_route_bf16"] = max(err["cluster_route_bf16"],
+                                        float((s_r - s_p).abs().max()))
+    tv = torch.round(torch.randn((R, VD), generator=g, device="cuda") * 2) / 2
+    tv[3] = tv[50] = tv[99] = 4.0
+    th = (torch.round(torch.rand((4, VD), generator=g, device="cuda") * 3) *
+          0.5 + 0.5).bfloat16()
+    check(bool((cluster_route(th, tv) == 3).all()) and
+          bool((cluster_route_plain(th, tv) == 3).all()),
+          f"cluster_route_bf16 d={VD}: a tie across the blocks of the cluster "
+          f"did not go to the first index")
+    W = torch.randn((VV, VD), generator=g, device="cuda") * 0.05
+    b = torch.randn((VV,), generator=g, device="cuda") * 0.1
+    Wb, bb = ops.pack_head_blocks(W.bfloat16(), b.bfloat16())
+    del W, b
+    n_blk = Wb.shape[0]
+    check(n_blk == VV // V_BLK == 1187, f"qwen2-vl-2b: {n_blk} tiles")
+    cand = torch.from_numpy(make_screen_blocks(np, 102, n_blk)).cuda()
+    for B in (1, 4):
+        h = torch.randn((B, VD), generator=g, device="cuda").bfloat16()
+        ids = cand[cluster_route_plain(h, v).long()].contiguous()
+        raw = screened_logits(Wb, bb, h, ids)
+        praw = screened_logits_plain(Wb, bb, h, ids)
+        torch.testing.assert_close(raw, praw, **TOL)
+        err["screened_logits_bf16"] = max(err["screened_logits_bf16"],
+                                          float((raw - praw).abs().max()))
+        for k in (1, 5, 128):
+            fi, fv, fz = fused_screened_topk(Wb, bb, h, ids, k)
+            pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+            torch.testing.assert_close(fv, pv, **TOL)
+            torch.testing.assert_close(fz, pz, **TOL)
+            err["fused_screened_topk_bf16"] = max(
+                err["fused_screened_topk_bf16"], float((fv - pv).abs().max()))
+            ui, uv, _ = unfused_topk(Wb, bb, h, ids, k)
+            check(torch.equal(fi, ui) and torch.equal(fv, uv),
+                  f"fused bf16 != unfused over qwen2-vl-2b's tiles (B={B}, "
+                  f"k={k})")
+    gc_ = torch.Generator().manual_seed(103)
+    ck, cv = (torch.randn((VB, VMAX, 2, 128), generator=gc_).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    uk, uv_ = (torch.randn((VB, 2, 128), generator=gc_).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    for slot in (0, VP + VT, VMAX - 1, VMAX + 3,
+                 torch.tensor([VP + VT, VP + VT + 7, VMAX - 1, 0],
+                              dtype=torch.int32, device="cuda")):
+        gk, gv = cache_kv_update(ck.clone(), uk, cv.clone(), uv_, slot)
+        check(torch.equal(gk, cache_slot_update_plain(ck.clone(), uk,
+                                                      slot)) and
+              torch.equal(gv, cache_slot_update_plain(cv.clone(), uv_, slot)),
+              f"cache_kv_update at qwen2-vl-2b's cache ({VB}, {VMAX}, 2, "
+              f"128) bf16, slot {slot}: not bit for bit")
+    log(f"[parity] qwen2-vl-2b shapes: route bf16 h at d={VD}, B in 1, 4, == "
+        f"plain but near-ties ({near}), a tie across the blocks of the "
+        f"cluster to the first index; bf16 gather and fused at d={VD} over "
+        f"its {n_blk} tiles, B in 1, 4, k in 1, 5, 128 (rtol=atol=1e-5), "
+        f"fused == unfused bit for bit; the cache pair bit for bit at "
+        f"({VB}, {VMAX}, 2, 128) bf16, slots 0, {VP + VT}, {VMAX - 1}, "
+        f"{VMAX + 3} (clamped) and per-row; max abs err {json.dumps(err)}")
+
+    timer = Timer(torch)
+    rows = {}
+    for name, row in l2s_rows(torch, np, timer, Wb, bb, v, cand, VB, 1,
+                              104).items():
+        rows.setdefault(name, {})["at_qwen2vl_width"] = row
+    del Wb, bb
+    slots = torch.tensor([VP + VT] * VB, dtype=torch.int32, device="cuda")
+    rows_idx = torch.arange(VB, device="cuda")
+
+    def library():
+        ck[rows_idx, slots.long()] = uk
+        cv[rows_idx, slots.long()] = uv_
+    t = timer.turns({"library_ms": library,
+                     "ms": lambda: cache_kv_update(ck, uk, cv, uv_, slots),
+                     "plain_ms": lambda: (
+                         cache_slot_update_plain(ck, uk, slots),
+                         cache_slot_update_plain(cv, uv_, slots))})
+    t["bound"] = bound_ms(2 * 2 * 2 * VB * 2 * 128, 0)
+    rows["cache_slot_update"] = {"at_qwen2vl_cache": t}
+    log(f"[timing] torch.bfloat16 cache_kv_update (K and V) at qwen2-vl-2b's "
+        f"({VB}, {VMAX}, 2, 128): {t['ms']:.5f} ms, plain "
+        f"{t['plain_ms']:.5f} ms, library (indexed writes, twice) "
+        f"{t['library_ms']:.5f} ms, bound {t['bound'][0]:.7f} ms "
+        f"({t['bound'][1]})")
+    return err, rows
+
+
+
+def vlm_generate(torch, model, params, batch, head, new, max_len,
+                 dtype=None, feed=None):
+    """Greedy decode of a vlm batch {tokens (B, T), patches (B, P, d)} on
+    the model API (the engine refuses the family): a prefill into a cache
+    of ``max_len`` slots in ``dtype`` (the model's default, bfloat16,
+    when None) and ``new`` - 1 decode steps, token j at pos P + T + j (the
+    reference's convention), each next token from ``head.next``; ``feed``
+    (B, new) decodes those tokens instead (teacher forcing). → (tokens
+    (B, new) numpy, the hidden state before each step (B, new, d))."""
+    P, T = batch["patches"].shape[1], batch["tokens"].shape[1]
+    kw = {} if dtype is None else {"dtype": dtype}
+    dev = batch["tokens"].device
+    with torch.inference_mode():
+        cache = model.init_cache(len(batch["tokens"]), max_len,
+                                 device=dev, **kw)
+        h, cache = model.prefill(params, batch, cache)
+        h1 = h[:, -1]
+        hs, toks = [h1], [head.next(h1)]
+        for j in range(new - 1):
+            tok = toks[-1] if feed is None else torch.as_tensor(
+                feed[:, j], device=dev)
+            h1, cache = model.decode_step(params, tok, cache, P + T + j)
+            hs.append(h1)
+            toks.append(head.next(h1))
+    return torch.stack(toks, 1).cpu().numpy(), torch.stack(hs, 1)
+
+
+def vlm_gap_rule(torch, np, tag, model, params, batch, got, want, max_len,
+                 hx, W, b):
+    """Each row of ``got`` equals ``want``'s, or first differs after a step
+    whose exact top-2 gap (bf16 logits, on ``want``'s path, teacher-forced
+    through the exact head ``hx``) is below GAP_BF16. → [(row, step, gap)]
+    of the rows that differ."""
+    rows = [i for i in range(len(want))
+            if not np.array_equal(got[i], want[i])]
+    if not rows:
+        return []
+    _, H = vlm_generate(torch, model, params, batch, hx, want.shape[1],
+                        max_len, feed=want)
+    out = []
+    for i in rows:
+        t = int(np.nonzero(got[i] != want[i])[0][0])
+        top = (H[i, t][None] @ W.T + b).float().topk(2, dim=-1).values
+        gap = float(top[0, 0] - top[0, 1])
+        check(gap < GAP_BF16, f"{tag}: row {i} differs at step {t} with a "
+              f"top-2 gap {gap:.4g} >= {GAP_BF16}")
+        out.append((i, t, round(gap, 5)))
+    return out
+
+
+def phase_vlm(torch, np):
+    """[vlm] qwen2-vl-2b at full width in its config's bfloat16 (drawn on
+    the card, vision_proj included) through the model API: prefill 4 x
+    (256 patches + 256 tokens) into a bf16 cache of 544 slots, then 32
+    greedy tokens through exact, screened-cuda fused and unfused (random
+    screen, r = 100, K = 16 over 1,187 tiles) and a full cover: fused ==
+    unfused tokens bit for bit, the full cover == exact under the bf16 gap
+    rule; launches from zero (the cache pair 28 a decode step, the route a
+    token on each screened run, the fused kernel a token on the fused
+    runs, the gather kernel a token on the unfused run, only the bf16
+    bodies); profiles of an unfused and a fused run of 4 tokens (device
+    calls == counted launches, idle share); prefill positions/s, the
+    decode step on the host clock and its device time (a profile of 4
+    steps), one step's exact head against screened-cuda's (clean L2) with
+    their bounds, and the step's weight-read bound. → launches of the
+    path."""
+    from repro_torch import heads
+    from repro_torch.kernels import ops
+
+    g = dense_model(torch, np, "qwen2-vl-2b", "[vlm]", full=True)
+    model, params = g["model"], g["params"]
+    cfg = model.cfg
+    check((cfg.d_model, cfg.vocab_size, cfg.num_kv_heads, cfg.head_dim,
+           cfg.num_layers, cfg.num_patch_tokens, cfg.positional) ==
+          (VD, VV, 2, 128, 28, VP, "mrope"),
+          "qwen2-vl-2b: config drifted from the smoke's shapes")
+    n_formula = cfg.param_count() + VD * VD
+    side = int(VP ** 0.5)                    # the patch grid's side, 16
+    rng = g["rng"]
+    gcu = torch.Generator(device="cuda").manual_seed(105)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, VV, (VB, VT)),
+                                       device="cuda"),
+             "patches": torch.randn((VB, VP, VD), generator=gcu,
+                                    device="cuda")}
+    W, b = model.softmax_weights(params)
+    screen = g["screen"].to("cuda")
+    kw = dict(W=W, b=b, device="cuda")
+    hx = heads.get("exact", **kw)
+    hf = heads.get("screened-cuda", screen=screen, **kw)
+    hu = heads.get("screened-cuda", screen=screen, fused=False, **kw)
+    hc = heads.get("screened-cuda", screen=g["full"], **kw)
+    check(hf.prepare()._Wb.dtype == torch.bfloat16 and
+          hf.packed_shape == (VV // V_BLK, V_BLK, VD),
+          f"qwen2-vl-2b: packed head {hf.packed_shape}")
+
+    def run(head, **k):
+        return vlm_generate(torch, model, params, batch, head, VNEW, VMAX,
+                            **k)
+    small = {"tokens": batch["tokens"][:, :16],
+             "patches": batch["patches"][:, :16]}
+    for hd in (hx, hf, hu, hc):                        # warm-up
+        vlm_generate(torch, model, params, small, hd, 2, 40)
+    with torch.inference_mode():
+        cache = model.init_cache(VB, VMAX, device="cuda")
+        _, t_prefill = host_timed(torch, lambda: model.prefill(
+            params, batch, cache))
+        del cache
+
+    ops.reset_launches()
+    (exact, hs_x), t_exact = host_timed(torch, lambda: run(hx))
+    (scr, _), t_scr = host_timed(torch, lambda: run(hf))
+    scr_u, _ = run(hu)
+    f_scr, _ = run(hc)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    n_runs, steps = 4, VNEW - 1
+    for name, r in (("exact", exact), ("screened-cuda", scr),
+                    ("unfused", scr_u), ("full cover", f_scr)):
+        check(r.shape == (VB, VNEW) and r.min() >= 0 and r.max() < VV,
+              f"[vlm] qwen2-vl-2b {name}: tokens out of range")
+    check(bool(torch.isfinite(hs_x.float()).all()),
+          "[vlm] qwen2-vl-2b: non-finite hidden states")
+    check(np.array_equal(scr, scr_u),
+          "[vlm] qwen2-vl-2b: screened-cuda fused and unfused tokens differ")
+    want = {"cache_slot_update": cfg.num_layers * steps * n_runs,
+            "cluster_route_bf16": 3 * VNEW, "fused_screened_topk_bf16":
+            2 * VNEW, "screened_logits_bf16": VNEW}
+    check(all(launches[k] == n for k, n in want.items()) and
+          not any(launches[k] for k in L2S_KERNELS + ("ssd_intra",
+                                                      "ssd_intra_bwd")),
+          f"[vlm] qwen2-vl-2b: launches {launches}, expected {want} (the "
+          f"bf16 L2S bodies only)")
+    near_full = vlm_gap_rule(torch, np, "[vlm] qwen2-vl-2b full cover",
+                             model, params, batch, f_scr, exact, VMAX, hx, W,
+                             b)
+
+    def short(head):
+        return vlm_generate(torch, model, params, batch, head, VPROF, VMAX)
+    profile_counted(torch, f"[vlm] qwen2-vl-2b greedy {VPROF} tokens "
+                    f"screened-cuda unfused", lambda: short(hu))
+    _, t_short = host_timed(torch, lambda: short(hf))
+    kern = profile_counted(torch, f"[vlm] qwen2-vl-2b greedy {VPROF} tokens "
+                           f"screened-cuda", lambda: short(hf))
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    # decode steps alone, from a primed cache (each run writes the same
+    # slots)
+    P_T = VP + VT
+    with torch.inference_mode():
+        cache = model.init_cache(VB, VMAX, device="cuda")
+        h, cache = model.prefill(params, batch, cache)
+        tok0 = hf.next(h[:, -1])
+
+        def steps(times=None):
+            tok = tok0
+            for j in range(VPROF):
+                t0 = time.perf_counter()
+                h1, _ = model.decode_step(params, tok, cache, P_T + j)
+                tok = hf.next(h1)
+                if times is not None:
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+        steps()
+        times = []
+        for _ in range(2):
+            steps(times)
+        _, t_steps = host_timed(torch, steps)
+        s_busy, s_idle, s_ours, _ = device_profile(
+            torch, f"[vlm] qwen2-vl-2b {VPROF} decode steps", steps, t_steps)
+    step_ms = statistics.median(times)
+    timer = Timer(torch)
+    hq = torch.randn((VB, VD), generator=torch.Generator().manual_seed(106))
+    heads_t, tiles = head_rows(torch, timer, hx, hf, W, screen,
+                               hq.cuda().to(torch.bfloat16))
+    stack_b, head_b = step_weight_bytes(params)
+    scr_b = 4 * g["screen"].v.numel() + tiles * V_BLK * (VD + 1) * 2
+    tok = VB * VNEW
+    log(f"[vlm] qwen2-vl-2b: {g['n_params']} parameters in its tensors "
+        f"(param_count {cfg.param_count()} + vision_proj {VD * VD} = "
+        f"{n_formula}, + qkv biases, final norm and lm_bias), "
+        f"{g['nbytes'] / 1e9:.3f} GB bf16; packed head {hf.packed_shape} bf16 "
+        f"{hf.packed_nbytes / 1e6:.1f} MB")
+    log(f"[vlm] qwen2-vl-2b through Model.prefill / decode_step (bf16 cache "
+        f"of {VMAX} slots): greedy {VB}x({VP} patches + {VT} tokens)+{VNEW}, "
+        f"decode at pos {P_T} + j (the prompt's M-RoPE text positions "
+        f"{side}..{side + VT - 1} on its {side} x {side} patch grid): exact "
+        f"{t_exact:.3f} s "
+        f"({tok / t_exact:.1f} tok/s), screened-cuda {t_scr:.3f} s "
+        f"({tok / t_scr:.1f} tok/s), eager steps; fused == unfused tokens; "
+        f"full cover (K={g['full'].c_max}) screened-cuda == exact except rows "
+        f"first differing after a step with a gap < {GAP_BF16}: {near_full}")
+    log(f"[vlm] qwen2-vl-2b profile, greedy {VB}x({VP}+{VT})+{VPROF} "
+        f"screened-cuda: device busy {busy_ms:.3f} ms of {t_short * 1e3:.3f} "
+        f"ms unprofiled wall (idle share {1 - busy_ms / (t_short * 1e3):.3f}); "
+        f"{fused_share(kern, busy_ms, 'fused_screened_topk_bf16')}")
+    log(f"[vlm] qwen2-vl-2b decode step (B={VB}, screened-cuda, eager): host "
+        f"clock median {step_ms:.3f} ms of {len(times)}; {VPROF} steps "
+        f"profiled: device busy {s_busy / VPROF:.4f} ms a step, idle share "
+        f"{s_idle:.3f} against their {t_steps * 1e3 / VPROF:.3f} ms wall a "
+        f"step; the port's kernels "
+        + json.dumps({k: [round(ms / VPROF, 5), n // VPROF]
+                      for k, (ms, n) in s_ours.items()})
+        + f" (ms and calls a step); prefill {VB}x{P_T} {t_prefill:.3f} s "
+        f"({VB * P_T / t_prefill:.0f} positions/s, host clock)")
+    log(f"[vlm] qwen2-vl-2b one step's head, device time (clean L2, CUDA "
+        f"events, B={VB}): exact {heads_t['exact'][0]:.5f} ms (bound "
+        f"{heads_t['exact'][1][0]:.5f} ms, {heads_t['exact'][1][1]}), "
+        f"screened-cuda {heads_t['screened-cuda'][0]:.5f} ms (bound "
+        f"{heads_t['screened-cuda'][1][0]:.5f} ms, "
+        f"{heads_t['screened-cuda'][1][1]}; {tiles} distinct tiles), ratio "
+        f"{heads_t['exact'][0] / heads_t['screened-cuda'][0]:.1f}")
+    log(f"[vlm] qwen2-vl-2b weight-read bound of a decode step at 3.35 TB/s: "
+        f"layers {stack_b / 1e9:.4f} GB + exact head {head_b / 1e9:.4f} GB = "
+        f"{(stack_b + head_b) / HBM_BYTES_PER_S * 1e3:.4f} ms; with "
+        f"screened-cuda's {scr_b / 1e6:.2f} MB of head instead "
+        f"{(stack_b + scr_b) / HBM_BYTES_PER_S * 1e3:.4f} ms; the exact head "
+        f"is {head_b / (stack_b + head_b):.1%} of the exact step's bytes")
+    log(f"[vlm] qwen2-vl-2b launches on the path ({n_runs} greedy runs, "
+        f"counted from zero): {json.dumps(launches)}")
+    return launches
+
+
+def phase_vlm_cpu(torch, np):
+    """[vlm] card vs CPU: qwen2-vl-2b at full widths cut to 2 layers, in
+    float32 (weights from a CPU generator, the same on both sides): a
+    prefill of 2 x (256 patches + 64 tokens) and 8 decode steps through the
+    exact head, the card fed the CPU's tokens: every hidden state within
+    1e-4 of max |h|, and the card's greedy token at each step equal to the
+    CPU's unless the CPU's top-2 gap there is below 1e-4."""
+    from dataclasses import replace
+
+    from repro_torch import heads
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    cfg = replace(get_config("qwen2-vl-2b"), num_layers=2, dtype="float32")
+    model = Model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(107), device="cpu")
+    p_gpu = to_device(p_cpu, "cuda")
+    rng = np.random.default_rng(107)
+    b_cpu = {"tokens": torch.as_tensor(rng.integers(0, VV, (VCPU_B, VCPU_T))),
+             "patches": torch.as_tensor(rng.standard_normal(
+                 (VCPU_B, VP, VD)).astype(np.float32))}
+    b_gpu = {k: x.cuda() for k, x in b_cpu.items()}
+    max_len = VP + VCPU_T + VCPU_NEW
+    side = {}
+    for where, p, bt in (("cpu", p_cpu, b_cpu), ("cuda", p_gpu, b_gpu)):
+        W, b = model.softmax_weights(p)
+        hd = heads.get("exact", W=W, b=b, device=where)
+        feed = None if where == "cpu" else side["cpu"][0]
+        side[where] = vlm_generate(torch, model, p, bt, hd, VCPU_NEW,
+                                   max_len, dtype=torch.float32, feed=feed)
+    toks, h_cpu = side["cpu"]
+    got, h_gpu = side["cuda"]
+    rel = float((h_gpu.cpu() - h_cpu).abs().max() / h_cpu.abs().max())
+    check(rel <= 1e-4, f"[vlm] card vs CPU: hidden states rel {rel:.3g} > "
+          f"1e-4")
+    W, b = model.softmax_weights(p_cpu)
+    top = (h_cpu @ W.T + b).topk(2, dim=-1).values
+    gaps = (top[..., 0] - top[..., 1]).numpy()
+    diff = got != toks
+    check(bool((gaps[diff] < GAP).all()), f"[vlm] card vs CPU: greedy "
+          f"tokens differ at steps whose gap is >= {GAP}: {gaps[diff]}")
+    log(f"[vlm] card vs CPU, qwen2-vl-2b full widths cut to 2 layers, "
+        f"float32: prefill {VCPU_B}x({VP} patches + {VCPU_T} tokens) + "
+        f"{VCPU_NEW - 1} decode steps at pos {VP + VCPU_T} + j, the card fed "
+        f"the CPU's tokens: max |h_card - h_cpu| / max |h_cpu| {rel:.3g} "
+        f"(<= 1e-4); greedy tokens equal at {int((~diff).sum())} of "
+        f"{diff.size} steps, the rest near ties (gap < {GAP}): "
+        f"{int(diff.sum())}")
+    del p_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_audio(torch, np):
+    """[audio] hubert-xlarge at full width, bf16 weights drawn on the card
+    with float32 frames (the reference's promotion: float32 activations):
+    the forward over 4 x 1,024 frames (float32 h, finite; frames/s on the
+    host clock and peak device memory, no port kernel launched); 2 layers,
+    card against CPU within 1e-4 of max |h|; one input of 2,048 frames
+    (the non-causal chunked attention path) against the unchunked path on
+    the card within 1e-5 relative. → launches of the path."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.layers import attention
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    from repro_torch.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("hubert-xlarge")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(108),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(all(t.dtype == torch.bfloat16 for t in leaves),
+          "hubert-xlarge: weights not in its config's bfloat16")
+    gcu = torch.Generator(device="cuda").manual_seed(109)
+    frames = torch.randn((HB, HT, HD), generator=gcu, device="cuda")
+    with torch.inference_mode():
+        model.forward(params, {"frames": frames[:, :64]})      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        (h, _), t_fwd = host_timed(torch, lambda: model.forward(
+            params, {"frames": frames}))
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(h.dtype == torch.float32 and h.shape == (HB, HT, HD) and
+              bool(torch.isfinite(h).all()),
+              f"[audio] hubert-xlarge: h {h.dtype} {tuple(h.shape)}")
+        check(not any(launches.values()),
+              f"[audio] hubert-xlarge launched port kernels {launches}")
+        del h
+        long = torch.randn((1, HLONG, HD), generator=gcu, device="cuda")
+        h_chunked, _ = model.forward(params, {"frames": long})
+        thr = attention.CHUNKED_ATTN_THRESHOLD
+        attention.CHUNKED_ATTN_THRESHOLD = 1 << 30
+        try:
+            h_full, _ = model.forward(params, {"frames": long})
+        finally:
+            attention.CHUNKED_ATTN_THRESHOLD = thr
+        rel_long = float((h_chunked - h_full).abs().max() /
+                         h_full.abs().max())
+        del h_chunked, h_full
+    check(rel_long <= 1e-5, f"[audio] 2,048 frames: chunked vs unchunked "
+          f"rel {rel_long:.3g} > 1e-5")
+    log(f"[audio] hubert-xlarge: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads (MHA, hd {cfg.head_dim}), gelu d_ff="
+        f"{cfg.d_ff}, layernorm, {cfg.vocab_size} units, untied, sinusoidal "
+        f"positions, bidirectional: {n_params} parameters drawn on the card "
+        f"in {t_init:.1f} s, bfloat16, {nbytes / 1e9:.3f} GB (param_count "
+        f"{cfg.param_count()} + frame_proj {HD * HD} + biases)")
+    log(f"[audio] hubert-xlarge forward {HB}x{HT} float32 frames against bf16 "
+        f"weights: h float32, {t_fwd:.3f} s ({HB * HT / t_fwd:.0f} frames/s, "
+        f"host clock, one call ending in a sync); peak device memory "
+        f"{peak:.2f} GiB; no port kernel launched; one input of {HLONG} "
+        f"frames (chunked, non-causal) vs the unchunked path: max rel "
+        f"{rel_long:.3g} (<= 1e-5)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = replace(cfg, num_layers=2)
+    m2 = Model(cfg2)
+    p_cpu = m2.init(torch.Generator().manual_seed(110), device="cpu")
+    fr = torch.as_tensor(np.random.default_rng(110).standard_normal(
+        (2, 256, HD)).astype(np.float32))
+    with torch.inference_mode():
+        h_cpu, _ = m2.forward(p_cpu, {"frames": fr})
+        h_gpu, _ = m2.forward(to_device(p_cpu, "cuda"),
+                              {"frames": fr.cuda()})
+    rel = float((h_gpu.cpu() - h_cpu).abs().max() / h_cpu.abs().max())
+    check(h_gpu.dtype == torch.float32 and rel <= 1e-4,
+          f"[audio] card vs CPU: rel {rel:.3g} > 1e-4 ({h_gpu.dtype})")
+    log(f"[audio] card vs CPU, hubert-xlarge full width cut to 2 layers, "
+        f"bf16 weights, 2 x 256 float32 frames: max |h_card - h_cpu| / max "
+        f"|h_cpu| {rel:.3g} (<= 1e-4)")
+    return {"hubert-xlarge": launches}
+
+
+def train_launcher(torch, tag, arch, corpus_s):
+    """``python -m repro_torch.launch.train --arch ARCH --steps 2 --batch 4
+    --seq 512`` at full width in float32 on the card: exit 0, two steps,
+    the corpus built in <= ``corpus_s`` s, peak device memory under 80 GiB.
+    → (launches, seconds, corpus build seconds, peak GiB)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", arch, "--device", "cuda", "--steps", "2", "--batch",
+            "4", "--seq", "512", "--log-every", "1"]
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(argv)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(ops.LAUNCHES)
+    text = out.getvalue()
+    corpus = [ln for ln in text.splitlines() if "[train] corpus" in ln]
+    check(rc == 0 and text.count("[train] step") == 2 and corpus and
+          peak < 80.0, f"{tag} launch.train {arch}: exit {rc}, peak "
+          f"{peak:.2f} GiB:\n{text}")
+    build_s = float(corpus[0].split(" built in ")[1].split(" s")[0])
+    check(build_s <= corpus_s, f"{tag} the corpus took {build_s:.1f} s")
+    for ln in text.splitlines():
+        log(ln)
+    log(f"{tag} python -m repro_torch.launch.train {' '.join(argv)}: exit 0 "
+        f"in {secs:.1f} s (full width, float32, remat none); corpus build "
+        f"{build_s:.1f} s on the host; peak device memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_vlm(torch, np):
+    """[train-vlm] the launcher on full-width qwen2-vl-2b in float32 (4 x
+    (256 patches + 512 tokens), the loss over the 512 text positions; the
+    151,936-word corpus built on the host), then 2 layers, card against
+    CPU gradients at 1 x (256 patches + 128 tokens). → {path: launches}."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    launches = train_launcher(torch, "[train-vlm]", "qwen2-vl-2b", 60.0)
+    text = card_vs_cpu_grads(torch, np, "[train-vlm] qwen2-vl-2b 2 layers",
+                             replace(get_config("qwen2-vl-2b"), num_layers=2),
+                             128, 111)
+    log(f"[train-vlm] qwen2-vl-2b full widths, 2 layers, 1 x (256 patches + "
+        f"128 tokens): {text}; phase wall {time.perf_counter() - t_phase:.1f} "
+        f"s")
+    return {"qwen2-vl-2b train": launches}
+
+
+def phase_train_audio(torch, np):
+    """[train-audio] the launcher on full-width hubert-xlarge in float32 (4
+    x 512 float32 frames, masked-prediction labels over 504 units), then 2
+    layers, card against CPU gradients at 1 x 256 frames.
+    → {path: launches}."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    launches = train_launcher(torch, "[train-audio]", "hubert-xlarge", 60.0)
+    text = card_vs_cpu_grads(torch, np,
+                             "[train-audio] hubert-xlarge 2 layers",
+                             replace(get_config("hubert-xlarge"),
+                                     num_layers=2), 256, 112)
+    log(f"[train-audio] hubert-xlarge full width, 2 layers, 1 x 256 frames: "
+        f"{text}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"hubert-xlarge train": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5524,6 +6153,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     walled("moe ring f32", phase_moe_ring_f32, torch, np)
     moe.update(walled("moe phi", phase_moe_phi, torch, np))
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_err, vlm_rows = walled("vlm kernels", phase_vlm_kernels, torch, np)
+    for name, e in vlm_err.items():
+        err[name] = max(err[name], e)
+    for name, shapes in vlm_rows.items():
+        dense_rows.setdefault(name, {}).update(shapes)
+    vlm = walled("vlm", phase_vlm, torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    walled("vlm cpu", phase_vlm_cpu, torch, np)
+    audio = walled("audio", phase_audio, torch, np)
     # training last, so the serving phases' profiles, held to the wrappers'
     # counts, run in the process state they were written for: with these
     # two phases ahead of them, the profiler left the zamba2 adaptive
@@ -5535,6 +6176,8 @@ def main() -> int:
     walled("serve-cli zamba2", cli_zamba2, torch)
     train_attn = walled("train-dense", phase_train_dense, torch, np)
     train_attn.update(walled("train-moe", phase_train_moe, torch, np))
+    train_attn.update(walled("train-vlm", phase_train_vlm, torch, np))
+    train_attn.update(walled("train-audio", phase_train_audio, torch, np))
     # each kernel's launches on the path it was ported for, and on each path
     launches = {k: (hybrid if k in BF16_KERNELS or k in ssm_err else
                     lstm)[k] for k in lstm}
@@ -5554,7 +6197,8 @@ def main() -> int:
              "zamba2-2.7b spec": spec_hybrid,
              "gemma-2b bf16": gemma, "gemma-2b paged": gemma_paged,
              "gemma-2b spec": gemma_spec, "starcoder2-3b bf16": starcoder,
-             "qwen1.5-110b bf16": qwen, **moe, **train_ssm, **train_attn}
+             "qwen1.5-110b bf16": qwen, **moe, "qwen2-vl-2b bf16": vlm,
+             **audio, **train_ssm, **train_attn}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),

@@ -1,13 +1,14 @@
-"""Model configuration: the reference ``ModelConfig`` fields that the ported
-families (``lstm``, ``dense``, ``moe``, ``ssm``, ``hybrid``) read,
-``MoEConfig``, ``SSMConfig``, and the training side's ``L2SConfig``
-(Algorithm 1) and ``TrainConfig`` (the LM trainer), field for field with the
-reference's defaults, and the reference's analytic ``param_count`` /
+"""Model configuration: the reference ``ModelConfig`` with every field that
+its families (``lstm``, ``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm``,
+``audio``) read, ``MoEConfig``, ``SSMConfig``, and the training side's
+``L2SConfig`` (Algorithm 1) and ``TrainConfig`` (the LM trainer), field for
+field with the reference's defaults, the derived ``q_per_kv`` and
+``supports_decode``, and the reference's analytic ``param_count`` /
 ``active_param_count``.
 
-The vision and audio fields come with their families (ROADMAP.md, Queue 1).
 ``reduced()`` gives the same small CPU variant as the reference, field for
-field (``tests/test_torch_ssm.py`` asserts it).
+field (``tests/test_torch_ssm.py`` and ``tests/test_torch_vlm.py`` assert
+it).
 """
 from __future__ import annotations
 
@@ -65,8 +66,10 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): one shared attention block applied every k mamba layers
     hybrid_shared_period: int = 6
-    # encoder-only (no causal mask, no decode); False for every ported config
+    # encoder-only (audio): no causal mask, no decode
     is_encoder: bool = False
+    # vlm: number of vision patch embeddings prepended to the text
+    num_patch_tokens: int = 0
     source: str = ""
     dtype: str = "bfloat16"
 
@@ -79,6 +82,14 @@ class ModelConfig:
         if self.num_heads and self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"{self.name}: heads {self.num_heads} not "
                              f"divisible by kv {self.num_kv_heads}")
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def supports_decode(self) -> bool:
+        return not self.is_encoder
 
     def param_count(self) -> int:
         """Analytic parameter count, the reference's formula (norm scales
@@ -136,6 +147,8 @@ class ModelConfig:
             vocab_size=min(self.vocab_size, 512),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else None),
+            num_patch_tokens=(min(self.num_patch_tokens, 8)
+                              if self.num_patch_tokens else 0),
             dtype="float32",
         )
         if self.moe is not None:

@@ -204,11 +204,18 @@ __device__ __forceinline__ void l2s_stage(const __nv_bfloat16* __restrict__ src,
   }
 }
 
-// Raise a kernel's dynamic shared-memory limit when it needs more than the
-// default 48 KB.
+// The most static shared memory any kernel of these libraries declares
+// (route.cu's merge buffers: 576 bytes at 8 rows of h a block).
+#define L2S_STATIC_SMEM_MAX 1024
+
+// Raise a kernel's dynamic shared-memory limit to ``bytes`` when its static
+// and dynamic shared memory together may pass the default 48 KB: the default
+// bounds their sum, so 48 KB of dynamic memory beside any static memory
+// needs the opt-in too (the route kernel at d = 1536 stages 8 rows of h in
+// exactly 48 KB beside 576 static bytes, and its launch was refused).
 template <typename Kernel>
 static cudaError_t l2s_allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + L2S_STATIC_SMEM_MAX <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }

@@ -269,8 +269,7 @@ static int route_launch(const RouteKernels& kernels, const HT* h, const float* v
   const void* kernel = kernels[(d & 3) != 0][lbt];
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = l2s_allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   int csize = (r + ROUTE_WARPS - 1) / ROUTE_WARPS;
   if (csize > ROUTE_MAX_CLUSTER) csize = ROUTE_MAX_CLUSTER;

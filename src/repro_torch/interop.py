@@ -3,11 +3,12 @@ numpy only, in both directions.
 
 The reference (``src/repro``) keeps params as a pytree of nested dicts and
 lists — LSTM ``{"embed": {embedding, lm_head, lm_bias}, "lstm": {"layers":
-[{wx, wh, b}]}}``, dense/moe/SSM/hybrid ``{"embed", "stack": {"blocks"
+[{wx, wh, b}]}}``, the others ``{"embed", "stack": {"blocks"
 (stacked on a
 leading L axis; a moe layer's ``moe`` leaves ``w_router`` (L, d, E),
 ``w_gate`` / ``w_up`` (L, E, d, ff), ``w_down`` (L, E, ff, d)),
-"final_norm", "shared"}}`` — and a screen as
+"final_norm", "shared"}}``, plus the vlm's ``vision_proj`` or the audio
+encoder's ``frame_proj`` (d, d) beside them — and a screen as
 ``ScreenParams(v, cand_idx, cand_len, vocab_size, block)``. The caller
 converts those arrays to numpy (``np.asarray``) on its side, so this package
 never imports JAX; the other way, ``params_to_numpy`` and ``screen_to_numpy``

@@ -12,7 +12,10 @@ serves every ported family: the LSTMs, the dense transformers
 moe transformers (``mixtral-8x7b``, ``phi3.5-moe-42b-a6.6b``),
 ``mamba2-1.3b`` and ``zamba2-2.7b``, each trained first in float32
 (``--arch zamba2-2.7b`` draws 2.31 B parameters from a CPU generator, tens
-of seconds, as the reference's launcher builds float32 weights).
+of seconds, as the reference's launcher builds float32 weights). The vlm
+(``qwen2-vl-2b``) and audio (``hubert-xlarge``) families exit 2 before
+any work: the engine serves token prompts (the reference's launcher fails
+on them too, in its training step or on an assertion).
 
 ``--scheduler`` serves the same traffic through the continuous-batching
 ``ContinuousScheduler`` instead: mixed latency tiers, a ``BudgetAdmission``
@@ -93,6 +96,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family in ("vlm", "audio"):
+        # refused before any training: the engine decodes token prompts
+        print(f"[serve] {cfg.name}: the {cfg.family} family is not served "
+              f"by DecodeEngine (the vlm's prefill takes patches, an "
+              f"encoder has no decode); use Model.prefill / decode_step")
+        return 2
     dev = resolve_device(args.device)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(args.seed), device=dev,

@@ -1,6 +1,6 @@
 """The LM train step. Twin of ``repro/launch/steps.py::make_train_step``,
-for every ported family (lstm, dense, moe, ssm, hybrid; a moe model's loss
-carries its load-balance aux, ``models/lm.py::train_loss``).
+for every family (lstm, dense, moe, ssm, hybrid, vlm, audio; a moe model's
+loss carries its load-balance aux, ``models/lm.py::train_loss``).
 
 Forward and backward run through ``torch.autograd`` over the port's torch
 layers (float32 products stay IEEE float32: ``resolve_device`` turns TF32
@@ -36,8 +36,11 @@ def loss_and_grads(model: Model, tcfg: TrainConfig, params,
             loss = train_loss(model, tree_unflatten(params, live), mb,
                               loss_chunk=tcfg.loss_chunk,
                               remat=(tcfg.remat == "block"))
-            grads = torch.autograd.grad(loss, live)
-        return loss.detach(), list(grads)
+            # a leaf the loss does not read (the audio encoder's token
+            # embedding) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(live, grads)]
 
     m = tcfg.microbatch
     if m is None or m <= 1:

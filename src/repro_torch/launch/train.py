@@ -3,7 +3,12 @@ ptb-small-lstm ...``. Twin of ``repro/launch/train.py`` for every ported
 family: the LSTMs, the dense transformers (``smollm-360m``, ``gemma-2b``,
 ``starcoder2-3b``, ``qwen1.5-110b``), the moe transformers
 (``mixtral-8x7b``, ``phi3.5-moe-42b-a6.6b``; the loss carries their
-load-balance aux), ``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid).
+load-balance aux), ``mamba2-1.3b`` (ssm), ``zamba2-2.7b`` (hybrid),
+``qwen2-vl-2b`` (vlm: each batch adds ``patches`` (B, P, d), the loss over
+the text) and ``hubert-xlarge`` (audio: ``frames`` (B, seq, d) float32 and
+the corpus's labels mod the 504 units). Patches and frames are drawn from
+``np.random.default_rng(seed + i)`` for the i-th batch of the run, as the
+reference's launcher draws them.
 
 Trains on the synthetic Zipf–Markov corpus on ``--device`` (the card by
 default; ``--device cpu`` with ``--reduced`` is the CPU smoke), printing the
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
@@ -73,9 +79,10 @@ def main(argv=None):
                               seed=args.seed)
     print(f"[train] corpus of {cfg.vocab_size} words built in "
           f"{time.time() - t0:.1f} s")
-    batches = BatchLoader(make_lm_batches(corpus, args.steps - start,
-                                          args.batch, args.seq,
-                                          seed=args.seed + start), dev)
+    batches = BatchLoader(family_batches(
+        cfg, make_lm_batches(corpus, args.steps - start, args.batch,
+                             args.seq, seed=args.seed + start), args.seed),
+        dev)
     t0 = time.time()
     for i, batch in enumerate(batches):
         params, opt_state, metrics = step_fn(params, opt_state, batch)
@@ -91,6 +98,26 @@ def main(argv=None):
                         {"step": args.steps, "arch": cfg.name})
         print(f"[train] saved checkpoint at step {args.steps}")
     return 0
+
+
+def family_batches(cfg, batches, seed: int):
+    """The LM batches as the family trains on them (numpy, the reference's
+    launcher's arrays): audio takes float32 frames (B, seq, d) and the
+    labels mod its vocabulary, vlm adds patches (B, P, d) float32, each
+    drawn from ``default_rng(seed + i)`` for the run's i-th batch."""
+    for i, batch in enumerate(batches):
+        if cfg.family in ("audio", "vlm"):
+            rng = np.random.default_rng(seed + i)
+            B, T = batch["tokens"].shape
+            if cfg.family == "audio":
+                batch = {"frames": rng.standard_normal(
+                            (B, T, cfg.d_model)).astype(np.float32),
+                         "labels": batch["labels"] % cfg.vocab_size}
+            else:
+                batch = dict(batch, patches=rng.standard_normal(
+                    (B, cfg.num_patch_tokens, cfg.d_model)).astype(
+                        np.float32))
+        yield batch
 
 
 if __name__ == "__main__":

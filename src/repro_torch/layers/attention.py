@@ -1,5 +1,5 @@
-"""Attention: MHA / GQA / MQA with RoPE, causal or bidirectional masks, and
-one-token KV-cache decode. Twin of ``repro/layers/attention.py``.
+"""Attention: MHA / GQA / MQA with RoPE or M-RoPE, causal or bidirectional
+masks, and one-token KV-cache decode. Twin of ``repro/layers/attention.py``.
 
 Conventions:
   x                (B, T, d_model)
@@ -19,8 +19,11 @@ token into a page pool with a plain indexed write, as the reference does
 with an XLA scatter (no Pallas kernel).
 
 A sliding-window config decodes through a ring-buffer cache of ``window``
-slots (``init_cache(window=w)``): position p lives in slot p % w. Not
-ported yet (raises NotImplementedError, ROADMAP.md Queue 1): M-RoPE.
+slots (``init_cache(window=w)``): position p lives in slot p % w.
+
+A product of two dtypes (float32 activations against bfloat16 weights, as
+hubert-xlarge's float32 frames give in its bf16 config) is taken in the
+wider dtype, the weights widened exactly, as JAX's einsum promotes them.
 """
 from __future__ import annotations
 
@@ -33,17 +36,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.cache_update import cache_kv_update
 from repro_torch.layers.initializers import dense_init
-from repro_torch.layers.rope import apply_rope
+from repro_torch.layers.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 # Above this many query positions, full-sequence attention switches to the
 # chunked path, so the (T, S) score matrix never exists whole.
 CHUNKED_ATTN_THRESHOLD = 2048
 Q_CHUNK = 512
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -63,14 +62,25 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     return p
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the wider of their dtypes (JAX's einsum promotion: float32
+    activations against bfloat16 weights give float32)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def _proj(x, w):
     """x (B, T, d) · w (d, n, hd) → (B, T, n, hd), one matmul."""
     d, n, hd = w.shape
-    return (x @ w.reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
+    return matmul(x, w.reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
-    """positions: (B, T) int for rope | None."""
+    """positions: (B, T) int for rope | (B, T, 3) for mrope | unused for
+    ``learned`` (hubert-xlarge: its sinusoids are added to the input, no
+    rotation here, as in the reference)."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -82,7 +92,8 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     elif cfg.positional == "mrope":
-        raise _not_ported("M-RoPE")
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -190,7 +201,7 @@ def attn_forward_kv(params, x, cfg: ModelConfig, positions,
 def _proj_out(out, wo):
     """out (B, T, H, hd) · wo (H, hd, d) → (B, T, d)."""
     H, hd, d = wo.shape
-    return out.reshape(*out.shape[:2], H * hd) @ wo.reshape(H * hd, d)
+    return matmul(out.reshape(*out.shape[:2], H * hd), wo.reshape(H * hd, d))
 
 
 # -- KV-cache decode ---------------------------------------------------------
@@ -211,7 +222,11 @@ def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
                 window: Optional[int] = None):
     """One-token decode. x1: (B, 1, d); pos: the token's absolute position
     — a Python int, a 0-dim int32 tensor on x1's device (one position for
-    every row), or a (B,) int32 tensor of per-row positions.
+    every row), or a (B,) int32 tensor of per-row positions. An M-RoPE
+    config (qwen2-vl-2b) rotates by ``pos`` in all three components, as the
+    reference does: its prompt's text positions count from max(gh, gw), its
+    cache slots from 0, and the caller decodes at pos == slot, so the
+    position jumps after the prompt (16 + T - 1 to P + T at P = 256).
 
     Writes this token's K/V at slot ``pos`` of every row through
     ``cache_kv_update`` — IN PLACE: ``cache`` itself is updated, where the
@@ -245,7 +260,12 @@ def attn_decode(params, x1, cache, pos, cfg: ModelConfig,
     else:
         slot = int(pos) % S if ring else int(pos)
         pvec = torch.full((B,), int(pos), dtype=torch.int32, device=x1.device)
-    q, k, v = _project_qkv(params, x1, cfg, pvec[:, None])
+    if cfg.positional == "mrope":
+        # a decoded token's three components are equal (its text position)
+        q, k, v = _project_qkv(params, x1, cfg, pvec[:, None, None].expand(
+            B, 1, 3))
+    else:
+        q, k, v = _project_qkv(params, x1, cfg, pvec[:, None])
     dtype = cache["k"].dtype
     ck, cv = cache_kv_update(cache["k"], k[:, 0].to(dtype).contiguous(),
                              cache["v"], v[:, 0].to(dtype).contiguous(), slot)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.layers.attention import matmul
 from repro_torch.layers.initializers import dense_init
 
 
@@ -30,5 +31,6 @@ def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def lm_logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full (unscreened) softmax logits: x = W·h + b. h: (..., d)."""
-    return h @ head_matrix(params, cfg).T + params["lm_bias"]
+    """Full (unscreened) softmax logits: x = W·h + b. h: (..., d); float32
+    h against bf16 weights (hubert-xlarge's bf16 config) gives float32."""
+    return matmul(h, head_matrix(params, cfg).T) + params["lm_bias"]

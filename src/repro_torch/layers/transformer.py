@@ -1,8 +1,10 @@
-"""Layer stacks of the ``dense``, ``moe``, ``ssm`` (mamba2) and ``hybrid``
-(zamba2) families. Twin of ``repro/layers/transformer.py``'s branches for
-them.
+"""Layer stacks of the ``dense``, ``moe``, ``vlm``, ``audio``, ``ssm``
+(mamba2) and ``hybrid`` (zamba2) families. Twin of
+``repro/layers/transformer.py``.
 
-  * dense: pre-norm attention + pre-norm MLP
+  * dense: pre-norm attention + pre-norm MLP; the vlm (qwen2-vl-2b, M-RoPE
+    over the caller's (B, T, 3) positions) and audio (hubert-xlarge,
+    bidirectional: ``causal=not cfg.is_encoder``) stacks are this stack
   * moe: pre-norm attention + pre-norm MoE (``layers/moe.py``); a full
     sequence returns the aux loss summed over the layers
   * ssm (mamba2): pre-norm SSD block only
@@ -12,7 +14,7 @@ them.
 Per-layer params keep the reference's stacked layout, a leading L axis on
 every leaf of ``params["blocks"]``; Python loops over the layers replace
 ``lax.scan``. The decode caches are stacked the same way —
-``{"attn": {k, v (L, B, S, KV, hd)}}`` for the dense and moe stacks (S =
+``{"attn": {k, v (L, B, S, KV, hd)}}`` for the dense, moe and vlm stacks (S =
 the window for a sliding-window config: a ring buffer),
 ``{"ssm": {conv_tail (L, B, W-1, C), state (L, B, H, P, N)},
 "shared_attn": {k, v (L / period, B, S, KV, hd)}}`` for the others — and
@@ -29,7 +31,9 @@ including a shared-block application), as the reference's
 ``jax.checkpoint`` around its scan bodies does; the stacks draw no random
 numbers, so no RNG state is stashed for the recompute.
 
-The vlm / audio stacks are not ported yet (ROADMAP.md, Queue 1).
+``stack_forward`` and ``stack_prefill`` take the caller's ``positions``, as
+the reference's do: (B, T) for RoPE (``arange(T)`` when None), (B, T, 3)
+for M-RoPE (``rope.py::mrope_positions``).
 """
 from __future__ import annotations
 
@@ -49,17 +53,15 @@ from repro_torch.layers.ssm import (ssm_decode_step, ssm_forward, ssm_init,
                                     ssm_init_cache)
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-ATTN_FAMILIES = ("dense", "moe")
+ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 SSM_FAMILIES = ("ssm", "hybrid")
 STACK_FAMILIES = ATTN_FAMILIES + SSM_FAMILIES
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in STACK_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} stack is not ported yet (repro_torch "
-            f"ports the lstm, dense, moe, ssm and hybrid families; ROADMAP.md, "
-            f"Queue 1)")
+        raise ValueError(f"{cfg.name}: no layer stack for the {cfg.family} "
+                         f"family")
 
 
 def _period(cfg: ModelConfig) -> int:
@@ -137,7 +139,10 @@ def stack_init(generator: torch.Generator, cfg: ModelConfig,
 
 # -- full sequence --------------------------------------------------------------
 
-def _positions(x: torch.Tensor) -> torch.Tensor:
+def _positions(x: torch.Tensor, positions=None) -> torch.Tensor:
+    """The caller's positions, or (B, T) ``arange(T)``."""
+    if positions is not None:
+        return positions
     B, T = x.shape[:2]
     return torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
 
@@ -187,12 +192,13 @@ def _check_ring_prompt(cfg: ModelConfig, T: int, cache) -> None:
                          f"the {S}-slot ring-buffer cache of its window")
 
 
-def _dense_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
+def _dense_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False,
+                     positions=None):
     """Prefill (``cache`` given: filled in place) or plain forward of the
-    dense or moe stack, with ``remat`` each layer checkpointed → (h, the
-    aux loss summed over the layers: a float32 tensor for moe, else
-    0.0)."""
-    positions = _positions(x)
+    dense, moe, vlm or audio stack, with ``remat`` each layer checkpointed
+    → (h, the aux loss summed over the layers: a float32 tensor for moe,
+    else 0.0)."""
+    positions = _positions(x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if cfg.family == "moe" else 0.0
     for li, p in enumerate(_unstack(params["blocks"], cfg.num_layers)):
@@ -251,27 +257,35 @@ def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
     return norm_apply(params["final_norm"], x, cfg.norm)
 
 
-def stack_forward(params, x, cfg: ModelConfig, remat: bool = False):
-    """Full-sequence stack. x: (B, T, d) → (h (B, T, d), aux loss: the moe
-    layers' sum, a float32 tensor; 0.0 for the others). ``remat=True``
-    checkpoints each layer (and each super-block of the SSM stacks): the
-    backward recomputes them instead of keeping their activations."""
+def stack_forward(params, x, cfg: ModelConfig, positions=None,
+                  remat: bool = False):
+    """Full-sequence stack. x: (B, T, d); ``positions`` (B, T) or, for
+    M-RoPE, (B, T, 3) (``arange(T)`` when None; the SSM stacks' shared
+    block uses ``arange(T)``, as the reference's) → (h (B, T, d), aux loss:
+    the moe layers' sum, a float32 tensor; 0.0 for the others).
+    ``remat=True`` checkpoints each layer (and each super-block of the SSM
+    stacks): the backward recomputes them instead of keeping their
+    activations."""
     _check_family(cfg)
     if cfg.family in ATTN_FAMILIES:
-        return _dense_stack_run(params, x, cfg, remat=remat)
+        return _dense_stack_run(params, x, cfg, remat=remat,
+                                positions=positions)
     return _ssm_stack_run(params, x, cfg, remat=remat), 0.0
 
 
-def stack_prefill(params, x, cfg: ModelConfig, cache):
+def stack_prefill(params, x, cfg: ModelConfig, cache, positions=None):
     """Forward pass that also fills the decode cache, in place: the
     prompt's K/V (slots [0, T)), and the SSM stacks' final states and conv
-    tails. x: (B, T, d) → (h, cache). The prompt occupies slots [0, T),
-    as in the reference's non-resumable prefill; a ring-buffer cache must
-    hold the whole prompt (``_check_ring_prompt``)."""
+    tails. x: (B, T, d), ``positions`` as ``stack_forward``'s → (h, cache).
+    The prompt occupies slots [0, T), as in the reference's non-resumable
+    prefill; a ring-buffer cache must hold the whole prompt
+    (``_check_ring_prompt``). A plain cache shorter than T keeps the
+    prompt's last S positions, as the reference's does."""
     _check_family(cfg)
     if cfg.family in ATTN_FAMILIES:
         _check_ring_prompt(cfg, x.shape[1], cache)
-        return _dense_stack_run(params, x, cfg, cache)[0], cache
+        return _dense_stack_run(params, x, cfg, cache,
+                                positions=positions)[0], cache
     return _ssm_stack_run(params, x, cfg, cache), cache
 
 
@@ -280,7 +294,7 @@ def stack_prefill(params, x, cfg: ModelConfig, cache):
 def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.float32, device=None):
     """Stacked per-layer caches (leading L axis) + shared-block caches:
-    the dense and moe stacks' K/V caches of ``max_len`` slots (a ring of
+    the dense, moe and vlm stacks' K/V caches of ``max_len`` slots (a ring of
     ``sliding_window`` slots for a windowed config), or the SSM stacks'.
     Only the K/V caches take ``dtype``: conv tails and SSM states are
     float32, because the reference's prefill and decode replace its
@@ -344,7 +358,7 @@ def stack_decode_paged(params, x1, pool, page_table, pos, cfg: ModelConfig):
     d), pool). The same block body and op order as ``stack_decode``, with
     ``attn_decode_paged`` in place of the cache write, which keeps paged
     greedy tokens bit-identical to the contiguous path."""
-    if cfg.family not in ATTN_FAMILIES:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: paged decode takes the dense and moe stacks, not "
             f"{cfg.family}")

@@ -26,7 +26,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 def train_loss(model: Model, params, batch: Dict[str, torch.Tensor],
                loss_chunk: Optional[int] = None,
                remat: bool = False) -> torch.Tensor:
-    """Forward + next-token loss.
+    """Forward + next-token (or, for the audio encoder, masked-prediction)
+    loss. The vlm's loss covers the text region only (h[:, P:]); the
+    encoder's ``labels`` are its frames' unit targets.
 
     ``loss_chunk``: if set, the vocab logits and xent are computed in
     sequence chunks of this size, each under activation checkpointing, so
@@ -36,6 +38,8 @@ def train_loss(model: Model, params, batch: Dict[str, torch.Tensor],
     LSTM it is a no-op, as in the reference. A moe model's load-balance aux
     (summed over its layers) is added to the loss."""
     h, aux = model.forward(params, batch, remat=remat)
+    if model.cfg.family == "vlm":
+        h = h[:, batch["patches"].shape[1]:]
     labels = batch["labels"]
     if loss_chunk is None:
         return cross_entropy_loss(model.logits(params, h), labels) + aux

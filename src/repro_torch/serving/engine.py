@@ -604,11 +604,23 @@ class DecodeEngine:
         does. A sliding-window config's ring of ``window`` slots must hold
         the prompt (the prefill refuses a longer one) and then decodes on
         past ``max_len``, wrapping, as the reference does. The prefill runs
-        eagerly."""
+        eagerly.
+
+        The vlm and audio families are refused here, before any cache is
+        touched: the engine's prompts are tokens only, while the vlm's
+        prefill needs its patches (the reference's engine fails on the
+        missing key) and the audio encoder has no decode. The model API
+        serves them (``Model.prefill`` / ``decode_step`` and a head)."""
+        cfg = self.model.cfg
+        if cfg.family in ("vlm", "audio"):
+            raise ValueError(
+                f"{cfg.name}: DecodeEngine serves token prompts; the "
+                f"{cfg.family} family is served through Model.prefill / "
+                f"decode_step and a head (the vlm's prefill takes patches, "
+                f"an encoder has no decode)")
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=self.device)
         B, Tp = tokens.shape
-        cfg = self.model.cfg
         if cfg.family in ("dense", "moe", "hybrid") and \
                 cfg.sliding_window is None and Tp + max_new > self.max_len:
             raise ValueError(f"a prompt of {Tp} tokens and {max_new} new ones "

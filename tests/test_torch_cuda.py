@@ -1694,3 +1694,136 @@ def test_cuda_mixtral_ring_decode_and_spec_rollback_match_the_cpu(cuda):
         assert all(done[i] == base[i].tolist() for i in range(3))
         got[str(dev)] = done
     assert got["cpu"] == got[str(cuda)]
+
+
+@pytest.fixture(scope="module")
+def qwen2vl_head():
+    """qwen2-vl-2b's bf16 head (V = 151,936 → 1,187 tiles of d = 1536),
+    drawn on the card, with a float32 v of 100 clusters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    W = torch.randn((151_936, 1536), generator=g, device="cuda") * 0.05
+    b = torch.randn((151_936,), generator=g, device="cuda") * 0.1
+    Wb, bb = ops.pack_head_blocks(W.to(torch.bfloat16), b.to(torch.bfloat16))
+    v = torch.randn((100, 1536), generator=g, device="cuda")
+    return Wb, bb, v
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("k", [1, 5, 128])
+def test_cuda_bf16_kernels_at_qwen2vl_shapes(cuda, qwen2vl_head, B, k):
+    """Route, gather and fused (bf16 bodies) at d = 1536 over 1,187 tiles,
+    K = 16 (some slots sentinel): routes equal but near-ties, logits,
+    values and logZ within 1e-5 of the plain versions; fused == unfused bit
+    for bit."""
+    Wb, bb, v = qwen2vl_head
+    n_blk = Wb.shape[0]
+    assert n_blk == 1187
+    g = torch.Generator().manual_seed(100 * B + k)
+    h = torch.randn((B, 1536), generator=g).to(cuda, torch.bfloat16)
+    got, want = cluster_route(h, v), cluster_route_plain(h, v)
+    scores = h.float() @ v.T
+    diff = got != want
+    s_got = scores.gather(1, got.long()[:, None])[:, 0]
+    s_want = scores.gather(1, want.long()[:, None])[:, 0]
+    assert bool(((s_got - s_want).abs()[diff] <
+                 1e-5 * s_want.abs()[diff]).all())
+    ids = torch.randint(0, n_blk + 2, (B, 16), generator=g,
+                        dtype=torch.int32).to(cuda)
+    raw = screened_logits(Wb, bb, h, ids)
+    torch.testing.assert_close(raw, screened_logits_plain(Wb, bb, h, ids),
+                               **TOL)
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    row = torch.where(valid, raw, NEG_INF).reshape(B, -1)
+    lane = torch.arange(V_BLK, device=cuda, dtype=torch.int32)
+    word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    ki, kv, kz = fused_screened_topk(Wb, bb, h, ids, k=k)
+    pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k)
+    torch.testing.assert_close(kv, pv, **TOL)
+    torch.testing.assert_close(kz, pz, **TOL)
+    uv, upos = topk_desc(row, k)
+    assert torch.equal(kv, uv) and torch.equal(ki, torch.gather(word, 1, upos))
+
+
+def test_cuda_route_tie_at_d1536(cuda):
+    """An exact tie across the blocks of the route's cluster at qwen2-vl's
+    d = 1536 goes to the first index, from a bf16 h."""
+    g = torch.Generator().manual_seed(14)
+    v = torch.round(torch.randn((100, 1536), generator=g) * 2) / 2
+    v[3] = v[50] = v[99] = 4.0
+    h = torch.round(torch.rand((4, 1536), generator=g) * 3) * 0.5 + 0.5
+    h, v = h.to(cuda, torch.bfloat16), v.to(cuda)
+    assert bool((cluster_route_plain(h, v) == 3).all())
+    assert bool((cluster_route(h, v) == 3).all())
+
+
+def test_cuda_cache_kv_update_at_qwen2vl_cache(cuda):
+    """The K/V pair at qwen2-vl-2b's decode cache (4, 544, 2, 128) bf16
+    (256 patches + 256 tokens + 32 new): bit for bit, one launch."""
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update_plain)
+    g = torch.Generator().manual_seed(15)
+    B, S = 4, 544
+    ck, cv = (torch.randn((B, S, 2, 128), generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    uk, uv = (torch.randn((B, 2, 128), generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    for slot in (512, S - 1, S + 3, torch.tensor([512, 519, S - 1, 0],
+                                                 dtype=torch.int32,
+                                                 device=cuda)):
+        ops.reset_launches()
+        gk, gv = cache_kv_update(ck.clone(), uk, cv.clone(), uv, slot)
+        assert ops.LAUNCHES["cache_slot_update"] == 1
+        assert torch.equal(gk, cache_slot_update_plain(ck.clone(), uk, slot))
+        assert torch.equal(gv, cache_slot_update_plain(cv.clone(), uv, slot))
+
+
+def test_cuda_reduced_vlm_decode_and_audio_match_the_cpu(cuda):
+    """Reduced qwen2-vl (M-RoPE over 8 patches): prefill and 8 decode
+    steps at pos P + T + j on the card against the CPU (hidden states
+    within 1e-4 of max |h|), the cache pair launched once a layer a step;
+    reduced hubert-xlarge with bf16 weights and float32 frames: float32 h
+    on both, within 1e-4 of max |h|."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    cfg = get_config("qwen2-vl-2b").reduced()
+    model = Model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(16), device="cpu")
+    rng = np.random.default_rng(16)
+    toks = rng.integers(0, 512, (2, 20))
+    patches = rng.standard_normal((2, 8, 128)).astype(np.float32)
+    hs = {}
+    for dev, p in (("cpu", cpu_params), (cuda, to_device(cpu_params, cuda))):
+        ops.reset_launches()
+        with torch.inference_mode():
+            cache = model.init_cache(2, 8 + 12 + 8, dtype=torch.float32,
+                                     device=dev)
+            t = torch.as_tensor(toks, device=dev)
+            h, _ = model.prefill(p, {"tokens": t[:, :12], "patches":
+                                     torch.as_tensor(patches, device=dev)},
+                                 cache)
+            out = [h[:, -1]]
+            for i in range(12, 20):
+                h1, _ = model.decode_step(p, t[:, i], cache, 8 + i)
+                out.append(h1)
+        hs[str(dev)] = torch.stack(out, 1).cpu()
+        if dev != "cpu":
+            assert ops.LAUNCHES["cache_slot_update"] == cfg.num_layers * 8
+    want = hs["cpu"]
+    assert float((hs[str(cuda)] - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+    acfg = replace(get_config("hubert-xlarge").reduced(), dtype="bfloat16")
+    am = Model(acfg)
+    ap = am.init(torch.Generator().manual_seed(17), device="cpu")
+    fr = torch.as_tensor(rng.standard_normal((2, 40, 128)).astype(np.float32))
+    with torch.inference_mode():
+        a_cpu, _ = am.forward(ap, {"frames": fr})
+        a_gpu, _ = am.forward(to_device(ap, cuda), {"frames": fr.to(cuda)})
+    assert a_cpu.dtype == a_gpu.dtype == torch.float32
+    assert float((a_gpu.cpu() - a_cpu).abs().max()) <= \
+        1e-4 * float(a_cpu.abs().max())

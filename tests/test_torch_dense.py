@@ -41,11 +41,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import REGISTRY as J_REGISTRY
 from repro.configs import get_config as j_get_config
 from repro.layers import attention as jattn
 from repro.models.model import Model as JModel
 from repro.serving.engine import DecodeEngine as JEngine
-from repro_torch.configs import get_config
+from repro_torch.configs import REGISTRY, get_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_cli
@@ -294,17 +295,17 @@ def test_dense_remat_is_bit_identical():
 
 
 def test_families_still_refused_and_gpu_default():
-    """vlm and audio raise naming ROADMAP.md (moe is ported:
-    tests/test_torch_moe.py); a dense entry point raises without a GPU
-    unless device='cpu' is asked for."""
-    Model(get_config("mixtral-8x7b").reduced())
-    for name in ("qwen2-vl-2b", "hubert-xlarge"):
-        jcfg = j_get_config(name).reduced()
-        fam = jcfg.family
-        cfg = replace(get_config("smollm-360m").reduced(), family=fam,
-                      name=jcfg.name)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Model(cfg)
+    """Every config of the reference's registry is in the port's and
+    builds a ``Model`` (vlm and audio since tests/test_torch_vlm.py and
+    test_torch_audio.py); only a family the reference does not have is
+    still refused; a dense entry point raises without a GPU unless
+    device='cpu' is asked for."""
+    assert set(J_REGISTRY) <= set(REGISTRY)
+    for name in J_REGISTRY:
+        assert Model(get_config(name)).cfg.family == \
+            j_get_config(name).family
+    with pytest.raises(ValueError, match="unknown family"):
+        replace(get_config("smollm-360m").reduced(), family="vision")
     if not torch.cuda.is_available():
         m = Model(get_config("gemma-2b").reduced())
         with pytest.raises(RuntimeError, match="device='cpu'"):
