@@ -15,6 +15,8 @@ bidirectional encoder) families, and training the dense, moe, vlm and
 audio families.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only sharded   # build, train and l2s, [sharded]
+    python3 chip_smoke.py --only train-ssm # [train-ssm], its result as JSON
 
 Phases, one line (or a few) each:
 
@@ -176,6 +178,30 @@ Phases, one line (or a few) each:
               run adds no graph; one step's head (next(h), B = 4) of
               exact, screened-cuda and adaptive timed in turns with its
               bound;
+     sharded  (run last, after the training phases, with the trained LM
+              kept from [l2s]) the vocab-sharded heads, every shard on the
+              one card: (a)
+              on the trained LM, fitted screen and counts, at 1, 2 and 8
+              shards, fresh engines (graphs): greedy 4 x 16 and beam 5 of
+              exact-sharded, screened-sharded (local="cuda": the fused
+              kernel once per shard) and adaptive-sharded == exact,
+              screened-cuda (gap rule) and adaptive (bit for bit); sampled
+              T = 1 (exact-sharded == exact from one seed, the others in
+              the vocabulary, the screened one in the candidate union); a
+              greedy SpecDecodeStream with an exact-sharded verify == exact;
+              one graph per (head, kind), none added by a second run; n
+              and 1 + n fused launches a token; a profiled replay; (b) head
+              calls at gemma-2b's vocabulary (V = 256,000, d = 2,048,
+              float32, B = 4, a random block screen r = 100, K = 16) over 8
+              shards: ids == exact's (but near-ties), screened-cuda's and
+              adaptive's, log-probs within 1e-5; each shard's fused launch
+              against its plain version, also on a 1,500-word slice (two
+              shards all sentinel, k = 300 clipped to a shard's 256
+              slots); each head's next(h), eager and as a graph replay,
+              beside its unsharded twin's and its bound, and one shard's
+              launch beside its plain version and bound (CUDA events,
+              median of 30, clean L2); paths
+              "nmt-deen-lstm sharded", "gemma-2b-vocab sharded";
      spec     on the trained LM and fitted screen: a SpecDecodeStream of
               width 8 (draft screened-cuda, verify exact, draft_len 4) over
               [stream]'s 12 joins: greedy tokens == a plain width-8 exact
@@ -359,7 +385,8 @@ Phases, one line (or a few) each:
               memory, no port kernel), 2,048 frames chunked == unchunked
               within 1e-5 relative, 2 layers card == CPU within 1e-4;
               paths "qwen2-vl-2b bf16", "hubert-xlarge";
-  8. train-ssm (after the serving phases and their profiles) the SSD
+  8. train-ssm (after the serving phases and their profiles, in a process
+              of its own: python3 chip_smoke.py --only train-ssm) the SSD
               backward kernel against ssd_intra_bwd_plain at zamba2's and
               mamba2's chunks: max |kernel - plain| / max
               |plain| of dxw, dB, dC and dl, each <= 1e-4, two launches bit
@@ -412,6 +439,7 @@ Phases, one line (or a few) each:
               fitted screen's "nmt-deen-lstm l2s-fit", the streams
               ("nmt-deen-lstm stream", "zamba2-2.7b stream"),
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
+              "nmt-deen-lstm sharded", "gemma-2b-vocab sharded",
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
               paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", the five
               dense paths, the five moe paths, "qwen2-vl-2b bf16",
@@ -427,7 +455,9 @@ Phases, one line (or a few) each:
               of 9;
               the three L2S kernels also "at_zamba2_width"; the gather
               kernel "at_beam_shape"; the fused kernel "unfused_ms" and
-              "adaptive_step" (the [heads] step times and bounds); the
+              "adaptive_step" (the [heads] step times and bounds),
+              "at_gemma_vocab_shard" (one shard's launch of [sharded] (b))
+              and "sharded_heads" (its head calls); the
               cache update's times are the K and V pair's, with "single_ms"
               of one single-cache launch; the SSD backward's, at zamba2's
               chunk, with "at_mamba2_chunk"; the bf16 L2S bodies also
@@ -1748,6 +1778,28 @@ def ssm_train_run(torch, np, tag, arch, n_steps, seed, compare_remat):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, out
+
+
+def phase_train_ssm_fresh(torch):
+    """``phase_train_ssm`` in a process of its own (``python3 chip_smoke.py
+    --only train-ssm``), its lines passed on and its result read from its
+    last line. Run after every serving phase in this process, its profile
+    of one zamba2-2.7b forward and backward came one ``ssd_intra`` record
+    short of 162, in both attempts, in most runs of the script, while the
+    phase alone in a fresh process held; the check itself is unchanged."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--only", "train-ssm"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+    check(proc.returncode == 0 and bool(lines), f"[train-ssm] its process "
+          f"exited with {proc.returncode}")
+    return tuple(json.loads(lines[-1]))
 
 
 def phase_train_ssm(torch, np):
@@ -4055,6 +4107,378 @@ def phase_heads(torch, np, ctx):
     return launches, steps
 
 
+# -- the vocab-sharded heads --------------------------------------------------
+SHARD_COUNTS = (1, 2, 8)         # [sharded] shards, all on the one card
+SHARD_GEMMA = 8                  # [sharded] shards at gemma-2b's vocabulary
+SHARD_TWINS = {"exact": "exact-sharded", "screened-cuda": "screened-sharded",
+               "adaptive": "adaptive-sharded"}
+SHARD_CLIP_V, SHARD_CLIP_K = 1_500, 300   # 8 shards of 256 rows: 6, 7 empty
+
+
+def shard_launch_parity(torch, np, hd, h, k):
+    """Each shard's fused launch of ``hd`` (screened-sharded, local="cuda")
+    at ``k``, as the head calls it (local block ids, k clipped to the
+    shard's K·V_BLK), against the plain version on the same inputs: values
+    and logZ within TOL (−∞ on all-sentinel rows on both), ids equal except
+    at near-ties (values within 1e-5 relative). → (max abs error, ids at
+    near-ties, all-sentinel shards, shards whose k was clipped)."""
+    from repro_torch.core.screening import assign_clusters
+    from repro_torch.kernels.fused_topk import (fused_screened_topk,
+                                                fused_screened_topk_plain)
+    nbs = hd.Ls // V_BLK
+    err, near, empty, clipped = 0.0, 0, 0, 0
+    with torch.inference_mode():
+        cluster = assign_clusters(hd.v, h).long()
+        for Ws, bs, _, blocks in hd.slabs:
+            ids = blocks[cluster].contiguous()
+            kk = min(k, ids.shape[-1] * V_BLK)
+            args = (Ws.view(nbs, V_BLK, -1), bs.view(nbs, V_BLK), h, ids)
+            ki, kv, kz = fused_screened_topk(*args, k=kk)
+            pi, pv, pz = fused_screened_topk_plain(*args, kk)
+            torch.testing.assert_close(kv, pv, **TOL)
+            torch.testing.assert_close(kz, pz, **TOL)
+            diff = ki != pi
+            check(bool(((kv - pv).abs()[diff] <=
+                        1e-5 * pv.abs()[diff]).all()),
+                  f"[sharded] a shard's fused ids differ from the plain "
+                  f"version beyond near-ties (k={kk})")
+            near += int(diff.sum())
+            live = torch.isfinite(kz)
+            err = max(err, float((kv - pv).abs().max()),
+                      float((kz - pz)[live].abs().max()) if bool(live.any())
+                      else 0.0)
+            empty += int(bool((ids == nbs).all()))
+            clipped += int(kk < k)
+    return err, near, empty, clipped
+
+
+def phase_sharded_lstm(torch, np, ctx):
+    """[sharded] (a) on the trained nmt-deen-lstm, its fitted screen and its
+    training counts, at 1, 2 and 8 shards on the one card: through fresh
+    engines (graphs), greedy 4 x 16 and beam 5 of each sharded head ==
+    its unsharded twin's (exact-sharded / exact and screened-sharded
+    local="cuda" / screened-cuda under the gap rule, adaptive-sharded ==
+    adaptive), sampled T = 1 (exact-sharded == exact from one seed; the
+    others in the vocabulary, the screened one in the fitted candidate
+    union), a greedy SpecDecodeStream with an exact-sharded verify (8
+    shards) == exact, one graph per (head, kind), none added by a second
+    run; fused launches n (screened) and 1 + n (adaptive) a token; one
+    profiled replay. → launches of the path's runs, from zero."""
+    from repro_torch import heads
+    from repro_torch.serving import DecodeEngine, ServeRequest
+    t_phase = time.perf_counter()
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    adkw = dict(counts=ctx["counts"], shortlist=SHORTLIST, n_tails=N_TAILS)
+    prompts = ctx["corpus"].sample_batch(4, 8, seed=12)
+    new, beam = 16, 5
+    twin_eng = DecodeEngine(model, params, screen=screen, device="cuda",
+                            head_kwargs=adkw)
+    want = {t: twin_eng.generate(prompts, new, head=t).tokens
+            for t in SHARD_TWINS}
+    want_beam = {t: twin_eng.beam_search(prompts[0], beam, new, head=t)
+                 for t in SHARD_TWINS}
+    want_s = twin_eng.generate(prompts, new, head="exact", temperature=1.0,
+                               seed=3).tokens
+    del twin_eng
+    cand = screen.cand_idx.cpu().numpy()
+    n_blk = -(-V // V_BLK)
+    words = np.zeros(V, bool)
+    for blk in np.unique(cand[cand < n_blk]):
+        words[blk * V_BLK:(blk + 1) * V_BLK] = True
+    acc, near, per_token, graphs = {}, {}, {}, {}
+    for n in SHARD_COUNTS:
+        eng = DecodeEngine(model, params, screen=screen, device="cuda")
+        kw = dict(device="cuda", W=eng.W, b=eng.b, n_shards=n)
+        hds = {"exact": heads.get("exact-sharded", **kw),
+               "screened-cuda": heads.get("screened-sharded",
+                                          screen=eng.screen, local="cuda",
+                                          **kw),
+               "adaptive": heads.get("adaptive-sharded", **adkw, **kw)}
+        greedy = {}
+        for twin, hd in hds.items():
+            one = {}
+            got = counted(torch, one, lambda: eng.generate(prompts, new,
+                                                           head=hd))
+            for name, c in one.items():
+                acc[name] = acc.get(name, 0) + c
+            per_token[f"{hd.name} n={n}"] = one["fused_screened_topk"] / new
+            want_fused = {"exact": 0, "screened-cuda": n,
+                          "adaptive": 1 + n}[twin] * new
+            check(one["fused_screened_topk"] == want_fused and
+                  one["cluster_route"] == 0,
+                  f"[sharded] {hd.name} n={n} greedy launched {one}, want "
+                  f"{want_fused} fused top-k and no route")
+            greedy[twin] = got.tokens
+            rule = "screened" if twin == "screened-cuda" else "exact"
+            if twin == "adaptive":
+                check(np.array_equal(got.tokens, want[twin]),
+                      f"[sharded] adaptive-sharded n={n} greedy tokens != "
+                      f"adaptive's")
+            else:
+                near[f"{hd.name} n={n}"] = sum(
+                    gap_rule(torch, np, f"[sharded] {hd.name} n={n} row {i}",
+                             model, params, screen, prompts[i],
+                             got.tokens[i], want[twin][i], rule)
+                    for i in range(len(prompts)))
+            bm = counted(torch, acc, lambda: eng.beam_search(
+                prompts[0], beam, new, head=hd))
+            wb = want_beam[twin]
+            same = np.array_equal(bm.tokens, wb.tokens)
+            sc, wsc = float(bm.scores.reshape(-1)[0]), float(
+                wb.scores.reshape(-1)[0])
+            check(same or abs(sc - wsc) <= 1e-4 * abs(wsc),
+                  f"[sharded] {hd.name} n={n} beam({beam}) != {twin}'s")
+            near[f"{hd.name} n={n} beam"] = int(not same)
+            s = counted(torch, acc, lambda: eng.generate(
+                prompts, new, head=hd, temperature=1.0, seed=3))
+            check(s.tokens.min() >= 0 and s.tokens.max() < V,
+                  f"[sharded] {hd.name} n={n} sampled outside the vocabulary")
+            if twin == "exact":
+                check(np.array_equal(s.tokens, want_s),
+                      f"[sharded] exact-sharded n={n} sampled tokens != "
+                      f"exact's from the same seed")
+            if twin == "screened-cuda":
+                check(bool(words[s.tokens.reshape(-1)].all()),
+                      f"[sharded] screened-sharded n={n} sampled outside the "
+                      f"fitted candidate union")
+        if n == SHARD_COUNTS[-1]:
+            spec = eng.open_spec_stream("screened-cuda", hds["exact"],
+                                        width=4, draft_len=4)
+            reqs = [ServeRequest(prompt=p, max_new=new) for p in prompts]
+            got, ticks, _, _ = counted(torch, acc, lambda: drive_stream(
+                spec, reqs, [0] * len(reqs)))
+            near["spec verify exact-sharded"] = sum(
+                gap_rule(torch, np, f"[sharded] spec request {i}", model,
+                         params, screen, r.prompt, got[i], want["exact"][i],
+                         "exact") for i, r in enumerate(reqs))
+            sc = spec.spec_counters()
+            spec_line = (f"{ticks} rounds, {sc['accepted']} of "
+                         f"{sc['drafted']} drafted tokens accepted")
+            prof = hds["screened-cuda"]
+            _, wall = host_timed(torch, lambda: eng.generate(prompts, new,
+                                                             head=prof))
+            busy, idle, ours, n_kern = device_profile(
+                torch, f"[sharded] screened-sharded n={n} greedy replay",
+                lambda: eng.generate(prompts, new, head=prof), wall)
+        counts = eng.compiled_step_counts()
+        for twin, hd in hds.items():
+            check(all(counts.get((hd.name, kind)) == 1
+                      for kind in ("greedy", "decode", "sample")),
+                  f"[sharded] n={n}: graphs {counts}")
+            again = eng.generate(prompts, new, head=hd)
+            check(np.array_equal(again.tokens, greedy[twin]),
+                  f"[sharded] {hd.name} n={n}: a second run changed tokens")
+        check(eng.compiled_step_counts() == counts,
+              f"[sharded] n={n}: a second run added graphs")
+        graphs[n] = {f"{k[0]}/{k[1]}": v for k, v in sorted(counts.items())}
+        del eng, hds
+    log(f"[sharded] nmt-deen-lstm (trained, fitted screen, counts of the "
+        f"training tokens; shortlist {SHORTLIST}, {N_TAILS} tails) at "
+        f"{list(SHARD_COUNTS)} shards on the one card, fresh engines "
+        f"(graphs): greedy {len(prompts)}x{new} and beam({beam}) of "
+        f"exact-sharded, screened-sharded (local=\"cuda\") and "
+        f"adaptive-sharded == exact, screened-cuda and adaptive (adaptive "
+        f"bit for bit), except these rows / beams that first differ after "
+        f"a step with a top-2 gap < {GAP} (beams: scores within 1e-4): "
+        f"{json.dumps(near)}; sampled T = 1: exact-sharded == exact from "
+        f"one seed, the others in the vocabulary and the screened one in "
+        f"the fitted candidate union; a greedy SpecDecodeStream (draft "
+        f"screened-cuda, verify exact-sharded at {SHARD_COUNTS[-1]} shards, "
+        f"width 4, draft_len 4) == exact ({spec_line}); fused top-k "
+        f"launches a token {json.dumps(per_token)}; graphs one per (head, "
+        f"kind), none added by a second run: {json.dumps(graphs)}")
+    log(f"[sharded] profile, screened-sharded at {SHARD_COUNTS[-1]} shards, "
+        f"greedy {len(prompts)}x{new} (graphs): device busy {busy:.3f} ms "
+        f"(idle share {idle:.3f}), {n_kern} device kernels; "
+        f"fused_topk_kernel {ours['fused_screened_topk'][0]:.3f} ms x"
+        f"{ours['fused_screened_topk'][1]}; launches of the path's runs "
+        f"(from zero): {json.dumps(acc)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return acc
+
+
+def phase_sharded_gemma(torch, np):
+    """[sharded] (b) head calls at gemma-2b's vocabulary (V = 256,000,
+    d = 2,048, float32 W, B = 4) with a random 128-word block screen (r =
+    100, K = 16) over 8 shards on the one card: exact-sharded ids ==
+    exact's (but near-ties), screened-sharded local="cuda" ids and
+    log-probs == screened-cuda's (rows routed alike; log-probs 1e-5),
+    adaptive-sharded ids == adaptive's; each shard's fused launch against
+    its plain version, there and on a 1,500-word slice of the head (shards
+    6 and 7 own nothing; k = 300 clipped to a shard's 256 slots); each
+    head's call (``next``), eager and captured in a CUDA graph, and one
+    shard's launch timed under the clean-L2 timer, beside its bound.
+    → (launches of the sharded head calls, from zero; {name: timing
+    row})."""
+    from repro_torch import heads
+    from repro_torch.interop import screen_from_numpy
+    from repro_torch.kernels.fused_topk import (fused_screened_topk,
+                                                fused_screened_topk_plain)
+    from repro_torch.kernels.route import cluster_route
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(26)
+    W = torch.randn((GV, GD), generator=g, device="cuda") * 0.02
+    b = torch.randn((GV,), generator=g, device="cuda") * 0.1
+    h = torch.randn((4, GD), generator=g, device="cuda")
+    n_blk = GV // V_BLK
+    rng = np.random.default_rng(26)
+    cand = make_screen_blocks(np, 26, n_blk)
+    screen = screen_from_numpy(rng.standard_normal((R, GD)).astype(np.float32),
+                               cand, (cand < n_blk).sum(1), GV,
+                               V_BLK).to("cuda")
+    kw = dict(device="cuda", W=W, b=b)
+    adkw = dict(shortlist=SHORTLIST, n_tails=N_TAILS)
+    un = {"exact": heads.get("exact", **kw),
+          "screened-cuda": heads.get("screened-cuda", screen=screen, **kw),
+          "adaptive": heads.get("adaptive", **adkw, **kw)}
+    kw["n_shards"] = SHARD_GEMMA
+    sh = {"exact": heads.get("exact-sharded", **kw),
+          "screened-cuda": heads.get("screened-sharded", screen=screen,
+                                     local="cuda", **kw),
+          "adaptive": heads.get("adaptive-sharded", **adkw, **kw)}
+    acc = {}
+    near = 0
+    with torch.inference_mode():
+        for k in (1, 5, 64):
+            got = {t: counted(torch, acc, lambda hd=hd: hd.topk_logprobs(h, k))
+                   for t, hd in sh.items()}
+            ref = {t: hd.topk_logprobs(h, k) for t, hd in un.items()}
+            logits = h @ W.T + b
+            ids, ref_ids = got["exact"][0], ref["exact"][0]
+            diff = ids != ref_ids
+            s1 = logits.gather(1, ids.long())
+            s2 = logits.gather(1, ref_ids.long())
+            check(bool(((s1 - s2).abs()[diff] <= 1e-5 * s2.abs()[diff]).all()),
+                  f"[sharded] gemma-vocab exact-sharded k={k}: ids differ "
+                  f"from exact's beyond near-ties")
+            near += int(diff.sum())
+            torch.testing.assert_close(got["exact"][1], ref["exact"][1],
+                                       **TOL)
+            same = cluster_route(h, screen.v) == torch.argmax(
+                h @ screen.v.T, dim=-1)
+            check(int(same.sum()) >= 3, "[sharded] gemma-vocab: the route "
+                  "kernel and the plain argmax differ on more than one row")
+            check(torch.equal(got["screened-cuda"][0][same],
+                              ref["screened-cuda"][0][same]),
+                  f"[sharded] gemma-vocab screened-sharded k={k}: ids != "
+                  f"screened-cuda's")
+            torch.testing.assert_close(got["screened-cuda"][1][same],
+                                       ref["screened-cuda"][1][same], **TOL)
+            check(torch.equal(got["adaptive"][0], ref["adaptive"][0]),
+                  f"[sharded] gemma-vocab adaptive-sharded k={k}: ids != "
+                  f"adaptive's")
+            torch.testing.assert_close(got["adaptive"][1], ref["adaptive"][1],
+                                       **TOL)
+        check(acc["fused_screened_topk"] > 0, f"[sharded] gemma-vocab: no "
+              f"fused launch {acc}")
+    err, pnear, empty, _ = shard_launch_parity(torch, np, sh["screened-cuda"],
+                                               h, 5)
+    small = heads.get("screened-sharded", device="cuda",
+                      W=W[:SHARD_CLIP_V].contiguous(),
+                      b=b[:SHARD_CLIP_V].contiguous(),
+                      screen=screen_from_numpy(
+                          screen.v.cpu().numpy(), *small_blocks(np),
+                          SHARD_CLIP_V, V_BLK).to("cuda"),
+                      n_shards=8, local="cuda")
+    e2, n2, empty2, clipped = shard_launch_parity(torch, np, small, h,
+                                                  SHARD_CLIP_K)
+    check(empty2 >= 2 and clipped > 0, f"[sharded] the 1,500-word slice: "
+          f"{empty2} all-sentinel shards, {clipped} clipped, want shards 6 "
+          f"and 7 among them and some clipped")
+
+    # one call of each head (a decode step's next) and one shard's launch
+    timer = Timer(torch, reps=30)
+    hd0 = sh["screened-cuda"]
+    nbs = hd0.Ls // V_BLK
+    Ws, bs, _, blocks = hd0.slabs[0]
+    with torch.inference_mode():
+        ids0 = blocks[torch.argmax(h @ hd0.v.T, dim=-1)].contiguous()
+        args0 = (Ws.view(nbs, V_BLK, GD), bs.view(nbs, V_BLK), h, ids0)
+        fns = {f"{t} {x}": (lambda hd=hd: hd.next(h))
+               for t, pair in (("un", un), ("sh", sh))
+               for x, hd in pair.items()}
+        # the same calls captured, as the engine's decode step runs them:
+        # device time without the host's enqueue of each small operation
+        fns.update({f"{name} graph": graphed(torch, fn)
+                    for name, fn in list(fns.items())})
+        fns["shard launch"] = lambda: fused_screened_topk(*args0, k=1)
+        fns["shard plain"] = lambda: fused_screened_topk_plain(*args0, 1)
+        t = timer.turns(fns)
+        live = ids0[ids0 < nbs]
+        tiles = int(live.unique().numel())
+    B = h.shape[0]
+    exact_bound = bound_ms(4 * (GV * (GD + 1) + B * GD), 2 * B * GV * GD)
+    bounds = {"exact": exact_bound,
+              "screened-cuda": screened_bound(torch, screen, h),
+              "adaptive": adaptive_bound(torch, un["adaptive"], h)}
+    shard_bound = bound_ms(4 * (tiles * V_BLK * (GD + 1) + B * GD +
+                                ids0.numel() + 3 * B),
+                           2 * GD * live.numel() * V_BLK)
+    rows = {"shard": {"B": B, "K": int(ids0.shape[1]), "n_blk": nbs,
+                      "d": GD, "k": 1, "live_tiles": tiles,
+                      "ms": t["shard launch"], "plain_ms": t["shard plain"],
+                      "bound": shard_bound, "library_ms": None},
+            "heads": {x: {"ms": t[f"sh {x}"], "unsharded_ms": t[f"un {x}"],
+                          "graph_ms": t[f"sh {x} graph"],
+                          "unsharded_graph_ms": t[f"un {x} graph"],
+                          "bound_ms": bounds[x][0], "bound_by": bounds[x][1]}
+                      for x in sh}}
+    log(f"[sharded] gemma-2b vocabulary (V = {GV}, d = {GD}, float32, B = "
+        f"{B}) over {SHARD_GEMMA} shards on the one card, k in 1, 5, 64: "
+        f"exact-sharded ids == exact's except {near} at near-ties (logits "
+        f"within 1e-5 relative), log-probs within 1e-5; screened-sharded "
+        f"(local=\"cuda\", per-shard K = {hd0.kb_shard_max} of {K} blocks) "
+        f"ids == screened-cuda's and log-probs within 1e-5 on the rows the "
+        f"route kernel and the plain argmax route alike; adaptive-sharded "
+        f"ids == adaptive's; each shard's fused launch == its plain version "
+        f"(max abs err {max(err, e2):.3g}, {pnear + n2} ids at near-ties), "
+        f"also on a {SHARD_CLIP_V}-word slice ({empty2} shards all "
+        f"sentinel, k = {SHARD_CLIP_K} clipped on {clipped} shards); "
+        f"launches of the sharded calls (from zero) {json.dumps(acc)}")
+    log(f"[timing] sharded heads at gemma-2b's vocabulary, B = {B}, next(h) "
+        f"(CUDA events, median of 30, clean L2; eager, then one replay of "
+        f"the call captured in a CUDA graph): " + "; ".join(
+            f"{SHARD_TWINS[x]} {r['ms']:.5f} ms / graph {r['graph_ms']:.5f} "
+            f"ms against {x} {r['unsharded_ms']:.5f} ms / graph "
+            f"{r['unsharded_graph_ms']:.5f} ms (bound {r['bound_ms']:.5f} ms "
+            f"by {r['bound_by']})" for x, r in rows["heads"].items()))
+    s = rows["shard"]
+    log(f"[timing] fused_screened_topk one shard of 8 at gemma-2b's "
+        f"vocabulary (n_blk {nbs}, B = {B}, K = {s['K']}, {tiles} live "
+        f"tiles, d = {GD}, k = 1): {s['ms']:.5f} ms, plain {s['plain_ms']:.5f}"
+        f" ms, bound {shard_bound[0]:.5f} ms by {shard_bound[1]}, library "
+        f"none; phase wall {time.perf_counter() - t_phase:.1f} s")
+    del un, sh, small, W
+    gc.collect()
+    torch.cuda.empty_cache()
+    return acc, rows
+
+
+def graphed(torch, fn):
+    """``fn`` captured in a CUDA graph (run once on the capture stream
+    first, outside the capture) → the graph's ``replay``."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return graph.replay
+
+
+def small_blocks(np):
+    """A block screen over SHARD_CLIP_V words (12 tiles): every cluster
+    holds 5 of them. → (cand (R, 8), cand_len (R,))."""
+    n_blk = -(-SHARD_CLIP_V // V_BLK)
+    rng = np.random.default_rng(27)
+    cand = np.full((R, 8), n_blk, np.int32)
+    for t in range(R):
+        cand[t, :5] = np.sort(rng.choice(n_blk, 5, replace=False))
+    return cand, np.full(R, 5, np.int32)
+
+
 def phase_adaptive_hybrid(torch, np, ctx):
     """[heads] adaptive on full-width zamba2-2.7b (random weights, so the
     tiers follow the weight-row norms): greedy 4 x 512 + 32 with shortlist
@@ -6066,11 +6490,25 @@ def main() -> int:
     import numpy as np
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    from repro_torch.models.model import to_device
     from repro_torch.serving import DecodeEngine
 
     resolve_device("cuda")                     # TF32 off for float32 matmuls
+    if sys.argv[1:] == ["--only", "train-ssm"]:
+        # phase_train_ssm_fresh's process: its result as the last line
+        print(json.dumps(phase_train_ssm(torch, np)), flush=True)
+        return 0
     kind, _ = phase_device(torch)
     walled("build", phase_build, ops)
+    if sys.argv[1:] == ["--only", "sharded"]:
+        # the [sharded] phases alone, after the training that (a) decodes
+        # with; no result lines
+        _, ctx = walled("train and l2s", phase_train_l2s, torch, np)
+        walled("sharded lstm", phase_sharded_lstm, torch, np, ctx)
+        walled("sharded gemma-vocab", phase_sharded_gemma, torch, np)
+        log(f"[done] --only sharded took {time.perf_counter() - T_START:.1f}"
+            f" s; phase walls (s): {json.dumps(WALLS)}")
+        return 0
     err = walled("parity", phase_parity, torch, np, K)
     err["fused_screened_topk"] = max(err["fused_screened_topk"], walled(
         "fused split", phase_fused_split, torch, np))
@@ -6097,6 +6535,10 @@ def main() -> int:
                                  ctx)
     err["screened_logits"] = max(err["screened_logits"], dist_err)
     pool_lstm = walled("pool", phase_pool_lstm, torch, np, ctx)
+    # kept on the host for [sharded], run last: the card's memory stays as
+    # the phases between were written for
+    l2s_ctx = dict(ctx, params=to_device(ctx["params"], "cpu"),
+                   screen=ctx["screen"].to("cpu"))
     del ctx
     walled("serve-cli", phase_serve_cli, torch)
     ssm_err, ssm_times = walled("ssm kernels", phase_ssm_kernels, torch)
@@ -6169,8 +6611,8 @@ def main() -> int:
     # counts, run in the process state they were written for: with these
     # two phases ahead of them, the profiler left the zamba2 adaptive
     # profile one ssd_intra record short of ~105,600, in both attempts
-    bwd_err, bwd_times, train_ssm = walled("train-ssm", phase_train_ssm,
-                                           torch, np)
+    bwd_err, bwd_times, train_ssm = walled("train-ssm", phase_train_ssm_fresh,
+                                           torch)
     err.update(bwd_err)
     times.update(bwd_times)
     walled("serve-cli zamba2", cli_zamba2, torch)
@@ -6178,6 +6620,17 @@ def main() -> int:
     train_attn.update(walled("train-moe", phase_train_moe, torch, np))
     train_attn.update(walled("train-vlm", phase_train_vlm, torch, np))
     train_attn.update(walled("train-audio", phase_train_audio, torch, np))
+    # the sharded heads after every other phase, so that no phase before
+    # runs in another process state than it was written for
+    gc.collect()
+    torch.cuda.empty_cache()
+    l2s_ctx.update(params=to_device(l2s_ctx["params"], "cuda"),
+                   screen=l2s_ctx["screen"].to("cuda"))
+    sharded_lstm = walled("sharded lstm", phase_sharded_lstm, torch, np,
+                          l2s_ctx)
+    del l2s_ctx
+    sharded_gemma, shard_rows = walled("sharded gemma-vocab",
+                                       phase_sharded_gemma, torch, np)
     # each kernel's launches on the path it was ported for, and on each path
     launches = {k: (hybrid if k in BF16_KERNELS or k in ssm_err else
                     lstm)[k] for k in lstm}
@@ -6191,6 +6644,8 @@ def main() -> int:
              "nmt-deen-lstm scheduler": sched,
              "zamba2-2.7b stream": stream_hybrid,
              "nmt-deen-lstm heads": heads_lstm,
+             "nmt-deen-lstm sharded": sharded_lstm,
+             "gemma-2b-vocab sharded": sharded_gemma,
              "zamba2-2.7b adaptive": adaptive_z,
              "nmt-deen-lstm spec": spec_lstm,
              "nmt-deen-lstm paged": pool_lstm,
@@ -6253,6 +6708,13 @@ def main() -> int:
             if "unfused_ms" in w:
                 kernels[-1]["at_zamba2_width"]["unfused_ms"] = w["unfused_ms"]
         if name == "fused_screened_topk":
+            r = shard_rows["shard"]
+            kernels[-1]["at_gemma_vocab_shard"] = {
+                **{k_: r[k_] for k_ in ("B", "K", "n_blk", "d", "k",
+                                        "live_tiles", "ms", "plain_ms",
+                                        "library_ms")},
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+            kernels[-1]["sharded_heads"] = shard_rows["heads"]
             kernels[-1]["adaptive_step"] = {
                 str(d_): {"B": 4, **{f"{n}_ms": t_[0] for n, t_ in st.items()},
                           **{f"{n}_bound_ms": t_[1][0]

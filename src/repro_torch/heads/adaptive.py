@@ -1,7 +1,5 @@
-"""AdaptiveHead — frequency-tiered adaptive softmax (Grave et al.) on the
-port's kernels. Twin of the single-device part of
-``repro/heads/adaptive.py`` (``adaptive-sharded`` is ROADMAP.md Queue 1
-item 10).
+"""AdaptiveHead and AdaptiveShardedHead — frequency-tiered adaptive softmax
+(Grave et al.) on the port's kernels. Twin of ``repro/heads/adaptive.py``.
 
 The vocabulary is split by unigram frequency into a SHORT-LIST tier (the
 top-F words, packed into V_BLK tiles and scored for every query) plus C
@@ -27,11 +25,22 @@ gather kernel (``kernels/screen.py::screened_logits``) over the same block
 ids, so on the card fused and unfused ids and values are bit-identical, as
 ``screened-cuda``'s are. On CPU tensors both kernel wrappers run their plain
 PyTorch versions. Every call is capturable into a CUDA graph.
+
+``adaptive-sharded`` keeps the short tier, the gates and the descent rule
+replicated (held once, on the first shard's device) and splits the packed
+tail region by vocab range into n shards of a V_BLK multiple each
+(``heads/sharded.py`` for the placement and the collectives): each shard
+runs one fused launch over the tail blocks it owns of each row's cluster
+(a non-descending row, or a shard owning none of the cluster, takes the
+all-sentinel path), its packed rows map to vocab ids through the tail id
+map, and the shards' lists merge shard-major before the cross-tier merge.
+Ids equal the ``adaptive`` head's.
 """
 from __future__ import annotations
 
 import hashlib
 from types import SimpleNamespace
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -40,7 +49,9 @@ from repro_torch.configs.base import V_BLK
 from repro_torch.heads.base import (NEG_INF, SoftmaxHead, sample_from_logits,
                                     tiered_bytes_per_query,
                                     tiered_flops_per_query)
-from repro_torch.heads.sharded import merge_shard_topk
+from repro_torch.heads.sharded import (ShardedHead, _all_gather,
+                                       _combine_shard_logz, merge_shard_topk,
+                                       shard_devices)
 from repro_torch.kernels.ops import tier_fused_topk
 from repro_torch.kernels.ref import topk_desc
 from repro_torch.kernels.screen import screened_logits
@@ -162,6 +173,43 @@ def _masked_lse(logits: torch.Tensor) -> torch.Tensor:
     return torch.where(live, m0 + torch.log(s), -torch.inf)
 
 
+# -- gate, descent and rows (both heads) --------------------------------------
+
+def _gate(g: torch.Tensor, gb: torch.Tensor, h: torch.Tensor):
+    """Gate logits (B, C) and the argmax tail cluster (first index)."""
+    gate = (h @ g.T + gb[None]).float()
+    return gate, torch.argmax(gate, dim=-1)
+
+
+def _descend_mask(gate, svals, ks: int, k: int) -> torch.Tensor:
+    """Descend iff the best tail gate beats the k-th short-list logit; when
+    k exceeds the short-list capacity every query descends."""
+    if ks < k:
+        return torch.ones(gate.shape[:1], dtype=torch.bool,
+                          device=gate.device)
+    return gate.max(dim=-1).values >= svals[:, -1]
+
+
+def _short_ids(short_blocks: torch.Tensor, B: int) -> torch.Tensor:
+    """The short tier's block ids broadcast over the rows (B, nb0)."""
+    return short_blocks[None].expand(B, -1).contiguous()
+
+
+def _tier_rows(Wb, bb, h, block_ids):
+    """Word-granular candidate row over ``block_ids`` through the gather
+    kernel → (logits (B, K·V_BLK), NEG_INF at sentinel slots; packed rows
+    (B, K·V_BLK) int32, n_blk·V_BLK at sentinel slots)."""
+    n_blk = Wb.shape[0]
+    B = h.shape[0]
+    raw = screened_logits(Wb, bb, h, block_ids)
+    valid = ((block_ids >= 0) & (block_ids < n_blk))[..., None]
+    lane = torch.arange(V_BLK, dtype=torch.int32, device=h.device)
+    rows = torch.where(valid, block_ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK)
+    return (torch.where(valid, raw, NEG_INF).reshape(B, -1),
+            rows.reshape(B, -1))
+
+
 # -- adaptive (single-device) ------------------------------------------------
 
 class AdaptiveHead(SoftmaxHead):
@@ -211,15 +259,6 @@ class AdaptiveHead(SoftmaxHead):
         return self
 
     # -- tier bodies ---------------------------------------------------------
-    def _short_ids(self, B: int) -> torch.Tensor:
-        """The short tier's block ids broadcast over the rows (B, nb0)."""
-        return self._short_blocks[None].expand(B, -1).contiguous()
-
-    def _gate(self, h):
-        """Gate logits (B, C), the argmax tail cluster (first index)."""
-        gate = (h @ self._g.T + self._gb[None]).float()
-        return gate, torch.argmax(gate, dim=-1)
-
     def _tail_ids(self, cluster, descend) -> torch.Tensor:
         """Each row's argmax tail cluster's blocks (B, kb) int32, the
         sentinel n_blk at non-descending rows."""
@@ -231,30 +270,14 @@ class AdaptiveHead(SoftmaxHead):
         """Word-granular candidate row over ``block_ids`` through the gather
         kernel: logits (B, K·V_BLK), NEG_INF at sentinel slots, and vocab
         ids (B, K·V_BLK), L at sentinel slots and pad rows."""
-        n_blk = self._Wb.shape[0]
-        B = h.shape[0]
-        raw = screened_logits(self._Wb, self._bb, h, block_ids)
-        valid = ((block_ids >= 0) & (block_ids < n_blk))[..., None]
-        lane = torch.arange(V_BLK, dtype=torch.int32, device=h.device)
-        rows = torch.where(valid, block_ids[..., None] * V_BLK + lane,
-                           n_blk * V_BLK)
-        return (torch.where(valid, raw, NEG_INF).reshape(B, -1),
-                self._gid[rows.long()].reshape(B, -1))
-
-    @staticmethod
-    def _descend(gate, svals, ks: int, k: int):
-        """Descend iff the best tail gate beats the k-th short-list logit;
-        when k exceeds the short-list capacity every query descends."""
-        if ks < k:
-            return torch.ones(gate.shape[:1], dtype=torch.bool,
-                              device=gate.device)
-        return gate.max(dim=-1).values >= svals[:, -1]
+        logits, rows = _tier_rows(self._Wb, self._bb, h, block_ids)
+        return logits, self._gid[rows.long()]
 
     def _tail_blocks(self, h, svals, ks: int, k: int):
         """The tail tier's block ids (B, kb) by the descent rule, given the
         short tier's top ``ks`` values → (block ids, descend (B,) bool)."""
-        gate, cluster = self._gate(h)
-        descend = self._descend(gate, svals, ks, k)
+        gate, cluster = _gate(self._g, self._gb, h)
+        descend = _descend_mask(gate, svals, ks, k)
         return self._tail_ids(cluster, descend), descend
 
     def tier_blocks(self, h, k: int):
@@ -265,7 +288,7 @@ class AdaptiveHead(SoftmaxHead):
         self.prepare()
         h = h.float().contiguous()
         B = h.shape[0]
-        short = self._short_ids(B)
+        short = _short_ids(self._short_blocks, B)
         if self._tail_tab is None:
             return short, None, torch.zeros(B, dtype=torch.bool,
                                             device=h.device)
@@ -281,8 +304,8 @@ class AdaptiveHead(SoftmaxHead):
     def _fused(self, h, k: int):
         B = h.shape[0]
         ks = min(k, self._lay.nb0 * V_BLK)
-        srows, svals, slogz = tier_fused_topk(self._Wb, self._bb, h,
-                                              self._short_ids(B), k=ks)
+        srows, svals, slogz = tier_fused_topk(
+            self._Wb, self._bb, h, _short_ids(self._short_blocks, B), k=ks)
         sgids = self._gid[srows.long()]
         if self._tail_tab is None:
             ids, vals = merge_shard_topk(svals, sgids, k, sentinel=self.L)
@@ -297,7 +320,7 @@ class AdaptiveHead(SoftmaxHead):
         return ids, vals, combine_tier_logz(slogz, tlogz)
 
     def _unfused(self, h, k: int):
-        slog, sids = self._rows(h, self._short_ids(h.shape[0]))
+        slog, sids = self._rows(h, _short_ids(self._short_blocks, h.shape[0]))
         ks = min(k, slog.shape[-1])
         svals, pos = topk_desc(slog, ks)
         sgids = torch.gather(sids, -1, pos)
@@ -337,10 +360,10 @@ class AdaptiveHead(SoftmaxHead):
         """Word-granular row across both tiers (sampling needs the whole
         distribution), descending by the k = 1 gate rule: iff the best gate
         beats the best short-list logit, as greedy decode does."""
-        slog, sids = self._rows(h, self._short_ids(h.shape[0]))
+        slog, sids = self._rows(h, _short_ids(self._short_blocks, h.shape[0]))
         if self._tail_tab is None:
             return slog, sids
-        gate, cluster = self._gate(h)
+        gate, cluster = _gate(self._g, self._gb, h)
         descend = gate.max(dim=-1).values >= slog.max(dim=-1).values
         tlog, tids = self._rows(h, self._tail_ids(cluster, descend))
         return torch.cat([slog, tlog], dim=-1), torch.cat([sids, tids], dim=-1)
@@ -394,3 +417,222 @@ class AdaptiveHead(SoftmaxHead):
     def memory_bytes(self) -> int:
         self.prepare()
         return SoftmaxHead.memory_bytes.fget(self)
+
+
+# -- adaptive-sharded --------------------------------------------------------
+
+class AdaptiveShardedHead(ShardedHead):
+    """Adaptive softmax with the rare-tail region split by vocab range over
+    n shards and the short-list tier replicated: the tiles almost every
+    query reads stay whole, the tiles almost no query reads split 1/n.
+    Ids equal the ``adaptive`` head's."""
+    name = "adaptive-sharded"
+
+    def __init__(self, W: torch.Tensor, b: torch.Tensor, counts=None,
+                 shortlist=None, n_tails: int = 4,
+                 n_shards: Optional[int] = None, devices=None):
+        if n_tails < 1:
+            raise ValueError(f"n_tails must be >= 1, got {n_tails}")
+        self.W = W
+        self.b = b
+        self.counts = (None if counts is None else
+                       np.asarray(torch.as_tensor(counts).cpu()))
+        self.shortlist = shortlist
+        self.n_tails = int(n_tails)
+        self.devices = shard_devices(n_shards, devices, W.device)
+        self.L, self.d = (int(x) for x in W.shape)
+        self._lay = None
+
+    def prepare(self) -> "AdaptiveShardedHead":
+        if self._lay is not None:
+            return self
+        n, L, d = self.n_shards, self.L, self.d
+        lay = _build_tiers(self.W.detach().float().cpu().numpy(),
+                           self.b.detach().float().cpu().numpy(), self.counts,
+                           self.shortlist, self.n_tails)
+
+        def put(a, dev=self.lead):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        # the replicated short tier, held once: its packed tiles and an id
+        # map whose last entry takes the kernel's sentinel row to L
+        self._Wb = put(lay.Wblk[:lay.nb0])
+        self._bb = put(lay.bblk[:lay.nb0])
+        self._gid_s = put(np.append(lay.gid[:lay.nb0 * V_BLK], L)
+                          .astype(np.int32))
+        self._short_blocks = torch.arange(lay.nb0, dtype=torch.int32,
+                                          device=self.lead)
+        self._Wt = self._bt = self._btab = ()
+        self._g = self._gb = self._gid_t = None
+        if lay.C:
+            # the tail region: packed rows after the short tier, padded so
+            # that each shard owns a V_BLK multiple (blocks never straddle)
+            tail_rows = (lay.n_blk - lay.nb0) * V_BLK
+            self.Ls_t = Ls_t = -(-tail_rows // (n * V_BLK)) * V_BLK
+            padn = n * Ls_t - tail_rows
+            nbs = Ls_t // V_BLK
+            Wt = np.pad(lay.Wblk[lay.nb0:].reshape(tail_rows, d),
+                        ((0, padn), (0, 0))).reshape(n, nbs, V_BLK, d)
+            bt = np.pad(lay.bblk[lay.nb0:].reshape(tail_rows), (0, padn),
+                        constant_values=NEG_INF).reshape(n, nbs, V_BLK)
+            # tail packed row → vocab id, L past the vocabulary
+            gid_t = np.pad(lay.gid[lay.nb0 * V_BLK: lay.n_blk * V_BLK],
+                           (0, padn), constant_values=L)
+            # cluster c's blocks in tail-region coordinates, split by
+            # owning shard, local ids ascending, sentinel nbs
+            region = [lay.tail_tab[c][lay.tail_tab[c] < lay.n_blk] - lay.nb0
+                      for c in range(lay.C)]
+            kb = max(1, max((int(((g >= s * nbs) & (g < (s + 1) * nbs)).sum())
+                             for g in region for s in range(n)), default=1))
+            btab = np.full((n, lay.C, kb), nbs, np.int32)
+            for s in range(n):
+                for c, g in enumerate(region):
+                    loc = g[(g >= s * nbs) & (g < (s + 1) * nbs)] - s * nbs
+                    btab[s, c, :len(loc)] = loc
+            devs = list(enumerate(self.devices))
+            self._Wt = tuple(put(Wt[s], dv) for s, dv in devs)
+            self._bt = tuple(put(bt[s], dv) for s, dv in devs)
+            self._btab = tuple(put(btab[s], dv) for s, dv in devs)
+            self._gid_t = put(gid_t.astype(np.int32))
+            self._g, self._gb = put(lay.g), put(lay.gb)
+        self._lay = lay
+        del self.W, self.b                 # only the placed copies stay
+        return self
+
+    @property
+    def layout(self) -> SimpleNamespace:
+        """The tier layout of ``_build_tiers`` (sizes, block tables)."""
+        return self.prepare()._lay
+
+    def _replicated(self) -> List[torch.Tensor]:
+        return [t for t in (self._Wb, self._bb, self._gid_s,
+                            self._short_blocks, self._g, self._gb,
+                            self._gid_t) if t is not None]
+
+    def _slab_tensors(self):
+        return (self._replicated() + list(self._Wt) + list(self._bt) +
+                list(self._btab))
+
+    @property
+    def memory_bytes(self) -> int:
+        """Resident tables, total across shards: the replicated ones (short
+        tier, gates, id maps) once PER SHARD, as the reference counts them
+        (the footprint a per-device budget divides by n), though one device
+        holds them once here; the tail slabs once."""
+        self.prepare()
+        repl = sum(int(t.nbytes) for t in self._replicated())
+        return self.n_shards * repl + sum(
+            int(t.nbytes) for t in self._Wt + self._bt + self._btab)
+
+    # -- tiers ----------------------------------------------------------------
+    def _tail_gids(self, s: int, rows: torch.Tensor) -> torch.Tensor:
+        """Shard ``s``'s packed tail rows (its sentinel Ls_t) → vocab ids,
+        on the first shard's device."""
+        rows = rows.to(self.lead)
+        live = rows < self.Ls_t
+        return torch.where(live, self._gid_t[torch.where(
+            live, rows + s * self.Ls_t, 0).long()], self.L)
+
+    def _shard_blocks(self, s: int, cluster, descend) -> torch.Tensor:
+        """Shard ``s``'s tail block ids (B, kb): each row's cluster's blocks
+        it owns, its sentinel at non-descending rows."""
+        btab = self._btab[s]
+        dev = btab.device
+        return torch.where(descend.to(dev)[:, None], btab[cluster.to(dev)],
+                           self.Ls_t // V_BLK).to(torch.int32).contiguous()
+
+    def _run(self, h, k: int):
+        self.prepare()
+        h = h.float().contiguous()
+        B, L = h.shape[0], self.L
+        ks = min(k, self._lay.nb0 * V_BLK)
+        srows, svals, slogz = tier_fused_topk(
+            self._Wb, self._bb, h, _short_ids(self._short_blocks, B), k=ks)
+        sgids = self._gid_s[srows.long()]
+        if not self._Wt:
+            ids, vals = merge_shard_topk(svals, sgids, k, sentinel=L)
+            return ids, vals, slogz
+        gate, cluster = _gate(self._g, self._gb, h)
+        descend = _descend_mask(gate, svals, ks, k)
+        tvals, tgids, tlogz = [], [], []
+        for s, (Wt, bt) in enumerate(zip(self._Wt, self._bt)):
+            tb = self._shard_blocks(s, cluster.long(), descend)
+            rows, v, lz = tier_fused_topk(Wt, bt, h.to(Wt.device), tb,
+                                          k=min(k, tb.shape[-1] * V_BLK))
+            tvals.append(v)
+            tgids.append(self._tail_gids(s, rows))
+            tlogz.append(lz)
+        tids, tv = merge_shard_topk(_all_gather(tvals), _all_gather(tgids), k,
+                                    sentinel=L)
+        ids, vals = merge_shard_topk(torch.cat([svals, tv], dim=-1),
+                                     torch.cat([sgids, tids], dim=-1), k,
+                                     sentinel=L)
+        return ids, vals, combine_tier_logz(slogz, _combine_shard_logz(tlogz))
+
+    # -- queries --------------------------------------------------------------
+    def topk(self, h, k: int):
+        ids, vals, _ = self._run(h, k)
+        return ids, vals
+
+    def topk_logprobs(self, h, k: int):
+        """Log-softmax over the tiers the query scored, probability 0
+        elsewhere, as the ``adaptive`` head's."""
+        ids, vals, logz = self._run(h, k)
+        lp = torch.where(torch.isfinite(logz)[:, None], vals - logz[:, None],
+                         NEG_INF)
+        return ids, torch.where(vals <= NEG_INF / 2, NEG_INF, lp)
+
+    def sample(self, h, temperature: float = 1.0, top_p: float = 1.0,
+               generator=None, gumbel=None):
+        """Temperature / nucleus sample over the word-granular rows of the
+        scored tiers (the short tier, then each shard's part of the tail,
+        by the k = 1 gate rule, as ``adaptive`` samples); the noise is
+        (B, (nb0 + n·kb)·V_BLK)."""
+        self.prepare()
+        h = h.float().contiguous()
+        slog, srows = _tier_rows(self._Wb, self._bb, h,
+                                 _short_ids(self._short_blocks, h.shape[0]))
+        logits, gids = [slog], [self._gid_s[srows.long()]]
+        if self._Wt:
+            gate, cluster = _gate(self._g, self._gb, h)
+            descend = gate.max(dim=-1).values >= slog.max(dim=-1).values
+            tlog, tgids = [], []
+            for s, (Wt, bt) in enumerate(zip(self._Wt, self._bt)):
+                lg, rows = _tier_rows(Wt, bt, h.to(Wt.device),
+                                      self._shard_blocks(s, cluster.long(),
+                                                         descend))
+                tlog.append(lg)
+                tgids.append(self._tail_gids(s, rows))
+            logits.append(_all_gather(tlog))
+            gids.append(_all_gather(tgids))
+        logits, gids = torch.cat(logits, dim=-1), torch.cat(gids, dim=-1)
+        choice = sample_from_logits(logits, temperature, top_p,
+                                    self.noise(h, temperature, generator,
+                                               gumbel))
+        return torch.gather(gids, 1, choice[:, None].long())[:, 0].to(
+            torch.int32)
+
+    def noise_shape(self, batch: int, temperature: float):
+        self.prepare()
+        if temperature <= 0:
+            return None
+        kb = self._btab[0].shape[-1] if self._btab else 0
+        return (batch, (self._lay.nb0 + self.n_shards * kb) * V_BLK)
+
+    # -- metadata -------------------------------------------------------------
+    @property
+    def flops_per_query(self) -> float:
+        """Per-shard MACs: the short tier and the gates on every shard, the
+        expected tail matmul split 1/n."""
+        lay = self.layout
+        return tiered_flops_per_query(lay.F, lay.C, lay.p_descend,
+                                      lay.exp_tail_words / self.n_shards,
+                                      self.d)
+
+    @property
+    def bytes_per_query(self) -> float:
+        """Per-shard bytes: the short tiles and gates, this shard's
+        expected tail slice, and the two fused launches' O(k) results."""
+        lay = self.layout
+        return tiered_bytes_per_query(lay.F, lay.C, lay.p_descend,
+                                      lay.exp_tail_words / self.n_shards,
+                                      self.d, writeback_floats=2.0 * V_BLK)

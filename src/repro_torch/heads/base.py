@@ -202,7 +202,8 @@ class SoftmaxHead:
 
     @property
     def n_shards(self):
-        """Vocab shards this head spans: None, no port head is sharded."""
+        """Vocab shards this head spans: None for an unsharded head; the
+        sharded heads (``heads/sharded.py``) return their count."""
         return None
 
     def step_key(self) -> tuple:

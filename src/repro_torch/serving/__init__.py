@@ -2,9 +2,10 @@
 continuous-batching streams, requests and routing policies, the
 ``ContinuousScheduler`` with admission, preemption and resilience, and the
 observability it reports through, the paged KV pool (LSTM logical pages
-with a shared-prefix radix cache) and speculative decoding. Twin of
-``repro/serving`` without ``audit_cost_drift`` (ROADMAP.md, Queue 1 item
-8) and the attention families' page store (item 9.1)."""
+with a shared-prefix radix cache, and the dense and moe families' device
+page store) and speculative decoding, through every head the registry
+holds, the vocab-sharded ones included. Twin of ``repro/serving`` without
+``audit_cost_drift`` (ROADMAP.md, Queue 1 item 8)."""
 from repro_torch.serving.engine import (DecodeEngine, DecodeStream,
                                         GenerationResult)
 from repro_torch.serving.kvpool import (PagedDecodeStream, PagePool,

@@ -342,16 +342,32 @@ class DecodeEngine:
 
     # -- head resolution ----------------------------------------------------
     def resolve_head(self, head: Optional[HeadLike]) -> SoftmaxHead:
-        """name | instance | None (engine default) → prepared SoftmaxHead."""
+        """name | instance | None (engine default) → prepared SoftmaxHead.
+        A sharded head with a shard on another device than the engine's is
+        refused: a step runs, and its CUDA graph is captured, on the
+        engine's one device."""
         if head is None:
             return self.head
         if isinstance(head, str):
             if head not in self._head_cache:
-                self._head_cache[head] = heads_registry.get(
-                    head, device=self.device, W=self.W, b=self.b,
-                    screen=self.screen, **self._head_kwargs)
+                self._head_cache[head] = self._on_engine_device(
+                    heads_registry.get(head, device=self.device, W=self.W,
+                                       b=self.b, screen=self.screen,
+                                       **self._head_kwargs))
             return self._head_cache[head]
-        return head.prepare()
+        return self._on_engine_device(head.prepare())
+
+    def _on_engine_device(self, head: SoftmaxHead) -> SoftmaxHead:
+        devices = getattr(head, "devices", ())
+        far = [d for d in devices if not _same_device(d, self.device)]
+        if far:
+            raise ValueError(
+                f"{head.name}: {len(far)} of its {len(devices)} shards lie "
+                f"on {sorted({str(d) for d in far})}, but DecodeEngine runs "
+                f"each step (one CUDA graph) on its one device, "
+                f"{self.device}: place every shard there (n_shards=n, "
+                f"devices=None)")
+        return head
 
     # -- step cache -----------------------------------------------------------
     def _cached_step(self, key: tuple, head: SoftmaxHead, kind: str,
@@ -1151,6 +1167,19 @@ def _write_back(dst, src) -> None:
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
         if d is not s:
             d.copy_(s)
+
+
+def _same_device(a, b) -> bool:
+    """Whether two devices name the same device ("cuda" is the current
+    one)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return (cur() if a.index is None else a.index) == \
+        (cur() if b.index is None else b.index)
 
 
 def _recurrent_leaves(cache) -> List[torch.Tensor]:

@@ -1,7 +1,7 @@
 """Block-paged KV memory: refcounted fixed-size pages + typed exhaustion.
 Twin of ``repro/serving/kvpool/pool.py`` for the LSTM, dense and moe families:
-``bind`` raises NotImplementedError for moe, whose stack is not ported yet
-(ROADMAP.md, Queue 1), and for the SSM families, as the reference does.
+``bind`` raises NotImplementedError for the other families and for a
+sliding-window (ring) cache.
 
 ``PagePool`` is the bookkeeping core of the paged serving path: KV capacity
 is carved into ``num_pages`` pages of ``page_size`` token slots each, and

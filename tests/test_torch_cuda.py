@@ -1827,3 +1827,125 @@ def test_cuda_reduced_vlm_decode_and_audio_match_the_cpu(cuda):
     assert a_cpu.dtype == a_gpu.dtype == torch.float32
     assert float((a_gpu.cpu() - a_cpu).abs().max()) <= \
         1e-4 * float(a_cpu.abs().max())
+
+
+# -- the vocab-sharded heads ------------------------------------------------------
+
+def _sharded_inputs(cuda, L=1500, d=128, r=6, K=5, B=8, seed=26):
+    """A vocabulary that 8 shards of 256 rows over-cover (shards 6 and 7
+    own nothing) and a block screen of K of its 12 tiles a cluster."""
+    from repro_torch.core.screening import candidates_to_padded
+    from repro_torch.interop import screen_from_numpy
+    rng = np.random.default_rng(seed)
+    W = torch.as_tensor(rng.standard_normal((L, d)).astype(np.float32) * 0.1)
+    b = torch.as_tensor(rng.standard_normal(L).astype(np.float32) * 0.1)
+    h = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32))
+    n_blk = -(-L // V_BLK)
+    mask = np.zeros((r, n_blk), bool)
+    for t in range(r):
+        mask[t, rng.choice(n_blk, K, replace=False)] = True
+    idx, lens = candidates_to_padded(mask, L, block=V_BLK)
+    screen = screen_from_numpy(rng.standard_normal((r, d)) * 3, idx, lens, L,
+                               V_BLK)
+    return W.to(cuda), b.to(cuda), h.to(cuda), screen.to(cuda)
+
+
+@pytest.mark.parametrize("k", [1, 5, 300])
+def test_cuda_sharded_fused_per_shard_launch_matches_plain(cuda, k):
+    """screened-sharded local="cuda" over 8 shards: each shard's launch
+    (local block ids; shards 6 and 7 all sentinel; k = 300 above one
+    shard's 2·128 slots, clipped) against the plain version on the same
+    inputs, and the head's ids equal screened-cuda's and the CPU head's."""
+    from repro_torch import heads
+    W, b, h, screen = _sharded_inputs(cuda)
+    hd = heads.get("screened-sharded", device=cuda, W=W, b=b, screen=screen,
+                   n_shards=8, local="cuda")
+    nbs = hd.Ls // V_BLK
+    assert (hd.Ls, nbs) == (256, 2)
+    cluster = torch.argmax(h @ screen.v.T, dim=-1)
+    for s, (Ws, bs, _, blocks) in enumerate(hd.slabs):
+        ids = blocks[cluster].contiguous()
+        assert bool((ids == nbs).all()) == (s >= 6)
+        kk = min(k, ids.shape[-1] * V_BLK)
+        args = (Ws.view(nbs, V_BLK, -1), bs.view(nbs, V_BLK), h, ids)
+        ops.reset_launches()
+        ki, kv, kz = fused_screened_topk(*args, k=kk)
+        assert ops.LAUNCHES["fused_screened_topk"] == 1
+        pi, pv, pz = fused_screened_topk_plain(*args, kk)
+        assert torch.equal(ki, pi)
+        torch.testing.assert_close(kv, pv, **TOL)
+        torch.testing.assert_close(kz, pz, **TOL)
+    kb = min(k, screen.c_max * V_BLK)
+    ops.reset_launches()
+    got = hd.topk_logprobs(h, kb)
+    assert ops.LAUNCHES["fused_screened_topk"] == 8
+    want = heads.get("screened-cuda", device=cuda, W=W, b=b,
+                     screen=screen).topk_logprobs(h, kb)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], **TOL)
+    cpu = heads.get("screened-sharded", device="cpu", W=W.cpu(), b=b.cpu(),
+                    screen=screen.to("cpu"), n_shards=8, local="cuda")
+    assert torch.equal(got[0].cpu(), cpu.topk_logprobs(h.cpu(), kb)[0])
+
+
+SHARDED_GRAPH_HEADS = ["exact-sharded", "screened-sharded", "adaptive-sharded"]
+
+
+@pytest.mark.parametrize("name", SHARDED_GRAPH_HEADS)
+def test_cuda_graph_with_a_sharded_head(cuda, name):
+    """An 8-shard head through the engine's graphs: greedy and beam tokens
+    equal its eager step bodies and its unsharded twin's; one graph per
+    (head, kind); a second call adds none; a replay counts the launches
+    the eager run makes (8 fused launches a step for local="cuda", 1 + 8
+    for adaptive-sharded)."""
+    from repro_torch import heads
+    from repro_torch.testing import eager_beam_search, eager_generate
+    eng, prompts = _graph_engine(cuda, "lstm")
+    kw = dict(device=cuda, W=eng.W, b=eng.b, n_shards=8)
+    twin = {"exact-sharded": eng.resolve_head("exact"),
+            "screened-sharded": eng.resolve_head("screened-cuda"),
+            "adaptive-sharded": _head(eng, "adaptive-fused")}[name]
+    if name == "screened-sharded":
+        kw.update(screen=eng.screen, local="cuda")
+    if name == "adaptive-sharded":
+        kw.update(shortlist=200, n_tails=2)
+    hd = heads.get(name, **kw)
+    eng.generate(prompts, 6, head=hd)                      # capture
+    counts = eng.compiled_step_counts()
+    ops.reset_launches()
+    got = eng.generate(prompts, 6, head=hd)
+    replayed = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    want = eager_generate(eng, prompts, 6, head=hd)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert replayed == ops.LAUNCHES
+    per_step = {"exact-sharded": 0, "screened-sharded": 8,
+                "adaptive-sharded": 9}[name]
+    assert replayed["fused_screened_topk"] == per_step * 6
+    np.testing.assert_array_equal(
+        got.tokens, eng.generate(prompts, 6, head=twin).tokens)
+    gb = eng.beam_search(prompts[0], 4, 6, head=hd)
+    eb = eager_beam_search(eng, prompts[0], 4, 6, head=hd)
+    np.testing.assert_array_equal(gb.tokens, eb.tokens)
+    np.testing.assert_array_equal(
+        gb.tokens, eng.beam_search(prompts[0], 4, 6, head=twin).tokens)
+    assert counts[(name, "greedy")] == 1
+    assert eng.compiled_step_counts()[(name, "decode")] == 1
+    eng.generate(prompts, 6, head=hd)
+    assert eng.compiled_step_counts()[(name, "greedy")] == 1
+
+
+def test_cuda_engine_refuses_shards_across_devices(cuda):
+    """A head with a shard off the engine's card is refused, by name (the
+    engine's head_kwargs) or as an instance; shards all on the card are
+    served."""
+    from repro_torch.heads import ExactShardedHead
+    eng, prompts = _graph_engine(cuda, "lstm")
+    far = ExactShardedHead(eng.W, eng.b, devices=[cuda, "cpu"])
+    with pytest.raises(ValueError, match="one device"):
+        eng.generate(prompts, 2, head=far)
+    eng._head_kwargs = dict(devices=[cuda, "cpu"])
+    with pytest.raises(ValueError, match="cpu"):
+        eng.resolve_head("exact-sharded")
+    near = ExactShardedHead(eng.W, eng.b, devices=[cuda] * 2)
+    assert eng.generate(prompts, 2, head=near).steps == 2

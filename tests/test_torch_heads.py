@@ -2,7 +2,10 @@
 on the same seeded numpy inputs: ``assign_clusters``, both branches of
 ``screened_logits``, and the ``exact``, ``screened`` and ``screened-cuda``
 heads (the latter against ``screened-pallas``, fused and unfused, kernels in
-interpret mode). Ids are exactly equal; values within rtol = atol = 1e-5.
+interpret mode) and the three sharded heads at 2 shards (the reference's
+sharded heads over 2 of conftest's host devices; ``screened-sharded`` on
+both shard-local backends). Ids are exactly equal; values within
+rtol = atol = 1e-5.
 Sampling hands both sides the same Gumbel noise. Also the guards: the
 port's entry points raise without a GPU unless device="cpu" is given, and
 no module of the port or of ``tools/``, nor ``chip_smoke.py`` or
@@ -80,15 +83,25 @@ HEAD_PAIRS = [  # (port head, reference head, screen kind, kwargs)
     ("screened", "screened", "block", {}),
     ("screened-cuda", "screened-pallas", "block", {"fused": True}),
     ("screened-cuda", "screened-pallas", "block", {"fused": False}),
+    ("exact-sharded", "exact-sharded", None, {"n_shards": 2}),
+    ("screened-sharded", "screened-sharded", "word", {"n_shards": 2}),
+    ("screened-sharded", "screened-sharded", "block",
+     {"n_shards": 2, "local": "cuda"}),
+    ("adaptive-sharded", "adaptive-sharded", None,
+     {"n_shards": 2, "shortlist": 200, "n_tails": 2}),
 ]
 IDS = ["exact", "screened-word", "screened-block", "cuda-fused",
-       "cuda-unfused"]
+       "cuda-unfused", "exact-sharded", "sharded-word", "sharded-cuda",
+       "adaptive-sharded"]
+# the reference's names of the sharded heads' shard-local backends
+J_LOCAL = {"torch": "jnp", "cuda": "pallas"}
 
 
 def _pair(fx, tname, jname, kind, kw):
     js = None if kind is None else fx["j" + kind]
     ts = None if kind is None else fx["t" + kind]
-    return _thead(fx, tname, ts, **kw), _jhead(fx, jname, js, **kw)
+    jkw = dict(kw, local=J_LOCAL[kw["local"]]) if "local" in kw else kw
+    return _thead(fx, tname, ts, **kw), _jhead(fx, jname, js, **jkw)
 
 
 def test_assign_clusters_matches(fx):
@@ -145,7 +158,9 @@ def test_head_sample_matches_with_shared_noise(fx, tname, jname, kind, kw,
     th, jh = _pair(fx, tname, jname, kind, kw)
     key = jax.random.key(3)
     B = fx["B"]
-    if tname == "exact":
+    if tname.endswith("-sharded"):
+        shape = th.noise_shape(B, 1.0)       # the reference draws this shape
+    elif tname == "exact":
         shape = (B, fx["L"])
     elif tname == "screened":
         shape = (B, fx["j" + kind].c_max * fx["j" + kind].block)
@@ -190,15 +205,13 @@ def test_cost_models_match(fx):
 
 
 def test_registry_guards(fx):
-    # the reference's heads, ``screened-pallas`` as ``screened-cuda``, less
-    # the sharded ones (ROADMAP.md Queue 1 item 10)
-    sharded = {"exact-sharded", "screened-sharded", "adaptive-sharded"}
+    # the reference's heads, ``screened-pallas`` as ``screened-cuda``
     assert heads.names() == sorted(
-        set(jheads.names()) - sharded - {"screened-pallas"} |
-        {"screened-cuda"})
+        set(jheads.names()) - {"screened-pallas"} | {"screened-cuda"})
     assert heads.names() == [
-        "adaptive", "exact", "greedy-mips", "lsh-mips", "pca-mips",
-        "screened", "screened-cpu", "screened-cuda", "shortlist", "svd"]
+        "adaptive", "adaptive-sharded", "exact", "exact-sharded",
+        "greedy-mips", "lsh-mips", "pca-mips", "screened", "screened-cpu",
+        "screened-cuda", "screened-sharded", "shortlist", "svd"]
     with pytest.raises(KeyError, match="unknown head"):
         _thead(fx, "screened-pallas")
     with pytest.raises(heads.MissingScreenError):
