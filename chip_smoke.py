@@ -16,6 +16,7 @@ audio families.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only sharded   # build, train and l2s, [sharded]
+    python3 chip_smoke.py --only cost      # build, train and l2s, [cost]
     python3 chip_smoke.py --only train-ssm # [train-ssm], its result as JSON
 
 Phases, one line (or a few) each:
@@ -178,9 +179,10 @@ Phases, one line (or a few) each:
               run adds no graph; one step's head (next(h), B = 4) of
               exact, screened-cuda and adaptive timed in turns with its
               bound;
-     sharded  (run last, after the training phases, with the trained LM
-              kept from [l2s]) the vocab-sharded heads, every shard on the
-              one card: (a)
+     sharded  (run after the training phases, with the trained LM kept
+              from [l2s]; its (a) and (b) run last, with [cost] between
+              them) the vocab-sharded heads, every shard on the one card:
+              (a)
               on the trained LM, fitted screen and counts, at 1, 2 and 8
               shards, fresh engines (graphs): greedy 4 x 16 and beam 5 of
               exact-sharded, screened-sharded (local="cuda": the fused
@@ -202,6 +204,26 @@ Phases, one line (or a few) each:
               launch beside its plain version and bound (CUDA events,
               median of 30, clean L2); paths
               "nmt-deen-lstm sharded", "gemma-2b-vocab sharded";
+     cost     (after [sharded] (a), before its (b); on the same trained LM and
+              fitted screen)
+              the op-level cost counter (launch/op_cost.py):
+              audit_cost_drift over the 13 heads the package registers on
+              the card (no error entry), each torch head's op FLOPs and
+              bytes == its count on the CPU; at 4 held-out rows the fused
+              screened-cuda call records no (B, K*128) float32 result and
+              the unfused one does, fused bytes below unfused, both == the
+              CPU's counts (the path's launches: the audit's and these
+              calls'); then, counted apart, the route, gather and fused
+              launches against their plain versions; the recording hooks'
+              host time a wrapper call outside a count; then a dry-run
+              record that fits the card (gemma-2b decode, 4 rows over 4,096
+              slots, counted on meta): param bytes == the params drawn on
+              the card, FLOPs and bytes == the same step counted on the
+              card, the step's peak new storage run for real after a
+              warm-up == the counted temp_bytes + the largest workspace
+              one op holds inside its call (measured op by op), within 3 %
+              of temp_bytes; paths
+              "nmt-deen-lstm cost", "gemma-2b cost";
      spec     on the trained LM and fitted screen: a SpecDecodeStream of
               width 8 (draft screened-cuda, verify exact, draft_len 4) over
               [stream]'s 12 joins: greedy tokens == a plain width-8 exact
@@ -440,6 +462,7 @@ Phases, one line (or a few) each:
               ("nmt-deen-lstm stream", "zamba2-2.7b stream"),
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
               "nmt-deen-lstm sharded", "gemma-2b-vocab sharded",
+              "nmt-deen-lstm cost", "gemma-2b cost",
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
               paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", the five
               dense paths, the five moe paths, "qwen2-vl-2b bf16",
@@ -485,8 +508,8 @@ T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOP_PER_S  # noqa: E402
 D, V, R, K = 500, 25_000, 100, 16
 V_BLK = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -4454,6 +4477,280 @@ def phase_sharded_gemma(torch, np):
     return acc, rows
 
 
+# -- the op-level cost counter ----------------------------------------------------
+COST_SHAPE = (4, 4096)           # [cost] gemma-2b decode: B rows, S cache slots
+COST_MEM_TOL = 0.03              # of temp_bytes: the step's peak new storage
+                                 # vs temp_bytes + the largest op transient
+# [cost] audits these heads, every head the package registers: a fixed list,
+# so that a head a phase before registers (screened-cuda-unfused) is not
+# audited in a full run and missed in --only cost
+COST_HEADS = ("adaptive", "adaptive-sharded", "exact", "exact-sharded",
+              "greedy-mips", "lsh-mips", "pca-mips", "screened",
+              "screened-cpu", "screened-cuda", "screened-sharded",
+              "shortlist", "svd")
+COST_HOOK_CALLS = 200_000        # calls timed of the recording hooks, idle
+
+
+def phase_cost(torch, np, ctx):
+    """[cost] (a) on the trained nmt-deen-lstm and its fitted screen:
+    ``audit_cost_drift`` over COST_HEADS through one engine on the card (8
+    shards for the sharded heads; no error entry); each torch head's op
+    FLOPs and bytes == its count on the CPU over the same weights and
+    screen; at B = 4 held-out rows the fused screened-cuda call records no
+    (B, K·128) float32 result and the unfused one does, fused bytes below
+    unfused, both counts == the CPU's, fused ids == unfused ids bit for
+    bit. The path's launches are those of the audit and the contract's
+    calls; then, counted apart, the route, gather and fused launches
+    against their plain versions. The recording hooks' host time a wrapper
+    call outside a count. (b) one dry-run record that fits the card:
+    gemma-2b decode of 4 rows over 4,096 cache slots (bf16), counted on
+    meta: its param bytes == the bytes of the params drawn on the card, its
+    FLOPs and bytes == the count of the same step run on the card, and the
+    step's peak new storage run for real (``max_memory_allocated`` less
+    what was allocated after a warm-up) within COST_MEM_TOL of
+    ``temp_bytes`` (the counted peak of the storage the step allocates,
+    its results included) plus the largest transient of one op, measured
+    by ``op_transients`` (a GEMM's workspace). → (max abs errors, launches
+    by path)."""
+    from repro_torch import heads
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import cost, ops
+    from repro_torch.kernels.fused_topk import fused_screened_topk_plain
+    from repro_torch.kernels.route import cluster_route, cluster_route_plain
+    from repro_torch.kernels.screen import (screened_logits,
+                                            screened_logits_plain)
+    from repro_torch.launch.dryrun import lower_combo
+    from repro_torch.launch.op_cost import count_cost, materializes_f32_buffer
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.models.model import to_device
+    from repro_torch.serving import DecodeEngine, audit_cost_drift
+    from repro_torch.utils import tree_bytes
+    t_phase = time.perf_counter()
+    model, params, screen = ctx["model"], ctx["params"], ctx["screen"]
+    kw = dict(counts=ctx["counts"], shortlist=SHORTLIST, n_tails=N_TAILS,
+              n_shards=SHARD_GEMMA, local="cuda")
+    names = sorted(COST_HEADS)
+    check(set(names) <= set(heads.names()), f"[cost] heads "
+          f"{set(names) - set(heads.names())} are not registered")
+    paths = {}
+    ops.reset_launches()
+    eng = DecodeEngine(model, params, screen=screen, device="cuda",
+                       head_kwargs=kw)
+    drift = audit_cost_drift(eng, names, iters=20, warmup=2)
+    check(sorted(drift) == names and
+          not [n for n, e in drift.items() if "error" in e],
+          f"[cost] the audit: heads {sorted(drift)}, errors "
+          f"{ {n: e['error'] for n, e in drift.items() if 'error' in e} }")
+    counted = [n for n in names if "op_flops" in drift[n]["measured"]]
+    check(set(counted) == {n for n in names if not n.endswith("-sharded")
+                           and eng.resolve_head(n).is_jittable},
+          f"[cost] op counts for {counted}: every unsharded torch head, "
+          f"no host or sharded one")
+    cpu_eng = DecodeEngine(model, to_device(params, "cpu"),
+                           screen=screen.to("cpu"), device="cpu",
+                           head_kwargs=kw)
+    cpu = audit_cost_drift(cpu_eng, counted, iters=1, warmup=0)
+    for n in counted:
+        got, want = drift[n]["measured"], cpu[n]["measured"]
+        check((got["op_flops"], got["op_bytes"]) ==
+              (want["op_flops"], want["op_bytes"]),
+              f"[cost] {n}: op count on the card {got} != the CPU's {want}")
+    for n in names:
+        e = drift[n]
+        m, r = e["measured"], e["ratio"]
+        counts = (f"op_flops {m['op_flops']:.6g} op_bytes {m['op_bytes']:.6g}"
+                  f" (== the CPU's), ratio flops {r['flops']} bytes "
+                  f"{r['bytes']}" if "op_flops" in m else
+                  "not counted (host or sharded)")
+        log(f"[cost] drift {n}: predicted flops "
+            f"{e['predicted']['flops_per_query']:.6g} bytes "
+            f"{e['predicted']['bytes_per_query']:.6g}; {counts}; "
+            f"{m['wall_s_per_query'] * 1e3:.5f} ms a query (host clock, "
+            f"synchronised)")
+
+    # the memory contract on the card, each count == the CPU's
+    h = torch.as_tensor(ctx["Hte"][:4], device="cuda").contiguous()
+    fused = eng.resolve_head("screened-cuda")
+    unfused = heads.get("screened-cuda", W=eng.W, b=eng.b, screen=eng.screen,
+                        fused=False, device="cuda")
+    cpu_heads = (cpu_eng.resolve_head("screened-cuda"),
+                 heads.get("screened-cuda", W=cpu_eng.W, b=cpu_eng.b,
+                           screen=cpu_eng.screen, fused=False, device="cpu"))
+    B, K = h.shape[0], screen.cand_idx.shape[1]
+    with torch.inference_mode():
+        (fi, fv), cf = count_cost(fused.topk, h, 5)
+        (ui, uv), cu = count_cost(unfused.topk, h, 5)
+        cpu_counts = [count_cost(hd.topk, h.cpu(), 5)[1] for hd in cpu_heads]
+    check(materializes_f32_buffer(cu, B, K, V_BLK) and
+          not materializes_f32_buffer(cf, B, K, V_BLK) and
+          cf.bytes_accessed < cu.bytes_accessed,
+          f"[cost] memory contract at B={B}, K={K}: unfused tile "
+          f"{materializes_f32_buffer(cu, B, K, V_BLK)}, fused tile "
+          f"{materializes_f32_buffer(cf, B, K, V_BLK)}, bytes "
+          f"{cf.bytes_accessed} vs {cu.bytes_accessed}")
+    for got, want in zip((cf, cu), cpu_counts):
+        check((got.flops, got.bytes_accessed) ==
+              (want.flops, want.bytes_accessed),
+              f"[cost] screened-cuda count on the card != the CPU's")
+    check(torch.equal(fi, ui) and torch.equal(fv, uv),
+          "[cost] fused and unfused ids / values differ")
+    # the path: the audit and the contract's calls
+    paths["nmt-deen-lstm cost"] = dict(ops.LAUNCHES)
+    for name in L2S_KERNELS:
+        check(paths["nmt-deen-lstm cost"][name] > 0,
+              f"[cost] {name} was not launched on the path")
+    # each kernel against its plain version, its launches counted apart
+    ops.reset_launches()
+    err = {}
+    with torch.inference_mode():
+        v = fused.screen.v
+        route = cluster_route(h, v)
+        want_r = cluster_route_plain(h, v)
+        check(torch.equal(route, want_r), "[cost] routes differ from the "
+              "plain version")
+        ids = fused.screen.cand_idx[route.long()].contiguous()
+        raw = screened_logits(fused._Wb, fused._bb, h, ids)
+        raw_p = screened_logits_plain(fused._Wb, fused._bb, h, ids)
+        torch.testing.assert_close(raw, raw_p, **TOL)
+        ki, kv, kz = ops.fused_screened_topk(fused._Wb, fused._bb, h, ids, 5)
+        pi, pv, pz = fused_screened_topk_plain(fused._Wb, fused._bb, h, ids, 5)
+        torch.testing.assert_close(kv, pv, **TOL)
+        torch.testing.assert_close(kz, pz, **TOL)
+        check(torch.equal(ki, pi), "[cost] fused ids differ from the plain "
+              "version's")
+    err["cluster_route"] = 0.0
+    err["screened_logits"] = float((raw - raw_p).abs().max())
+    err["fused_screened_topk"] = max(float((kv - pv).abs().max()),
+                                     float((kz - pz).abs().max()))
+    parity = {n: c for n, c in ops.LAUNCHES.items() if c}
+    # the hooks a wrapper runs outside a count: one suspended() context, a
+    # counting() test and a record_kernel() that returns at once
+    t0 = time.perf_counter()
+    for _ in range(COST_HOOK_CALLS):
+        with cost.suspended():
+            pass
+        cost.counting()
+        cost.record_kernel("idle", (), 0, 0)
+    hook_us = (time.perf_counter() - t0) / COST_HOOK_CALLS * 1e6
+    log(f"[cost] memory contract on the card, B={B}, K={K} tiles, k=5: "
+        f"unfused records the ({B}, {K}, {V_BLK}) float32 tile, fused none; "
+        f"bytes {cf.bytes_accessed:.6g} fused vs {cu.bytes_accessed:.6g} "
+        f"unfused ({cu.bytes_accessed / cf.bytes_accessed:.2f}x), flops "
+        f"{cf.flops:.6g} vs {cu.flops:.6g}; each count == the CPU's; fused "
+        f"== unfused bit for bit; kernels against their plain versions: "
+        f"{json.dumps(err)} (their launches, not on the path: "
+        f"{json.dumps(parity)}); path launches (audit and contract calls) "
+        f"{json.dumps(paths['nmt-deen-lstm cost'])}; the recording hooks "
+        f"outside a count {hook_us:.4f} us a wrapper call (host clock, mean "
+        f"of {COST_HOOK_CALLS})")
+    del eng, cpu_eng, fused, unfused
+
+    # (b) a dry-run record that fits, against the same step on the card
+    Bg, Sg = COST_SHAPE
+    cfg = get_config("gemma-2b")
+    t0 = time.perf_counter()
+    rec = lower_combo(cfg, ShapeConfig("decode_4x4096", Sg, Bg, "decode"))
+    t_dry = time.perf_counter() - t0
+    mem = rec["memory"]
+    check(rec["fits_one_card"], f"[cost] the dry run says gemma-2b decode "
+          f"{Bg} x {Sg} does not fit: {mem}")
+    gm = Model(cfg)
+    gparams = gm.init(torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    check(tree_bytes(gparams) == mem["param_bytes"],
+          f"[cost] param bytes {tree_bytes(gparams)} != the dry run's "
+          f"{mem['param_bytes']}")
+    step = make_serve_step(gm)
+    ops.reset_launches()
+    cache = gm.init_cache(Bg, Sg, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (Bg,), dtype=torch.int32,
+                        device="cuda")
+    pos = torch.tensor(Sg - 96, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        m_pre = torch.cuda.memory_allocated()
+        step(gparams, cache, tok, pos)                     # warm-up
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(gparams, cache, tok, pos)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - m0
+        _, card = count_cost(step, gparams, cache, tok, pos)
+        transients = op_transients(torch, step, gparams, cache, tok, pos)
+    paths["gemma-2b cost"] = dict(ops.LAUNCHES)
+    # the warm-up, the measured step, the counted one and the watched one
+    check(paths["gemma-2b cost"]["cache_slot_update"] == 4 * cfg.num_layers,
+          f"[cost] gemma-2b: {paths['gemma-2b cost']['cache_slot_update']} "
+          f"cache launches in 4 steps of {cfg.num_layers} layers")
+    rl = rec["roofline"]
+    check((card.flops, card.bytes_accessed) ==
+          (rl["flops_per_dev"], rl["bytes_per_dev"]),
+          f"[cost] gemma-2b decode counted on the card ({card.flops}, "
+          f"{card.bytes_accessed}) != on meta ({rl['flops_per_dev']}, "
+          f"{rl['bytes_per_dev']})")
+    # the counter sees the results of ops, not a library's workspace that
+    # an op takes and gives back inside its call: add the largest, measured
+    temp = mem["temp_bytes"]
+    ws_op = max(transients, key=transients.get)
+    ws = transients[ws_op]
+    rel = abs(peak - temp - ws) / temp
+    check(rel <= COST_MEM_TOL, f"[cost] gemma-2b decode: the step's peak "
+          f"new storage on the card {peak} B vs the dry run's temp_bytes "
+          f"{temp} B + {ws_op}'s transient {ws} B ({rel:.2%} of temp > "
+          f"{COST_MEM_TOL:.0%})")
+    log(f"[cost] dry run gemma-2b decode {Bg} x {Sg} (bf16 cache) on meta "
+        f"in {t_dry:.1f} s: params {rec['params']} ({mem['param_bytes']} B "
+        f"== the card's), argument {mem['argument_bytes']} B, temp "
+        f"{mem['temp_bytes']} B, flops {rl['flops_per_dev']:.6g}, bytes "
+        f"{rl['bytes_per_dev']:.6g} (== the same step counted on the card), "
+        f"bound {rl['bound_s'] * 1e3:.4f} ms ({rl['dominant']}); the step "
+        f"run for real after a warm-up: peak new storage {peak} B = temp "
+        f"{temp} B + the largest op transient, {ws_op}'s {ws} B (a "
+        f"workspace held inside the op), {peak - temp - ws:+d} B "
+        f"({rel:.3%} of temp; tolerance {COST_MEM_TOL:.0%}); op transients "
+        f"over 0: {json.dumps({n: b for n, b in transients.items() if b})};"
+        f" the warm-up's lasting growth {m0 - m_pre} B")
+    del gparams, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[cost] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return err, paths
+
+
+def op_transients(torch, fn, *args):
+    """Run ``fn(*args)`` once on the card with each aten op watched →
+    {op name: the most device memory one call of it held beyond its
+    results while it ran (a library's workspace, freed before it
+    returns)}. The allocator's counters are host-side, so no op waits."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    seen = {}
+
+    def ptrs(tree):
+        return {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tree_leaves(tree) if isinstance(t, torch.Tensor)}
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = func(*args, **(kwargs or {}))
+            held = ptrs((args, kwargs))
+            # the allocator hands out blocks of whole 512-byte units
+            res = sum(-(-n // 512) * 512 for ptr, n in ptrs(out).items()
+                      if ptr not in held)
+            extra = torch.cuda.max_memory_allocated() - before - res
+            name = func.overloadpacket.__name__
+            seen[name] = max(seen.get(name, 0), extra)
+            return out
+
+    with Watch():
+        fn(*args)
+    return seen
+
+
 def graphed(torch, fn):
     """``fn`` captured in a CUDA graph (run once on the capture stream
     first, outside the capture) → the graph's ``replay``."""
@@ -6500,6 +6797,14 @@ def main() -> int:
         return 0
     kind, _ = phase_device(torch)
     walled("build", phase_build, ops)
+    if sys.argv[1:] == ["--only", "cost"]:
+        # the [cost] phase alone, after the training it audits; no result
+        # lines
+        _, ctx = walled("train and l2s", phase_train_l2s, torch, np)
+        walled("cost", phase_cost, torch, np, ctx)
+        log(f"[done] --only cost took {time.perf_counter() - T_START:.1f} s;"
+            f" phase walls (s): {json.dumps(WALLS)}")
+        return 0
     if sys.argv[1:] == ["--only", "sharded"]:
         # the [sharded] phases alone, after the training that (a) decodes
         # with; no result lines
@@ -6535,8 +6840,8 @@ def main() -> int:
                                  ctx)
     err["screened_logits"] = max(err["screened_logits"], dist_err)
     pool_lstm = walled("pool", phase_pool_lstm, torch, np, ctx)
-    # kept on the host for [sharded], run last: the card's memory stays as
-    # the phases between were written for
+    # kept on the host for [sharded] and [cost], run last: the card's
+    # memory stays as the phases between were written for
     l2s_ctx = dict(ctx, params=to_device(ctx["params"], "cpu"),
                    screen=ctx["screen"].to("cpu"))
     del ctx
@@ -6628,6 +6933,9 @@ def main() -> int:
                    screen=l2s_ctx["screen"].to("cuda"))
     sharded_lstm = walled("sharded lstm", phase_sharded_lstm, torch, np,
                           l2s_ctx)
+    cost_err, cost_paths = walled("cost", phase_cost, torch, np, l2s_ctx)
+    for name, e in cost_err.items():
+        err[name] = max(err[name], e)
     del l2s_ctx
     sharded_gemma, shard_rows = walled("sharded gemma-vocab",
                                        phase_sharded_gemma, torch, np)
@@ -6653,7 +6961,7 @@ def main() -> int:
              "gemma-2b bf16": gemma, "gemma-2b paged": gemma_paged,
              "gemma-2b spec": gemma_spec, "starcoder2-3b bf16": starcoder,
              "qwen1.5-110b bf16": qwen, **moe, "qwen2-vl-2b bf16": vlm,
-             **audio, **train_ssm, **train_attn}
+             **audio, **train_ssm, **train_attn, **cost_paths}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),

@@ -2,11 +2,13 @@
 reference's registry (the paper's LSTMs, the dense transformers
 smollm-360m, gemma-2b, starcoder2-3b and qwen1.5-110b, the moe
 transformers mixtral-8x7b and phi3.5-moe-42b-a6.6b, mamba2-1.3b,
-zamba2-2.7b, the vlm qwen2-vl-2b and the audio encoder hubert-xlarge)."""
+zamba2-2.7b, the vlm qwen2-vl-2b and the audio encoder hubert-xlarge), and
+``ASSIGNED_ARCHS``, the ten the dry run costs over ``INPUT_SHAPES``."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (V_BLK, L2SConfig, ModelConfig,
-                                      MoEConfig, SSMConfig, TrainConfig)
+from repro_torch.configs.base import (INPUT_SHAPES, V_BLK, L2SConfig,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig, TrainConfig, shapes_for)
 from repro_torch.configs.gemma_2b import CONFIG as _gemma_2b
 from repro_torch.configs.hubert_xlarge import CONFIG as _hubert_xlarge
 from repro_torch.configs.mamba2_1p3b import CONFIG as _mamba2_1p3b
@@ -28,11 +30,26 @@ REGISTRY = {c.name: c for c in (_ptb_small, _ptb_large, _nmt_deen,
                                 _hubert_xlarge)}
 
 
+ASSIGNED_ARCHS = (
+    "gemma-2b",
+    "phi3.5-moe-42b-a6.6b",
+    "smollm-360m",
+    "qwen2-vl-2b",
+    "hubert-xlarge",
+    "starcoder2-3b",
+    "zamba2-2.7b",
+    "qwen1.5-110b",
+    "mamba2-1.3b",
+    "mixtral-8x7b",
+)
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
     return REGISTRY[name]
 
 
-__all__ = ["L2SConfig", "ModelConfig", "MoEConfig", "REGISTRY", "SSMConfig", "TrainConfig",
-           "V_BLK", "get_config"]
+__all__ = ["ASSIGNED_ARCHS", "INPUT_SHAPES", "L2SConfig", "ModelConfig",
+           "MoEConfig", "REGISTRY", "SSMConfig", "ShapeConfig", "TrainConfig",
+           "V_BLK", "get_config", "shapes_for"]

@@ -2,9 +2,10 @@
 its families (``lstm``, ``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm``,
 ``audio``) read, ``MoEConfig``, ``SSMConfig``, and the training side's
 ``L2SConfig`` (Algorithm 1) and ``TrainConfig`` (the LM trainer), field for
-field with the reference's defaults, the derived ``q_per_kv`` and
-``supports_decode``, and the reference's analytic ``param_count`` /
-``active_param_count``.
+field with the reference's defaults, the derived ``q_per_kv``,
+``supports_decode`` and ``supports_long_context``, the reference's analytic
+``param_count`` / ``active_param_count``, and the dry run's four input
+shapes (``ShapeConfig``, ``INPUT_SHAPES``, ``shapes_for``).
 
 ``reduced()`` gives the same small CPU variant as the reference, field for
 field (``tests/test_torch_ssm.py`` and ``tests/test_torch_vlm.py`` assert
@@ -13,7 +14,7 @@ it).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 # Vocab block size of the block-candidate screens and of the packed softmax
 # head (one CUDA tile of 128 rows).
@@ -90,6 +91,12 @@ class ModelConfig:
     @property
     def supports_decode(self) -> bool:
         return not self.is_encoder
+
+    def supports_long_context(self) -> bool:
+        """True if decode over 500k context is sub-quadratic / bounded-state."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
 
     def param_count(self) -> int:
         """Analytic parameter count, the reference's formula (norm scales
@@ -192,3 +199,31 @@ class TrainConfig:
     microbatch: Optional[int] = None   # gradient accumulation (None = off)
     remat: str = "block"               # none | block (a no-op in the port)
     loss_chunk: Optional[int] = 512    # chunked xent (no full B,T,V logits)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the 4 assigned input shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Which of the 4 input shapes apply to an architecture: an encoder
+    has no decode; long_500k runs dense archs as the dry run's
+    sliding-window variant (``launch/dryrun.py::decode_window``)."""
+    out = ["train_4k", "prefill_32k"]
+    if cfg.supports_decode:
+        out.append("decode_32k")
+        out.append("long_500k")
+    return tuple(out)

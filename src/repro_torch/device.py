@@ -8,7 +8,10 @@ def resolve_device(device="cuda") -> torch.device:
     """``device`` (str or torch.device) → torch.device, checked.
 
     A CUDA device without a visible GPU raises instead of silently running
-    on the CPU: the CPU is taken only when the caller asks for it.
+    on the CPU: the CPU is taken only when the caller asks for it. The
+    ``meta`` device (shapes and dtypes, no storage) is taken only when the
+    caller names it, as the dry run does (``launch/dryrun.py``); nothing
+    falls back to it.
 
     On a CUDA device this also turns TF32 off for float32 matrix products
     and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -23,6 +26,7 @@ def resolve_device(device="cuda") -> torch.device:
                 "available; pass device='cpu' to run the plain PyTorch path")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda', 'cpu' or 'meta', got "
+                         f"{dev}")
     return dev

@@ -52,6 +52,7 @@ from repro_torch.heads.base import (NEG_INF, ScreenBlockError, SoftmaxHead,
                                     require_screen, sample_from_logits)
 from repro_torch.kernels.fused_topk import fused_screened_topk
 from repro_torch.kernels.ref import topk_desc
+from repro_torch.kernels import cost
 
 
 # -- merge primitives ---------------------------------------------------------
@@ -97,20 +98,33 @@ def simulate_sharded_topk(logits: torch.Tensor, n_shards: int, k: int):
 
 # -- the collectives: one tensor per shard, joined on the first shard's device
 
+# Under ``launch/op_cost.count_cost`` each records one collective (its
+# result bytes, the reference's convention), even when every shard sits on
+# one device and ``.to(lead)`` moves nothing; its plumbing is not counted.
+
 def _all_gather(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """(B, w) per shard → (B, n·w), shard-major (``all_gather(tiled)``)."""
     lead = parts[0].device
-    return torch.cat([p.to(lead) for p in parts], dim=1)
+    with cost.suspended():
+        out = torch.cat([p.to(lead) for p in parts], dim=1)
+    cost.record_collective("all-gather", parts, out)
+    return out
 
 
 def _pmax(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     lead = parts[0].device
-    return torch.stack([p.to(lead) for p in parts]).amax(dim=0)
+    with cost.suspended():
+        out = torch.stack([p.to(lead) for p in parts]).amax(dim=0)
+    cost.record_collective("all-reduce", parts, out)
+    return out
 
 
 def _psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     lead = parts[0].device
-    return torch.stack([p.to(lead) for p in parts]).sum(dim=0)
+    with cost.suspended():
+        out = torch.stack([p.to(lead) for p in parts]).sum(dim=0)
+    cost.record_collective("all-reduce", parts, out)
+    return out
 
 
 def _global_lse(parts: Sequence[torch.Tensor]) -> torch.Tensor:

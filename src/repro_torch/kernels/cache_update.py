@@ -10,7 +10,10 @@ cache is updated IN PLACE (the reference returns a new array). float32
 and bfloat16; S needs no rounding to 128 (that was a TPU tiling rule).
 
 On a CUDA tensor ``cache_slot_update`` launches ``csrc/cache_update.cu``;
-on a CPU tensor it runs ``cache_slot_update_plain``, an index assignment.
+on a CPU tensor it runs ``cache_slot_update_plain``, an index assignment; on
+a meta tensor (the dry run's decode) it writes nothing. Under
+``launch/op_cost.count_cost`` each call records one ``cache_slot_update``
+op (``kernels/cost.py``): the update rows read and written, the cache's other rows not at all.
 ``cache_kv_update`` writes a K and a V cache at the same slots: one launch
 on the card (counted once, under ``cache_slot_update``), two plain calls on
 the CPU.
@@ -20,6 +23,8 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import torch
+
+from repro_torch.kernels import cost
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -71,12 +76,18 @@ def cache_slot_update(cache: torch.Tensor, update: torch.Tensor,
     the cache's device. Writes in place and returns ``cache``."""
     from repro_torch.kernels import ops
     slots, k_slot = _check(cache, update, slot)
-    if cache.device.type == "cpu":
-        return cache_slot_update_plain(cache, update, slot)
     B, S, KV, hd = cache.shape
-    ops.launch("cache_slot_update", "cache_update", "l2s_cache_slot_update",
-               cache.device, cache.data_ptr(), update.data_ptr(), slots, k_slot,
-               B, S, KV * hd * cache.element_size())
+    with cost.suspended():
+        if cache.device.type == "cpu":
+            cache_slot_update_plain(cache, update, slot)
+        elif cache.device.type == "cuda":
+            ops.launch("cache_slot_update", "cache_update",
+                       "l2s_cache_slot_update", cache.device,
+                       cache.data_ptr(), update.data_ptr(), slots, k_slot,
+                       B, S, KV * hd * cache.element_size())
+    # the update read and its rows written (a meta cache: nothing to write)
+    cost.record_kernel("cache_slot_update", [update], 0,
+                          2 * cost.tensor_bytes(update), fresh=False)
     return cache
 
 
@@ -93,12 +104,18 @@ def cache_kv_update(cache_k: torch.Tensor, upd_k: torch.Tensor,
         raise ValueError(f"cache_v {tuple(cache_v.shape)} {cache_v.dtype} "
                          f"differs from cache_k {tuple(cache_k.shape)} "
                          f"{cache_k.dtype}")
-    if cache_k.device.type == "cpu":
-        return (cache_slot_update_plain(cache_k, upd_k, slot),
-                cache_slot_update_plain(cache_v, upd_v, slot))
     B, S, KV, hd = cache_k.shape
-    ops.launch("cache_slot_update", "cache_update", "l2s_cache_kv_update",
-               cache_k.device, cache_k.data_ptr(), upd_k.data_ptr(),
-               cache_v.data_ptr(), upd_v.data_ptr(), slots, k_slot, B, S,
-               KV * hd * cache_k.element_size())
+    with cost.suspended():
+        if cache_k.device.type == "cpu":
+            cache_slot_update_plain(cache_k, upd_k, slot)
+            cache_slot_update_plain(cache_v, upd_v, slot)
+        elif cache_k.device.type == "cuda":
+            ops.launch("cache_slot_update", "cache_update",
+                       "l2s_cache_kv_update", cache_k.device,
+                       cache_k.data_ptr(), upd_k.data_ptr(),
+                       cache_v.data_ptr(), upd_v.data_ptr(), slots, k_slot,
+                       B, S, KV * hd * cache_k.element_size())
+    cost.record_kernel("cache_slot_update", [upd_k, upd_v], 0,
+                          2 * (cost.tensor_bytes(upd_k) +
+                               cost.tensor_bytes(upd_v)), fresh=False)
     return cache_k, cache_v

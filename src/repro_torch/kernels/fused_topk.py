@@ -13,10 +13,15 @@ one block per (row, slot, part of the tile) writes its part's sorted top list
 and (max, sum-exp) to scratch, and the last block of each row to finish
 merges the row in the same launch, holding each list's head in shared
 memory and reading the lists from the scratch in L2, so every k is
-served. On a CPU tensor it runs
-``fused_screened_topk_plain``. Both need 1 ≤ k ≤ K·V_BLK: the unfused
-reference's ``top_k`` refuses a larger k, and for one the Pallas kernel pads
-with −inf values whose ids repeat real candidates.
+served. On a CPU tensor it runs ``fused_screened_topk_plain``; on a meta
+tensor it returns empty results (the dry run). Under
+``launch/op_cost.count_cost`` it records one ``fused_screened_topk`` op
+(``kernels/cost.py``), whose results are (ids, vals, logZ) alone: no
+(B, K·V_BLK) logit tile; its products are those of the valid slots, as the
+kernel skips a sentinel slot.
+Both need 1 ≤ k ≤ K·V_BLK: the unfused reference's ``top_k`` refuses a
+larger k, and for one the Pallas kernel pads with −inf values whose ids
+repeat real candidates.
 
 The packed head and h may be float32 or bfloat16 (one dtype for the three,
 the weights' own); the noise, the logits and the outputs are float32. On the
@@ -33,6 +38,7 @@ import torch
 from repro_torch.configs.base import V_BLK
 from repro_torch.kernels.ref import NEG_INF, topk_desc
 from repro_torch.kernels.screen import check_head_inputs, screened_logits_plain
+from repro_torch.kernels import cost
 
 
 def fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k: int,
@@ -77,11 +83,31 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
         if tuple(noise.shape) != (B, K, v_blk):
             raise ValueError(f"noise must be {(B, K, v_blk)}, got "
                              f"{tuple(noise.shape)}")
-    if dev.type == "cpu":
-        return fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k,
-                                         noise)
-    return _launch(W_blocks, b_blocks, h, block_ids, k, noise,
-                   fused_parts(B, K, _sm_count(dev)))
+    with cost.suspended():
+        if dev.type == "cpu":
+            out = fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids,
+                                            k, noise)
+        elif dev.type == "meta":
+            out = (torch.empty((B, k), dtype=torch.int32, device=dev),
+                   torch.empty((B, k), dtype=torch.float32, device=dev),
+                   torch.empty((B,), dtype=torch.float32, device=dev))
+        else:
+            out = _launch(W_blocks, b_blocks, h, block_ids, k, noise,
+                          fused_parts(B, K, _sm_count(dev)))
+    if cost.counting():
+        # the valid distinct tiles read once and the valid slots' products
+        # (a sentinel slot reads and computes nothing), h, the ids and the
+        # noise; only (ids, vals, logZ) written
+        n_blk, _, d = W_blocks.shape
+        esz = W_blocks.element_size()
+        tiles = cost.distinct_tiles(block_ids, n_blk)
+        cost.record_kernel(
+            "fused_screened_topk" + (ops.BF16 if esz == 2 else ""), out,
+            2 * cost.valid_slots(block_ids, n_blk) * v_blk * d,
+            tiles * v_blk * (d + 1) * esz + esz * B * d + 4 * B * K +
+            (0 if noise is None else 4 * B * K * v_blk) +
+            4 * (2 * B * k + B))
+    return out
 
 
 # the H100's shared memory for one block (opt-in): the launch refuses more

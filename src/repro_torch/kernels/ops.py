@@ -32,7 +32,11 @@ with its own ``nvcc`` process (all started together) into a shared library
 under ``build/repro_torch/`` at the repository root, named by a hash of its
 sources and flags, and loads it with ``ctypes``. This happens at the first
 launch on a CUDA tensor; importing this module builds nothing. On a CPU
-tensor each wrapper runs its plain PyTorch version instead.
+tensor each wrapper runs its plain PyTorch version instead, on a meta
+tensor it returns empty results of the kernel's shapes (the dry run,
+``launch/dryrun.py``), and on any other device it raises. Under
+``launch/op_cost.count_cost`` each wrapper records its kernel as one op
+(``kernels/cost.py``).
 
 The route, gather and fused kernels each have a second body for bfloat16
 inputs (``csrc/*.cu``, ``*_bf16_kernel``; the weights and h in bfloat16, the
@@ -174,15 +178,21 @@ def launch(kernel: str, stem: str, symbol: str, device: torch.device,
 
 # -- wrapper checks -----------------------------------------------------------
 FLOATS = (torch.float32, torch.bfloat16)
+DEVICE_TYPES = ("cuda", "cpu", "meta")
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int,
                  device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``ndim``-D tensor on ``device``
-    of ``dtype`` (or of one of a tuple of dtypes). Float tensors, read as
-    16-byte rows, must also be 16-byte aligned on a GPU."""
+    of ``dtype`` (or of one of a tuple of dtypes), and ``device`` one the
+    wrappers take: ``cuda`` (the kernel), ``cpu`` (the plain version) or
+    ``meta`` (shapes only, the dry run). Float tensors, read as 16-byte
+    rows, must also be 16-byte aligned on a GPU."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if device.type not in DEVICE_TYPES:
+        raise ValueError(f"{name} is on {device}: the kernels' wrappers take "
+                         f"{' / '.join(DEVICE_TYPES)} tensors")
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.dtype not in dtypes or t.dim() != ndim:
         want = " or ".join(str(x) for x in dtypes)

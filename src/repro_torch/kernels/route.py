@@ -6,7 +6,10 @@ cluster = argmax over r, the first index winning a tie. On a CUDA tensor
 thread block cluster per 8 rows of h, or per 4, 2 or 1 where eight rows of
 d floats do not fit 220 KB of shared memory — 4 at qwen1.5-110b's d = 8192
 — merged through distributed shared memory), which never writes the (B, r)
-score matrix; on a CPU tensor it runs ``cluster_route_plain``.
+score matrix; on a CPU tensor it runs ``cluster_route_plain``; on a meta
+tensor it returns an empty (B,) int32 result (the dry run). Under
+``launch/op_cost.count_cost`` it records one ``cluster_route`` op
+(``kernels/cost.py``), whatever the device.
 
 h may be float32 or bfloat16 (a bf16 model's hidden state); v is float32,
 as ``fit_l2s`` makes it. A bfloat16 h is promoted to float32 exactly, as the
@@ -17,6 +20,8 @@ of the kernel (``route_bf16_kernel``) converts h as it stages it.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import cost
 
 MAX_D = 56_320  # one row of h staged in 220 KB of one block's shared memory
 
@@ -36,12 +41,21 @@ def cluster_route(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     (B, d), r = h.shape, v.shape[0]
     if v.shape[1] != d or r < 1:
         raise ValueError(f"v {tuple(v.shape)} does not match h {tuple(h.shape)}")
-    if dev.type == "cpu":
-        return cluster_route_plain(h, v)
-    if d > MAX_D:
-        raise ValueError(f"cluster_route: d={d} exceeds the kernel's {MAX_D}")
     sfx = ops.BF16 if h.dtype == torch.bfloat16 else ""
-    out = torch.empty((B,), dtype=torch.int32, device=dev)
-    ops.launch("cluster_route" + sfx, "route", "l2s_cluster_route" + sfx, dev,
-               h.data_ptr(), v.data_ptr(), out.data_ptr(), B, r, d)
+    with cost.suspended():
+        if dev.type == "cpu":
+            out = cluster_route_plain(h, v)
+        elif dev.type == "meta":
+            out = torch.empty((B,), dtype=torch.int32, device=dev)
+        else:
+            if d > MAX_D:
+                raise ValueError(f"cluster_route: d={d} exceeds the "
+                                 f"kernel's {MAX_D}")
+            out = torch.empty((B,), dtype=torch.int32, device=dev)
+            ops.launch("cluster_route" + sfx, "route",
+                       "l2s_cluster_route" + sfx, dev, h.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), B, r, d)
+    # h and v read once, the routes written
+    cost.record_kernel("cluster_route" + sfx, [out], 2 * B * r * d,
+                          h.element_size() * B * d + 4 * (r * d + B))
     return out

@@ -5,7 +5,11 @@ raw ``W_blocks[block_ids[i, j]] · h[i] + b_blocks[block_ids[i, j]]``. A
 sentinel id (outside [0, n_blk)) reads tile 0 and is left unmasked, as the
 Pallas kernel leaves it: ``kernels/ops.py`` applies the NEG_INF mask. On a
 CUDA tensor ``screened_logits`` launches ``csrc/screen.cu``; on a CPU tensor
-it runs ``screened_logits_plain``.
+it runs ``screened_logits_plain``; on a meta tensor it returns an empty
+result (the dry run). Under ``launch/op_cost.count_cost`` it records one
+``screened_logits`` op (``kernels/cost.py``): the distinct tiles read once,
+h, the ids and the (B, K, V_BLK) float32 logits it writes, and the products
+of every slot (a sentinel slot computes tile 0's).
 
 The kernel runs one block per (row, slot, part of the tile): each tile is
 cut into P parts (``screen_parts``) so that a decode batch of a few rows
@@ -25,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import V_BLK
+from repro_torch.kernels import cost
 
 
 def screened_logits_plain(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
@@ -60,15 +65,32 @@ def screened_logits(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
     """W_blocks (n_blk, V_BLK, d) f32 or bf16; b_blocks (n_blk, V_BLK) and
     h (B, d) of the same dtype; block_ids (B, K) int32 (sentinel ≥ n_blk)
     → raw logits (B, K, V_BLK) f32, sentinel tiles NOT masked."""
+    from repro_torch.kernels import ops
     check_head_inputs(W_blocks, b_blocks, h, block_ids)
     dev = h.device
-    if dev.type == "cpu":
-        return screened_logits_plain(W_blocks, b_blocks, h, block_ids)
-    from repro_torch.kernels.fused_topk import _sm_count
+    n_blk, v_blk, d = W_blocks.shape
     B, K = block_ids.shape
-    return _launch(W_blocks, b_blocks, h, block_ids,
-                   screen_parts(B, K, h.shape[1], _sm_count(dev),
-                                W_blocks.element_size()))
+    with cost.suspended():
+        if dev.type == "cpu":
+            out = screened_logits_plain(W_blocks, b_blocks, h, block_ids)
+        elif dev.type == "meta":
+            out = torch.empty((B, K, v_blk), dtype=torch.float32, device=dev)
+        else:
+            from repro_torch.kernels.fused_topk import _sm_count
+            out = _launch(W_blocks, b_blocks, h, block_ids,
+                          screen_parts(B, K, d, _sm_count(dev),
+                                       W_blocks.element_size()))
+    if cost.counting():
+        # a sentinel slot reads tile 0, unmasked
+        esz = W_blocks.element_size()
+        tiles = cost.distinct_tiles(block_ids, n_blk,
+                                       sentinel_reads_tile0=True)
+        cost.record_kernel(
+            "screened_logits" + (ops.BF16 if esz == 2 else ""), [out],
+            2 * B * K * v_blk * d,
+            tiles * v_blk * (d + 1) * esz + esz * B * d + 4 * B * K +
+            4 * B * K * v_blk)
+    return out
 
 
 def screen_parts(B: int, K: int, d: int, n_sm: int, itemsize: int = 4) -> int:

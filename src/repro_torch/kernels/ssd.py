@@ -10,7 +10,11 @@ Head h reads B/C group ``h // (H/G)``. The decay is masked BEFORE the exp,
 so a dead position is exp(−1e30) = 0, never exp of a positive difference.
 
 On a CUDA tensor ``ssd_intra`` launches ``csrc/ssd.cu``; on a CPU tensor it
-runs ``ssd_intra_plain``, the twin of the reference's ``ssd_intra_ref``.
+runs ``ssd_intra_plain``, the twin of the reference's ``ssd_intra_ref``; on a
+meta tensor it returns empty results (the dry run). Under
+``launch/op_cost.count_cost`` each call records one ``ssd_intra`` op (and
+each backward one ``ssd_intra_bwd``; ``kernels/cost.py``), counted as
+``chip_smoke.py``'s bounds count them.
 The inter-chunk recurrence stays in ``repro_torch.layers.ssm``.
 
 ``ssd_intra`` is differentiable (``SSDIntraFn``). Its backward is the
@@ -33,6 +37,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels import cost
 
 NEG_INF = -1e30
 
@@ -108,15 +114,26 @@ def _ssd_intra_fwd(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
     from repro_torch.kernels import ops
     _check_shapes(xw, Bm, Cm, l)
     dev = xw.device
-    if dev.type == "cpu":
-        return ssd_intra_plain(xw, Bm, Cm, l)
     B, nc, Q, H, P = xw.shape
     G, N = Bm.shape[3], Bm.shape[4]
-    y = torch.empty((B, nc, Q, H, P), dtype=torch.float32, device=dev)
-    S = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
-    ops.launch("ssd_intra", "ssd", "l2s_ssd_intra", dev,
-               xw.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), l.data_ptr(),
-               y.data_ptr(), S.data_ptr(), B * nc, Q, H, P, G, N)
+    with cost.suspended():
+        if dev.type == "cpu":
+            y, S = ssd_intra_plain(xw, Bm, Cm, l)
+        else:
+            y = torch.empty((B, nc, Q, H, P), dtype=torch.float32, device=dev)
+            S = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
+            if dev.type == "cuda":
+                ops.launch("ssd_intra", "ssd", "l2s_ssd_intra", dev,
+                           xw.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                           l.data_ptr(), y.data_ptr(), S.data_ptr(), B * nc,
+                           Q, H, P, G, N)
+    # inputs read and outputs written once; C·B and M·x over the causal
+    # half (s <= t) and the chunk state
+    n_x, n_b, n_l, n_s = xw.numel(), Bm.numel(), l.numel(), S.numel()
+    pairs = Q * (Q + 1) // 2
+    cost.record_kernel("ssd_intra", [y, S],
+                          B * nc * H * (2 * pairs * (N + P) + 2 * Q * N * P),
+                          4 * (2 * n_x + 2 * n_b + n_l + n_s))
     return y, S
 
 
@@ -142,20 +159,28 @@ def ssd_intra_bwd(xw, Bm, Cm, l, dy, dS) -> Tuple[torch.Tensor, ...]:
         raise ValueError(f"ssd_intra_bwd: dy {tuple(dy.shape)} / dS "
                          f"{tuple(dS.shape)} do not match xw "
                          f"{tuple(xw.shape)} and N = {N}")
-    if dev.type == "cpu":
-        return ssd_intra_bwd_plain(xw, Bm, Cm, l, dy, dS)
-    dxw = torch.empty_like(xw)
-    dB = torch.empty_like(Bm)
-    dC = torch.empty_like(Cm)
-    dl = torch.empty_like(l)
-    scratch = torch.empty(bwd_scratch_floats(B * nc, Q, H, P, N),
-                          dtype=torch.float32, device=dev)
-    ops.launch("ssd_intra_bwd", "ssd_bwd", "l2s_ssd_intra_bwd", dev,
-               xw.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), l.data_ptr(),
-               dy.data_ptr(), dS.data_ptr(), dxw.data_ptr(), dB.data_ptr(),
-               dC.data_ptr(), dl.data_ptr(), scratch.data_ptr(),
-               B * nc, Q, H, P, G, N)
-    return dxw, dB, dC, dl
+    with cost.suspended():
+        if dev.type == "cpu":
+            out = ssd_intra_bwd_plain(xw, Bm, Cm, l, dy, dS)
+        else:
+            out = tuple(torch.empty_like(t) for t in (xw, Bm, Cm, l))
+            if dev.type == "cuda":
+                scratch = torch.empty(bwd_scratch_floats(B * nc, Q, H, P, N),
+                                      dtype=torch.float32, device=dev)
+                ops.launch("ssd_intra_bwd", "ssd_bwd", "l2s_ssd_intra_bwd",
+                           dev, xw.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                           l.data_ptr(), dy.data_ptr(), dS.data_ptr(),
+                           *(t.data_ptr() for t in out), scratch.data_ptr(),
+                           B * nc, Q, H, P, G, N)
+    # xw, B, C, l, dy and dS read once, the four gradients written once;
+    # five products over the causal half and two Q × N × P ones
+    n_x, n_b, n_l, n_s = xw.numel(), Bm.numel(), l.numel(), dS.numel()
+    pairs = Q * (Q + 1) // 2
+    cost.record_kernel(
+        "ssd_intra_bwd", out,
+        B * nc * H * (2 * pairs * (3 * N + 2 * P) + 4 * Q * N * P),
+        4 * (3 * n_x + 4 * n_b + 2 * n_l + n_s))
+    return out
 
 
 class SSDIntraFn(torch.autograd.Function):

@@ -1,2 +1,6 @@
-"""Launchers: the LM train step (``steps.py``) and the training CLI
-(``python -m repro_torch.launch.train``)."""
+"""Launchers and their cost tooling: the step functions (``steps.py``),
+the training and serving CLIs (``python -m repro_torch.launch.train`` /
+``.serve``), the op-level cost counter (``op_cost.py``), the H100's peaks
+(``mesh.py``), the roofline (``roofline.py``) and the dry run over every
+(arch × input shape) on the meta device (``python -m
+repro_torch.launch.dryrun``)."""

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.cache_update import cache_kv_update
-from repro_torch.layers.initializers import dense_init
+from repro_torch.layers.initializers import dense_init, init_device
 from repro_torch.layers.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
@@ -55,7 +55,7 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
          "wo": dense_init(generator, (h, hd, d), dtype, stack=stack)}
     if cfg.qkv_bias:
         lead = () if stack is None else (stack,)
-        dev = generator.device
+        dev = init_device(generator)
         p["bq"] = torch.zeros(lead + (h, hd), dtype=dtype, device=dev)
         p["bk"] = torch.zeros(lead + (kv, hd), dtype=dtype, device=dev)
         p["bv"] = torch.zeros(lead + (kv, hd), dtype=dtype, device=dev)

@@ -6,7 +6,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import matmul
-from repro_torch.layers.initializers import dense_init
+from repro_torch.layers.initializers import dense_init, init_device
 
 
 def embed_init(generator: torch.Generator, cfg: ModelConfig,
@@ -17,7 +17,7 @@ def embed_init(generator: torch.Generator, cfg: ModelConfig,
         p["lm_head"] = dense_init(generator, (cfg.vocab_size, cfg.d_model),
                                   dtype, scale=0.02)
     p["lm_bias"] = torch.zeros((cfg.vocab_size,), dtype=dtype,
-                              device=generator.device)
+                              device=init_device(generator))
     return p
 
 

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ssd_intra
-from repro_torch.layers.initializers import dense_init
+from repro_torch.layers.initializers import dense_init, init_device
 
 
 def _dims(cfg: ModelConfig):
@@ -42,7 +42,7 @@ def ssm_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     """One layer's params, or ``stack`` layers' along a leading axis."""
     s, dinner, H, P, G, N = _dims(cfg)
     conv_ch = dinner + 2 * G * N
-    dev = generator.device
+    dev = init_device(generator)
     lead = () if stack is None else (stack,)
     # dt bias init so softplus(dt_bias) spans [1e-3, 1e-1] (mamba convention)
     u = torch.rand(lead + (H,), generator=generator, device=dev)

@@ -46,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import (attn_decode, attn_decode_paged,
                                           attn_forward_kv, attn_init)
 from repro_torch.layers.attention import init_cache as attn_init_cache
+from repro_torch.layers.initializers import init_device
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norms import norm_apply, norm_init
@@ -101,7 +102,7 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32
     _check_family(cfg)
 
     def norm():
-        n = norm_init(cfg.d_model, cfg.norm, dtype, generator.device)
+        n = norm_init(cfg.d_model, cfg.norm, dtype, init_device(generator))
         if stack is not None:
             n = {k: v.expand(stack, -1).contiguous() for k, v in n.items()}
         return n
@@ -120,7 +121,7 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32
 def shared_block_init(generator: torch.Generator, cfg: ModelConfig,
                       dtype=torch.float32):
     """Zamba2's single shared attention+MLP block."""
-    dev = generator.device
+    dev = init_device(generator)
     return {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
             "attn": attn_init(generator, cfg, dtype),
             "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev),
@@ -131,7 +132,7 @@ def stack_init(generator: torch.Generator, cfg: ModelConfig,
                dtype=torch.float32):
     p = {"blocks": block_init(generator, cfg, dtype, stack=cfg.num_layers),
          "final_norm": norm_init(cfg.d_model, cfg.norm, dtype,
-                                 generator.device)}
+                                 init_device(generator))}
     if cfg.family == "hybrid":
         p["shared"] = shared_block_init(generator, cfg, dtype)
     return p

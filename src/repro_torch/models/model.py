@@ -46,7 +46,7 @@ class Model:
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
 
-    def init(self, generator: torch.Generator, device="cuda",
+    def init(self, generator: Optional[torch.Generator], device="cuda",
              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """Random weights drawn from ``generator`` and placed on ``device``,
         in ``dtype or cfg.dtype`` as the reference's ``Model.init`` takes
@@ -55,8 +55,12 @@ class Model:
         as the reference keeps them; the dense, moe, vlm and audio configs
         are bfloat16 too. A CPU generator gives the same weights on any
         device; a CUDA generator draws them on the card (the fast way to a
-        full-width model)."""
+        full-width model). On ``device="meta"`` nothing is drawn (the
+        generator may be None): every leaf is a meta tensor of its shape
+        and dtype, which is how the dry run holds qwen1.5-110b."""
         dev = resolve_device(device)
+        if dev.type == "meta":
+            generator = None
         cfg = self.cfg
         dtype = dtype or getattr(torch, cfg.dtype)
         params = {"embed": embed_init(generator, cfg, dtype)}

@@ -4,15 +4,15 @@ continuous-batching streams, requests and routing policies, the
 observability it reports through, the paged KV pool (LSTM logical pages
 with a shared-prefix radix cache, and the dense and moe families' device
 page store) and speculative decoding, through every head the registry
-holds, the vocab-sharded ones included. Twin of ``repro/serving`` without
-``audit_cost_drift`` (ROADMAP.md, Queue 1 item 8)."""
+holds, the vocab-sharded ones included, and the heads' cost-drift audit.
+Twin of ``repro/serving``."""
 from repro_torch.serving.engine import (DecodeEngine, DecodeStream,
                                         GenerationResult)
 from repro_torch.serving.kvpool import (PagedDecodeStream, PagePool,
                                         PoolExhausted, RadixCache)
 from repro_torch.serving.observe import (NULL_TRACER, Counter, Gauge,
                                          Histogram, MetricsRegistry,
-                                         NullTracer, Tracer)
+                                         NullTracer, Tracer, audit_cost_drift)
 from repro_torch.serving.request import ServeRequest, ServeResult
 from repro_torch.serving.resilience import (CircuitBreaker, FaultInjector,
                                             FaultSpec, HeadFault,
@@ -39,4 +39,5 @@ __all__ = ["DecodeEngine", "DecodeStream", "GenerationResult",
            "FaultInjector", "FaultSpec", "HeadFault", "LogicalClock",
            "CircuitBreaker", "StreamWatchdog",
            "Tracer", "NullTracer", "NULL_TRACER",
-           "Counter", "Gauge", "Histogram", "MetricsRegistry"]
+           "Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "audit_cost_drift"]

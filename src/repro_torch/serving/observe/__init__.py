@@ -1,7 +1,5 @@
-"""Serving observability: span tracing and typed metrics. Twin of
-``repro/serving/observe`` without ``audit_cost_drift``, which compares a
-head's cataloged cost with compiled XLA HLO (ROADMAP.md, Queue 1 item 8:
-the port's audit would compare against profiler / CUDA-event times).
+"""Serving observability: span tracing, typed metrics, cost-drift audit.
+Twin of ``repro/serving/observe``.
 
 * ``Tracer`` / ``NullTracer`` — per-request span timeline on the
   scheduler's injectable clock, exportable as Chrome trace-event JSON
@@ -9,7 +7,11 @@ the port's audit would compare against profiler / CUDA-event times).
 * ``MetricsRegistry`` with ``Counter`` / ``Gauge`` / ``Histogram`` —
   Prometheus-style text exposition + JSON snapshot; ``ServerStats``
   mirrors its funnel and resilience counters into one.
+* ``audit_cost_drift`` — cataloged ``flops_per_query`` /
+  ``bytes_per_query`` against each head's counted ops
+  (``launch/op_cost.py``) and wall-clock time.
 """
+from repro_torch.serving.observe.drift import audit_cost_drift
 from repro_torch.serving.observe.metrics import (Counter, Gauge, Histogram,
                                                  MetricsRegistry)
 from repro_torch.serving.observe.trace import (NULL_TRACER, SCHED_TID,
@@ -18,4 +20,5 @@ from repro_torch.serving.observe.trace import (NULL_TRACER, SCHED_TID,
 __all__ = [
     "Tracer", "NullTracer", "NULL_TRACER", "SCHED_TID",
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "audit_cost_drift",
 ]

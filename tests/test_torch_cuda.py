@@ -1949,3 +1949,117 @@ def test_cuda_engine_refuses_shards_across_devices(cuda):
         eng.resolve_head("exact-sharded")
     near = ExactShardedHead(eng.W, eng.b, devices=[cuda] * 2)
     assert eng.generate(prompts, 2, head=near).steps == 2
+
+
+# -- the op-level cost counter on the card (launch/op_cost.py) ---------------
+
+def _cost_calls(device, dtype):
+    """One call of each wrapper at a small shape with distinct valid tile
+    ids (the CPU's and the card's distinct-tile count then equals meta's
+    every-slot one)."""
+    from repro_torch.kernels.cache_update import (cache_kv_update,
+                                                  cache_slot_update)
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_bwd
+    g = torch.Generator().manual_seed(3)
+    n_blk, d, B, K, r = 12, 64, 3, 4, 5
+    t = dict(Wb=torch.randn((n_blk, 128, d), generator=g).to(dtype),
+             bb=torch.randn((n_blk, 128), generator=g).to(dtype),
+             h=torch.randn((B, d), generator=g).to(dtype),
+             ids=torch.arange(B * K, dtype=torch.int32).reshape(B, K) % n_blk,
+             v=torch.randn((r, d), generator=g),
+             ck=torch.zeros((B, 16, 2, 32), dtype=dtype),
+             cv=torch.zeros((B, 16, 2, 32), dtype=dtype),
+             upd=torch.ones((B, 2, 32), dtype=dtype),
+             xw=torch.randn((2, 1, 8, 4, 16), generator=g),
+             Bm=torch.randn((2, 1, 8, 2, 8), generator=g),
+             Cm=torch.randn((2, 1, 8, 2, 8), generator=g),
+             l=-torch.rand((2, 1, 8, 4), generator=g).cumsum(2),
+             dy=torch.randn((2, 1, 8, 4, 16), generator=g),
+             dS=torch.randn((2, 1, 4, 8, 16), generator=g))
+    o = {k: x.to(device) for k, x in t.items()}
+    calls = {
+        "route": lambda: cluster_route(o["h"], o["v"]),
+        "screen": lambda: screened_logits(o["Wb"], o["bb"], o["h"], o["ids"]),
+        "fused": lambda: fused_screened_topk(o["Wb"], o["bb"], o["h"],
+                                             o["ids"], 5),
+        "cache": lambda: cache_slot_update(o["ck"], o["upd"], 3),
+        "cache pair": lambda: cache_kv_update(o["ck"], o["upd"], o["cv"],
+                                              o["upd"], 3)}
+    if dtype == torch.float32:
+        calls["ssd"] = lambda: ssd_intra(o["xw"], o["Bm"], o["Cm"], o["l"])
+        calls["ssd bwd"] = lambda: ssd_intra_bwd(o["xw"], o["Bm"], o["Cm"],
+                                                 o["l"], o["dy"], o["dS"])
+    return calls
+
+
+def _records(call):
+    from repro_torch.launch.op_cost import count_cost
+    with torch.inference_mode():
+        _, c = count_cost(call)
+    return [(r.name, r.shapes, r.dtypes, r.flops, r.bytes) for r in c.ops]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wrapper_cost_records_equal_cpu_and_meta(cuda, dtype):
+    """Each wrapper's one record on the card (it launched its kernel)
+    equals its record on the CPU (the plain version) and on meta."""
+    on = {dev: _cost_calls(dev, dtype) for dev in ("cuda", "cpu", "meta")}
+    for name in on["cuda"]:
+        before = sum(ops.LAUNCHES.values())
+        got = _records(on["cuda"][name])
+        assert sum(ops.LAUNCHES.values()) == before + 1, name
+        assert len(got) == 1, (name, got)
+        assert got == _records(on["cpu"][name]) == \
+            _records(on["meta"][name]), name
+
+
+def test_cuda_memory_contract_holds_on_the_card(cuda):
+    """At B = 32, K = 16, d = 512 on the card: the unfused path records the
+    (B, K, 128) f32 tile, the fused path none and fewer bytes, each count
+    equal to the CPU's on the same inputs."""
+    from repro_torch.launch.op_cost import count_cost, materializes_f32_buffer
+    B, K, d, k = 32, 16, 512, 5
+    g = torch.Generator().manual_seed(0)
+    Wb, bb = ops.pack_head_blocks(torch.randn((4000, d), generator=g),
+                                  torch.randn((4000,), generator=g))
+    v = torch.randn((8, d), generator=g)
+    cand = torch.randint(0, Wb.shape[0] + 2, (8, K), generator=g,
+                         dtype=torch.int32)
+    h = torch.randn((B, d), generator=g)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        args = [a.to(dev) for a in (Wb, bb, v, cand, h)]
+        with torch.inference_mode():
+            counts[dev] = [count_cost(fn, *args, k=k)[1] for fn in
+                           (ops.screened_topk, ops.screened_fused_topk)]
+    unfused, fused = counts["cuda"]
+    assert materializes_f32_buffer(unfused, B, K, 128)
+    assert not materializes_f32_buffer(fused, B, K, 128)
+    assert fused.bytes_accessed < unfused.bytes_accessed
+    for a, b in zip(counts["cuda"], counts["cpu"]):
+        assert (a.flops, a.bytes_accessed) == (b.flops, b.bytes_accessed)
+
+
+def test_cuda_count_cost_sees_the_backward_kernel(cuda):
+    """Autograd's backward on the card dispatches through the counter too:
+    a loss through ``ssd_intra`` records its forward and its backward
+    kernel, each as on the CPU."""
+    from repro_torch.kernels.ssd import ssd_intra
+    from repro_torch.launch.op_cost import count_cost
+    g = torch.Generator().manual_seed(5)
+    base = [torch.randn(s, generator=g) for s in
+            ((2, 1, 8, 4, 16), (2, 1, 8, 2, 8), (2, 1, 8, 2, 8))]
+    base.append(-torch.rand((2, 1, 8, 4), generator=g).cumsum(2))
+
+    def loss_grad(xs):
+        xs = [x.requires_grad_(True) for x in xs]
+        y, S = ssd_intra(*xs)
+        return torch.autograd.grad(y.sum() + S.sum(), xs)
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        _, c = count_cost(loss_grad, [x.to(dev) for x in base])
+        got[dev] = {n: v for n, v in c.by_name().items()
+                    if n.startswith("ssd_intra")}
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"]["ssd_intra_bwd"]["count"] == 1

@@ -255,7 +255,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "serving/scheduler/scheduler.py", "launch/serve.py",
             "heads/adaptive.py", "heads/adapters.py", "heads/sharded.py",
             "core/baselines.py", "core/lowrank.py", "kernels/ssd.py",
-            "launch/train.py", "optim/adamw.py"} <= port
+            "launch/train.py", "optim/adamw.py", "launch/op_cost.py",
+            "launch/dryrun.py", "launch/roofline.py", "launch/mesh.py",
+            "utils/pytree.py", "serving/observe/drift.py",
+            "kernels/cost.py"} <= port
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

@@ -18,6 +18,7 @@ import json
 import math
 
 import numpy as np
+import torch
 import pytest
 
 from repro.serving import BudgetAdmission as JBudget
@@ -304,3 +305,126 @@ def test_scheduler_spec_gauges_equal_the_reference(lstm):
     half = len(gauges) // 2
     assert gauges[:half] == gauges[half:]
     assert any(g.get("serve_spec_draft_len") for g in gauges)
+
+
+# -- the cost-drift audit -------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def trained():
+    """The reference's ``tests/test_observe.py`` recipe: reduced
+    ptb-small-lstm trained 60 steps and a fitted screen, in JAX; the port's
+    engine over the same weights and screen."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import L2SConfig, TrainConfig, get_config
+    from repro.core import collect_contexts, fit_l2s
+    from repro.data import ZipfMarkovCorpus, make_lm_batches
+    from repro.launch.steps import make_train_step
+    from repro.models import build_model
+    from repro.optim import adamw_init
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.interop import params_from_numpy, screen_from_numpy
+    from repro_torch.models import Model
+    cfg = get_config("ptb-small-lstm").reduced()
+    m = build_model(cfg)
+    params = m.init(jax.random.key(0), dtype=jnp.float32)
+    corpus = ZipfMarkovCorpus(cfg.vocab_size, branching=32, seed=3)
+    tcfg = TrainConfig(lr=2e-3, total_steps=60, warmup_steps=5,
+                       remat="none", loss_chunk=None)
+    step = jax.jit(make_train_step(m, tcfg))
+    opt = adamw_init(params)
+    for batch in make_lm_batches(corpus, 60, 8, 32, seed=1):
+        params, opt, _ = step(params, opt,
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    H, y = collect_contexts(
+        m, params, [jnp.asarray(b["tokens"])
+                    for b in make_lm_batches(corpus, 8, 8, 32, seed=9)],
+        max_vectors=2000)
+    st = fit_l2s(H, y, cfg.vocab_size,
+                 L2SConfig(num_clusters=16, budget=64, outer_iters=1,
+                           sgd_steps=50))
+    kw = dict(rho=cfg.d_model, n_top=cfg.vocab_size)
+    jeng = JEngine(m, params, screen=st.screen, max_len=36, head_kwargs=kw)
+    s = st.screen
+    teng = DecodeEngine(
+        Model(t_get_config("ptb-small-lstm").reduced()),
+        params_from_numpy(jax.tree_util.tree_map(np.asarray, params)),
+        screen=screen_from_numpy(np.asarray(s.v), np.asarray(s.cand_idx),
+                                 np.asarray(s.cand_len), s.vocab_size,
+                                 s.block),
+        max_len=36, device="cpu", head_kwargs=kw)
+    return jeng, teng
+
+
+DRIFT_NAMES = ("exact", "screened", "svd", "no-such-head")
+
+
+def test_audit_cost_drift_equals_the_reference(trained):
+    """The port's audit against the reference's on the same trained LSTM
+    and screen: the same heads (unknown names skipped), ``predicted``
+    equal, the exact head's op FLOPs within 100× of its model (a plain
+    matmul: 2 flops a MAC, plus the top-k), as the reference's HLO FLOPs
+    are, host heads timed and not counted, JSON-ready."""
+    from repro.serving import audit_cost_drift as j_audit
+    from repro_torch.serving import audit_cost_drift
+    jeng, teng = trained
+    want = j_audit(jeng, DRIFT_NAMES, iters=2, warmup=1)
+    got = audit_cost_drift(teng, DRIFT_NAMES, iters=2, warmup=1)
+    assert set(got) == set(want) == {"exact", "screened", "svd"}
+    for name in got:
+        assert _nan_safe(got[name]["predicted"]) == \
+            _nan_safe(want[name]["predicted"]), name
+        assert got[name]["measured"]["wall_s_per_query"] > 0
+    r = got["exact"]["ratio"]["flops"]
+    assert r is not None and math.isfinite(r) and 1e-2 < r < 1e2
+    assert 1e-2 < want["exact"]["ratio"]["flops"] < 1e2
+    assert got["exact"]["measured"]["op_flops"] > 0
+    assert got["screened"]["ratio"]["bytes"] is not None
+    assert "op_flops" not in got["svd"]["measured"]
+    assert got["svd"]["ratio"] == {"flops": None, "bytes": None}
+    assert json.loads(json.dumps(got))
+
+
+def test_audit_cost_drift_counts_the_kernel_heads_and_skips_sharded(trained):
+    """screened-cuda's count is its two kernels' records (route, fused top-k)
+    plus the id gather between them; a sharded head is timed but not
+    counted, as the reference's mesh heads are not; a head that fails is
+    an ``error`` entry, not an exception."""
+    from repro_torch import heads
+    from repro_torch.launch.op_cost import count_cost
+    from repro_torch.serving import audit_cost_drift
+    _, teng = trained
+    h = torch.zeros((1, teng.model.cfg.d_model))
+    cuda = heads.get("screened-cuda", device="cpu", W=teng.W, b=teng.b,
+                     screen=_block_screen(teng))
+    _, c = count_cost(cuda.next, h)
+    assert [r.name for r in c.ops if r.name in ("cluster_route",
+            "fused_screened_topk")] == ["cluster_route", "fused_screened_topk"]
+    teng._head_cache["broken"] = _Broken()
+    got = audit_cost_drift(teng, ("exact-sharded", "broken"), iters=1,
+                           warmup=0)
+    assert "op_flops" not in got["exact-sharded"]["measured"]
+    assert got["exact-sharded"]["measured"]["wall_s_per_query"] > 0
+    assert got["broken"]["error"].startswith("RuntimeError")
+    del teng._head_cache["broken"]
+
+
+class _Broken:
+    is_jittable = True
+    n_shards = None
+
+    def describe(self):
+        raise RuntimeError("no describe")
+
+
+def _block_screen(teng):
+    """A 128-word block screen over the engine's vocabulary (one cluster
+    holding every block), for the kernel head."""
+    from repro_torch.core.screening import ScreenParams
+    L, d = teng.W.shape
+    n_blk = -(-L // 128)
+    return ScreenParams(v=torch.zeros((1, d)),
+                        cand_idx=torch.arange(n_blk, dtype=torch.int32)[None],
+                        cand_len=torch.tensor([n_blk], dtype=torch.int32),
+                        vocab_size=L, block=128)
