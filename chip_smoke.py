@@ -413,7 +413,11 @@ Phases, one line (or a few) each:
               mamba2's chunks: max |kernel - plain| / max
               |plain| of dxw, dB, dC and dl, each <= 1e-4, two launches bit
               for bit; both timed like phase 4, with the bound of the
-              gradient's five causal products and two Q x N x P ones;
+              gradient's five causal products and two Q x N x P ones, both
+              on the FMA units and in the kernel's split TF32 (3 x flops
+              at the TF32 peak), the latter the kernels line's bound_ms;
+              the HMMA count of the kernel's SASS (cuobjdump) and its
+              ptxas report (registers, spills);
               zamba2-2.7b at full width cut to 6 layers (one shared-block
               application), one batch of 1 x 512: loss_and_grads on the
               card (the kernels) against the CPU (the plain versions),
@@ -421,7 +425,8 @@ Phases, one line (or a few) each:
               relative; full-width zamba2-2.7b in float32 on 4 x 512: the
               gradients of remat none and block bit for bit (their times
               and peak memory), a profiled remat-block forward and backward
-              (device calls == counted launches), then 3 steps of
+              (device calls == counted launches; ssd_intra_bwd's share of
+              its device time), then 3 steps of
               make_train_step (remat block, donated) on that batch: the
               loss falls at every step, peak device memory under 80 GiB,
               ssd_intra 3 L (each layer run, and rerun by its super-block's
@@ -498,6 +503,8 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -510,6 +517,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOP_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOP_PER_S  # noqa: E402
 D, V, R, K = 500, 25_000, 100, 16
 V_BLK = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -1671,6 +1679,26 @@ def ssd_bwd_bound(shape):
     return nbytes, flops
 
 
+def split_tf32_bound_ms(nbytes, flops):
+    """The SSD backward kernel's own bound: its products run on the tensor
+    cores in split TF32, three TF32 products for each float32 one, so
+    max(bytes / HBM, 3 x flops / the TF32 peak)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_count(path, opcode):
+    """Instructions of ``opcode`` in the SASS of the library at ``path``
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    return sum(1 for line in out.splitlines() if opcode in line)
+
+
 def rel_err(got, want):
     """max |got - want| / max |want| (0 when both are 0), and the max abs
     error."""
@@ -1751,11 +1779,18 @@ def ssm_train_run(torch, np, tag, arch, n_steps, seed, compare_remat):
         del grads
         gc.collect()
         torch.cuda.empty_cache()
-        profile_counted(torch, f"{tag} {arch} remat block forward + backward",
-                        lambda: loss_and_grads(model, tcfg["block"], params,
-                                               batch))
+        kern = profile_counted(
+            torch, f"{tag} {arch} remat block forward + backward",
+            lambda: loss_and_grads(model, tcfg["block"], params, batch))
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        ev = kernel_events(kern, "ssd_intra_bwd")
+        bwd_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        log(f"{tag} {arch} profile: ssd_intra_bwd {bwd_ms:.3f} ms x"
+            f"{sum(e.count for e in ev)} of {busy_ms:.3f} ms device time "
+            f"({bwd_ms / busy_ms:.1%} of the forward and backward)")
         out.update(peak_gib_no_remat=peak["none"],
-                   fwd_bwd_s={r: again[r] for r in again})
+                   fwd_bwd_s={r: again[r] for r in again},
+                   ssd_intra_bwd_device_ms=bwd_ms, device_busy_ms=busy_ms)
     step = make_train_step(model, tcfg["block"], donate=True)
     opt = adamw_init(params)
     gc.collect()
@@ -1836,6 +1871,7 @@ def phase_train_ssm(torch, np):
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ssd import ssd_intra_bwd, ssd_intra_bwd_plain
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import Model
@@ -1871,14 +1907,25 @@ def phase_train_ssm(torch, np):
         t = timer.turns({"ms": lambda: ssd_intra_bwd(*args),
                          "plain_ms": lambda: ssd_intra_bwd_plain(*args)})
         nbytes, flops = ssd_bwd_bound(shape)
-        t.update(library_ms=None, bound=bound_ms(nbytes, flops))
+        fma = bound_ms(nbytes, flops)
+        t.update(library_ms=None, bound=split_tf32_bound_ms(nbytes, flops),
+                 fma_bound_ms=fma[0])
         log(f"[timing] ssd_intra_bwd {label} {shape}: {t['ms']:.5f} ms, plain "
-            f"{t['plain_ms']:.5f} ms, library null, bound {t['bound'][0]:.5f} "
-            f"ms ({t['bound'][1]}; bytes {nbytes}, flops {flops}; "
-            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s of the bound's flops)")
+            f"{t['plain_ms']:.5f} ms, library null, bound (split TF32 on "
+            f"the tensor cores) {t['bound'][0]:.5f} ms ({t['bound'][1]}), "
+            f"FMA bound {fma[0]:.5f} ms ({fma[1]}); bytes {nbytes}, flops "
+            f"{flops}; {flops / t['ms'] / 1e9:.1f} TFLOP/s of the bound's "
+            f"flops ({t['bound'][0] / t['ms']:.1%} of the split-TF32 bound)")
         timing[label] = t
         del args
     torch.cuda.empty_cache()
+    lib = ops.build_kernels()["ssd_bwd"]
+    n_hmma = sass_count(lib, "HMMA")
+    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    log(f"[train-ssm] {lib.name}: {n_hmma} HMMA instructions in its SASS "
+        f"(cuobjdump -sass; None: no cuobjdump); ptxas: " + " | ".join(ptxas))
+    timing["zamba2"]["sass_hmma"] = n_hmma
 
     # full width, 6 layers (one application of the shared block): the card
     # (the kernels) against the CPU (the plain versions)
@@ -1920,9 +1967,13 @@ def phase_train_ssm(torch, np):
         torch, np, "[train-ssm]", "mamba2-1.3b", 2, 71, False)
     log(f"[train-ssm] phase wall {time.perf_counter() - t_phase:.1f} s; "
         f"summary {json.dumps(summary)}")
+    # checked last, so that a kernel without HMMAs still prints every line
+    # above (its time, its profile share: the earlier design's numbers)
+    check(n_hmma is None or n_hmma > 0, "[train-ssm] ssd_bwd's SASS holds no "
+          "HMMA instruction: its products are not on the tensor cores")
     t = timing["zamba2"]
     t["at_mamba2_chunk"] = {k: timing["mamba2"][k] for k in
-                            ("ms", "plain_ms", "library_ms")}
+                            ("ms", "plain_ms", "library_ms", "fma_bound_ms")}
     t["at_mamba2_chunk"]["bound_ms"] = timing["mamba2"]["bound"][0]
     t["at_mamba2_chunk"]["bound_by"] = timing["mamba2"]["bound"][1]
     return {"ssd_intra_bwd": err}, {"ssd_intra_bwd": t}, launches
@@ -6990,7 +7041,7 @@ def main() -> int:
                                              for p, n in paths.items()},
                         "launch_cost_ms": costs.get(name)})
         for key in ("unfused_ms", "single_ms", "two_single_ms",
-                    "at_mamba2_chunk"):
+                    "fma_bound_ms", "sass_hmma", "at_mamba2_chunk"):
             if key in t:
                 kernels[-1][key] = t[key]
         for shape, row in dense_rows.get(name, {}).items():

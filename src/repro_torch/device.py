@@ -17,7 +17,11 @@ def resolve_device(device="cuda") -> torch.device:
     and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` set to False, process-wide): the
     LSTM and the exact head's GEMV must stay in IEEE float32 to agree with
-    the reference and with the hand-written kernels."""
+    the reference and with the hand-written kernels. The switch covers
+    PyTorch's own products only: the SSD backward kernel
+    (``csrc/ssd_bwd.cu``) runs its products on the tensor cores in split
+    TF32 (three TF32 products for each float32 one, float32-grade
+    results)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -29,7 +29,11 @@ w_s = exp(l_{Q−1} − l_s),
     u_s = w_s·(B_s·(dS·xw_s)):  dl_s −= u_s,  dl_{Q−1} += Σ_s u_s
 
 with dB and dC summed over the H/G heads of a group. On a CUDA tensor the
-backward launches ``csrc/ssd_bwd.cu``; on a CPU tensor it runs
+backward launches ``csrc/ssd_bwd.cu``, whose products run on the tensor
+cores in split TF32 (each operand split into a TF32 high and low part,
+three TF32 products for one float32 product, float32 accumulators; within
+1e-4 of the largest magnitude of each gradient); everything else in it,
+and the whole forward kernel, stays IEEE float32. On a CPU tensor it runs
 ``ssd_intra_bwd_plain``.
 """
 from __future__ import annotations
@@ -139,9 +143,11 @@ def _ssd_intra_fwd(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def bwd_scratch_floats(BC: int, Q: int, H: int, P: int, N: int) -> int:
     """Floats of the backward kernel's scratch (``csrc/ssd_bwd.cu``): the
-    per-head dB and dC, the row and column sums of G, and u_s per 64-wide
-    slice of P."""
-    return BC * Q * H * (2 * N + 2 + -(-P // 64))
+    per-head dB and dC, the row sums of G, its column sums per 64-row s
+    tile, u_s per output slice of P (one up to P = 128, else 128 wide) and
+    the sum of u per s tile and slice."""
+    n_tt, n_pc = -(-Q // 64), -(-P // 128)
+    return BC * Q * H * (2 * N + 1 + n_tt + n_pc) + BC * H * n_tt * n_pc
 
 
 def ssd_intra_bwd(xw, Bm, Cm, l, dy, dS) -> Tuple[torch.Tensor, ...]:

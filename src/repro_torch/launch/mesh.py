@@ -23,9 +23,14 @@ from __future__ import annotations
 
 # bf16 and fp16 on the tensor cores, dense
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s
-# float32 outside the tensor cores: the port's float32 products run here,
-# TF32 being off (``repro_torch.device.resolve_device``)
+# float32 outside the tensor cores: the port's float32 products through
+# PyTorch run here, TF32 being off for cuBLAS and cuDNN
+# (``repro_torch.device.resolve_device``)
 PEAK_FLOPS_F32 = 67e12            # FLOP/s
+# TF32 on the tensor cores, dense. Only the SSD backward kernel
+# (``csrc/ssd_bwd.cu``) runs here, in split TF32: three TF32 products for
+# each float32 one, so its float32 work is bounded by 3 x flops / this
+PEAK_FLOPS_TF32 = 495e12          # FLOP/s
 # HBM3, 80 GB
 HBM_BW = 3.35e12                  # bytes/s
 HBM_BYTES = 80e9                  # bytes of device memory

@@ -4,7 +4,7 @@ Twin of ``repro/launch/roofline.py``. Three terms, in seconds:
 
   compute    = FLOPs / the peak of the step's dtype (bf16 989 TFLOP/s on
                the tensor cores; float32 67 TFLOP/s outside them, TF32
-               being off in the port)
+               being off for the port's PyTorch products)
   memory     = bytes / HBM (3.35 TB/s)
   collective = collective bytes / NVLink (450 GB/s each way)
 

@@ -11,8 +11,9 @@ vlm, audio):
                              port's route kernel and fused top-k kernel
 
 Forward and backward run through ``torch.autograd`` over the port's torch
-layers (float32 products stay IEEE float32: ``resolve_device`` turns TF32
-off); on the card the SSM layers' intra-chunk terms run through
+layers (PyTorch's float32 products stay IEEE float32: ``resolve_device``
+turns TF32 off; the SSD backward kernel splits its products in TF32 to
+float32 grade); on the card the SSM layers' intra-chunk terms run through
 ``kernels/ssd.py``'s kernels, forward and backward, and attention decode
 writes its cache through ``kernels/cache_update.py``. ``abstract_*`` give
 the steps' arguments on the ``meta`` device (shapes and dtypes, no

@@ -1280,13 +1280,38 @@ def _ssd_grad_inputs(cuda, B, nc, Q, H, P, G, N, seed):
     (1, 2, 65, 4, 64, 1, 128),        # Q = 65: a one-row last tile
     (2, 1, 1, 4, 64, 1, 64),          # Q = 1
     (1, 1, 70, 3, 10, 3, 6),          # P, N not multiples of 4
+    (1, 2, 256, 4, 64, 2, 128),       # mamba2's N = 128 with G = 2
+    (1, 1, 256, 2, 128, 1, 128),      # P = N = 128: one whole block
+    (1, 1, 130, 2, 192, 1, 40),       # P = 192: two 128-wide p slices
+    (1, 1, 70, 2, 36, 1, 160),        # N = 160: two 128-wide n slices
 ])
 def test_cuda_ssd_intra_bwd_matches_plain(cuda, B, nc, Q, H, P, G, N):
     """The backward kernel against ``ssd_intra_bwd_plain`` on the card:
     each of dxw, dB, dC and dl within 1e-4 of its largest magnitude; a
     second launch gives the same bits (no atomics)."""
+    _check_ssd_bwd(_ssd_grad_inputs(cuda, B, nc, Q, H, P, G, N, Q + N + P))
+
+
+@pytest.mark.parametrize("H,P,G,N", [(2, 64, 1, 64), (4, 64, 2, 128)])
+def test_cuda_ssd_intra_bwd_wide_range(cuda, H, P, G, N):
+    """The same at Q = 256 on the inputs of the CPU precision test's wide
+    case (``test_torch_train_ssm.py::test_split_tf32_precision``): |l|
+    differences up to 30, so that E spans many decades, and inputs scaled
+    by 1e3."""
+    Q = 256
+    rng = np.random.default_rng(N + G + 10)
+    f32 = np.float32
+    xw, Bm, Cm = (rng.standard_normal(s).astype(f32) * f32(1e3)
+                  for s in ((1, 1, Q, H, P), (1, 1, Q, G, N), (1, 1, Q, G, N)))
+    l = (-np.cumsum(rng.uniform(0.0, 60.0 / Q, (1, 1, Q, H)), axis=2)).astype(f32)
+    dy = rng.standard_normal((1, 1, Q, H, P)).astype(f32) * f32(1e3)
+    dS = rng.standard_normal((1, 1, H, N, P)).astype(f32) * f32(1e3)
+    _check_ssd_bwd([torch.from_numpy(a).to(cuda)
+                    for a in (xw, Bm, Cm, l, dy, dS)])
+
+
+def _check_ssd_bwd(args):
     from repro_torch.kernels.ssd import ssd_intra_bwd, ssd_intra_bwd_plain
-    args = _ssd_grad_inputs(cuda, B, nc, Q, H, P, G, N, Q + N + P)
     ops.reset_launches()
     got = ssd_intra_bwd(*args)
     again = ssd_intra_bwd(*args)

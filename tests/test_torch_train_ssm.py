@@ -19,6 +19,10 @@ on the port, against the JAX package on the same seeded numpy inputs
     reference's loading into the port's template); ``launch.train`` with a
     checkpoint and a resume, and ``launch.serve`` on both families.
 
+  * the backward kernel's split TF32 (3xTF32) emulated in every product of
+    the closed form, at Q = 256, against ``jax.vjp``: 1e-4 of max, the
+    kernel's own tolerance, with the one-product (1xTF32) error beside it.
+
 tests/test_torch_cuda.py holds the backward kernel against
 ``ssd_intra_bwd_plain`` on the card.
 """
@@ -164,6 +168,93 @@ def test_ssd_chunked_gradients_match_reference(T_):
     for a, c in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=0,
                                    atol=1e-4 * _max_abs([c]))
+
+
+def _tf32(a):
+    """``cvt.rna.tf32.f32`` on a float32 tensor: round to nearest, ties
+    away from zero, to TF32's 10 mantissa bits (the low 13 bits of the
+    int32 view cleared after adding half of the last kept bit)."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_mm(eq, a, b, split):
+    """``einsum(eq, a, b)`` as the backward kernel forms it on the tensor
+    cores, float32 accumulators: ``split`` True, each operand as a TF32
+    high part and a TF32 low part (hi = tf32(x), lo = tf32(x - hi)) and
+    lo·hi + hi·lo + hi·hi; False, hi·hi alone (one TF32 product)."""
+    ah, bh = _tf32(a), _tf32(b)
+    hi = torch.einsum(eq, ah, bh)
+    if not split:
+        return hi
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + hi
+
+
+def _ssd_intra_bwd_tf32(xw, Bm, Cm, l, dy, dS, split):
+    """The closed form of ``ssd_intra_bwd_plain`` with every product (C·Bᵀ,
+    dy·xwᵀ, Mᵀ·dy, (dM∘E)ᵀ·C, (dM∘E)·B, B·dS, xw·dSᵀ) taken through
+    ``_split_mm``, in the kernel's order of the state terms (w·(B·dS),
+    u_s = Σ_p xw_s·w_s·(B·dS)_s); the rest IEEE float32."""
+    rep = xw.shape[3] // Bm.shape[3]
+    Q = xw.shape[2]
+    Bh = Bm.repeat_interleave(rep, dim=3)
+    Ch = Cm.repeat_interleave(rep, dim=3)
+    diff = l[:, :, :, None, :] - l[:, :, None, :, :]
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None]
+    E = torch.exp(torch.where(causal, diff, -1e30))
+    M = _split_mm("bcqhn,bcshn->bcqsh", Ch, Bh, split) * E
+    w = torch.exp(l[:, :, -1:, :] - l)
+    Z = w[..., None] * _split_mm("bcshn,bchnp->bcshp", Bh, dS, split)
+    dxw = _split_mm("bcqsh,bcqhp->bcshp", M, dy, split) + Z
+    dM = _split_mm("bcqhp,bcshp->bcqsh", dy, xw, split)
+    dME = dM * E
+    dC = _split_mm("bcqsh,bcshn->bcqhn", dME, Bh, split)
+    dB = (_split_mm("bcqsh,bcqhn->bcshn", dME, Ch, split)
+          + w[..., None] * _split_mm("bcshp,bchnp->bcshn", xw, dS, split))
+    Gm = dM * M
+    u = torch.sum(xw * Z, dim=-1)
+    dl = torch.sum(Gm, dim=3) - torch.sum(Gm, dim=2) - u
+    dl[:, :, -1] += torch.sum(u, dim=2)
+    shape = Bm.shape[:3] + (Bm.shape[3], rep, Bm.shape[4])
+    return dxw, dB.reshape(shape).sum(dim=4), dC.reshape(shape).sum(dim=4), dl
+
+
+@pytest.mark.parametrize("H,P,G,N,wide", [
+    (2, 64, 1, 64, False),            # zamba2's P = N = 64
+    (4, 64, 2, 128, False),           # mamba2's N = 128, G = 2
+    (2, 64, 1, 64, True),             # |l| differences up to 30, inputs x 1e3
+], ids=["zamba2", "mamba2-G2", "wide-range"])
+def test_split_tf32_precision(H, P, G, N, wide):
+    """The precision argument for the backward kernel's split TF32: the
+    closed form with each product emulated as the kernel forms it, at Q =
+    256, holds each of dxw, dB, dC and dl within 1e-4 of its largest
+    magnitude of the reference's ``jax.vjp`` of ``ssd_intra_ref`` (the
+    kernel's own tolerance on the card). One TF32 product (hi·hi) on the
+    same inputs is reported beside it (``pytest -s``), and the split is
+    the closer of the two."""
+    Q = 256
+    rng = np.random.default_rng(N + G + 10 * wide)
+    f32 = np.float32
+    scale = 1e3 if wide else 1.0
+    xw, Bm, Cm = (rng.standard_normal(s).astype(f32) * f32(scale)
+                  for s in ((1, 1, Q, H, P), (1, 1, Q, G, N), (1, 1, Q, G, N)))
+    step = 30.0 / Q if wide else 0.05
+    l = (-np.cumsum(rng.uniform(0.0, 2 * step, (1, 1, Q, H)), axis=2)).astype(f32)
+    dy = rng.standard_normal((1, 1, Q, H, P)).astype(f32) * f32(scale)
+    dS = rng.standard_normal((1, 1, H, N, P)).astype(f32) * f32(scale)
+    want = jax.jit(lambda *a: jax.vjp(ssd_intra_ref, *a[:4])[1](a[4:]))(
+        *(jnp.asarray(a) for a in (xw, Bm, Cm, l, dy, dS)))
+    args = [torch.from_numpy(a) for a in (xw, Bm, Cm, l, dy, dS)]
+    rel = {}
+    for split in (True, False):
+        got = _ssd_intra_bwd_tf32(*args, split)
+        rel[split] = [float(np.max(np.abs(a.numpy() - np.asarray(c))))
+                      / _max_abs([c]) for a, c in zip(got, want)]
+    print(f"\nsplit TF32 vs jax.vjp, max |err| / max |ref| of dxw, dB, dC, "
+          f"dl: 3xTF32 {', '.join(f'{r:.3g}' for r in rel[True])}; 1xTF32 "
+          f"{', '.join(f'{r:.3g}' for r in rel[False])}")
+    assert all(r <= 1e-4 for r in rel[True]), rel[True]
+    assert max(rel[True]) < max(rel[False])
 
 
 # -- the train loss and step ------------------------------------------------------
