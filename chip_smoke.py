@@ -17,6 +17,7 @@ audio families.
     python3 chip_smoke.py
     python3 chip_smoke.py --only sharded   # build, train and l2s, [sharded]
     python3 chip_smoke.py --only cost      # build, train and l2s, [cost]
+    python3 chip_smoke.py --only mesh      # build, [mesh]
     python3 chip_smoke.py --only train-ssm # [train-ssm], its result as JSON
 
 Phases, one line (or a few) each:
@@ -460,6 +461,22 @@ Phases, one line (or a few) each:
               card against CPU gradients; paths "gemma-2b train",
               "mixtral-8x7b train", "qwen2-vl-2b train", "hubert-xlarge
               train" (no port kernel runs there: 0 launches);
+  8b. mesh   (last, after [sharded] (b)) the sharded dry run on this
+              machine's torch: gemma-2b decode_32k through the l2s head and
+              mamba2-1.3b prefill_32k (through ssd_intra) counted at full
+              width and depth on the 16x16 counting mesh (a fake process
+              group, meta tensors; launch/dryrun.py::lower_combo): one
+              device's argument and temp bytes, FLOPs, bytes, collective
+              bytes by kind, bound and seconds; no error record, and the
+              argument bytes == the sum of every argument's shard bytes
+              under its sharding's spec; then nmt-deen-lstm's (float32)
+              and gemma-2b's (bf16, 18 layers) l2s decode steps at full
+              width on the card, B = 4 over a random 64-slot cache, once
+              as they are and once with params, screen, cache and inputs
+              DTensors on a (1, 1) mesh over the card: the route and fused
+              kernels (and gemma's cache pair) launch through local_map as
+              often as without a mesh, the ids bit for bit; paths
+              "nmt-deen-lstm mesh (1, 1)", "gemma-2b mesh (1, 1)";
   9. a JSON line {"kernels": [...]} (each kernel with its launches on the
               path it was ported for and, in "launches_by_path", on each
               path: the two e2e paths, their graph phases, serve, the
@@ -467,7 +484,7 @@ Phases, one line (or a few) each:
               ("nmt-deen-lstm stream", "zamba2-2.7b stream"),
               "nmt-deen-lstm scheduler", "nmt-deen-lstm heads",
               "nmt-deen-lstm sharded", "gemma-2b-vocab sharded",
-              "nmt-deen-lstm cost", "gemma-2b cost",
+              "nmt-deen-lstm cost", "gemma-2b cost", the two [mesh] paths,
               "zamba2-2.7b adaptive", "nmt-deen-lstm spec", "nmt-deen-lstm
               paged", "zamba2-2.7b spec", "mamba2-1.3b bf16", the five
               dense paths, the five moe paths, "qwen2-vl-2b bf16",
@@ -503,6 +520,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -6829,6 +6847,150 @@ def phase_train_audio(torch, np):
     return {"hubert-xlarge train": launches}
 
 
+# -- the sharded dry run, and the kernels on DTensors ---------------------------
+MESH_B = 4                       # rows of the (1, 1)-mesh decode steps
+MESH_S = 64                      # their K/V cache slots
+
+
+def mesh_count(torch, name, shape_name, head):
+    """One combination counted on the 16x16 counting mesh on meta (the
+    dry run's ``lower_combo``); its argument bytes held to the sum of each
+    argument's shard bytes, as the shardings' specs give them. → the
+    record."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import local_shape
+    from repro_torch.tree import tree_flatten
+
+    cfg = get_config(name)
+    shape = INPUT_SHAPES[shape_name]
+    with make_production_mesh() as mesh:
+        t0 = time.perf_counter()
+        rec = dryrun.lower_combo(cfg, shape, mesh, head=head)
+        secs = time.perf_counter() - t0
+        _, args, in_sh, _, _ = dryrun.mesh_step(cfg, shape, mesh, head)
+        pairs = [(t, sh) for a, s in zip(args, in_sh)
+                 for t, sh in zip(tree_flatten(a), tree_flatten(s))]
+        unread = {id(t) for t in tree_flatten(dryrun._unread(cfg, shape,
+                                                             args))}
+        want = sum(math.prod(local_shape(t.shape, sh.spec, mesh)) *
+                   t.element_size() for t, sh in pairs if id(t) not in unread)
+    check("error" not in rec, f"[mesh] {name} {shape_name}: {rec}")
+    mem, rl = rec["memory"], rec["roofline"]
+    check(mem["argument_bytes"] == want,
+          f"[mesh] {name} {shape_name}: argument bytes "
+          f"{mem['argument_bytes']} != the shards' {want}")
+    kinds = {k: int(v["bytes"]) for k, v in rl["collectives"].items()
+             if v["count"]}
+    log(f"[mesh] {name} {shape_name} head={head} on the {rec['mesh']} "
+        f"counting mesh (meta, this machine's torch {torch.__version__}), "
+        f"one device: argument {mem['argument_bytes']} B (== its shards' "
+        f"bytes), temp {mem['temp_bytes']} B, {rl['flops_per_dev']:.6e} "
+        f"FLOPs, {rl['bytes_per_dev']:.6e} bytes, collective bytes "
+        f"{rl['collective_bytes_per_dev']:.6e} by kind {json.dumps(kinds)}, "
+        f"bound {rl['bound_s'] * 1e3:.4f} ms ({rl['dominant']}), counted in "
+        f"{secs:.1f} s")
+    return rec
+
+
+def mesh_decode(torch, np, name, seed):
+    """The l2s decode step of ``name`` at full width (and depth) in its
+    config's dtype on the card, once as it is and once with its params,
+    screen, cache and inputs DTensors on a (1, 1) mesh over the card: the
+    route and fused kernels then launch through ``local_map``. Ids equal
+    bit for bit; launches from zero. → the mesh run's launches."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.launch.sharding import (NamedSharding, cache_shardings,
+                                             distribute, params_shardings)
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_map
+    from repro_torch.utils import shard
+
+    cfg = get_config(name)
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, device="cuda")
+    dt = getattr(torch, cfg.dtype)
+    rng = np.random.default_rng(seed)
+    n_blk = -(-cfg.vocab_size // V_BLK)
+    v = torch.from_numpy(rng.standard_normal((R, cfg.d_model)).astype(
+        np.float32)).cuda()
+    cand = torch.from_numpy(rng.integers(0, n_blk + 1, (R, K)).astype(
+        np.int32)).cuda()
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, MESH_B).astype(
+        np.int32)).cuda()
+    pos = torch.tensor(MESH_S // 2, dtype=torch.int32, device="cuda")
+    cache = model.init_cache(MESH_B, MESH_S, dtype=dt, device="cuda")
+    cache = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device="cuda").to(t.dtype), cache)
+    step = make_serve_step(model, head="l2s")
+    clone = lambda c: tree_map(lambda t: t.clone(), c)      # noqa: E731
+    with torch.no_grad():
+        ops.reset_launches()
+        ids0, vals0, _ = step(params, v, cand, clone(cache), tok, pos)
+        torch.cuda.synchronize()
+        plain = {k: n for k, n in ops.LAUNCHES.items() if n}
+        with CountingMesh((1, 1), ("data", "model"),
+                          device_type="cuda") as mesh:
+            rep = NamedSharding(mesh, ())
+            args = (distribute(params, params_shardings(mesh, cfg, params)),
+                    *distribute([v, cand], [rep, rep]),
+                    distribute(clone(cache), cache_shardings(mesh, cfg,
+                                                             cache)),
+                    *distribute([tok, pos], [rep, rep]))
+            ops.reset_launches()
+            with shard.use_mesh(mesh), implicit_replication():
+                ids1, vals1, _ = step(*args)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+            ids1, vals1 = ids1.to_local(), vals1.to_local()
+            backend = torch.distributed.get_backend()
+    sfx = ops.BF16 if dt == torch.bfloat16 else ""
+    check(launches.get("cluster_route" + sfx, 0) >= 1 and
+          launches.get("fused_screened_topk" + sfx, 0) >= 1 and
+          launches == plain,
+          f"[mesh] {name}: launches on the mesh {launches}, without {plain}")
+    check(torch.equal(ids0, ids1),
+          f"[mesh] {name}: ids on the (1, 1) mesh differ from the step's")
+    log(f"[mesh] {name} l2s decode step, {cfg.num_layers} layers, d = "
+        f"{cfg.d_model}, V = {cfg.vocab_size}, {cfg.dtype}, B = {MESH_B}, "
+        f"a {MESH_S}-slot cache at pos {MESH_S // 2}: on a (1, 1) mesh over "
+        f"the card ({backend} group) the ids equal the step's without one "
+        f"bit for bit; vals max |diff| "
+        f"{(vals0 - vals1).abs().max().item():.3e}; launches "
+        f"{json.dumps(launches)}, the same as without a mesh")
+    return launches
+
+
+def phase_mesh(torch, np):
+    """[mesh] (a) the sharded dry run on this machine's torch: gemma-2b
+    decode_32k through the l2s head and mamba2-1.3b prefill_32k (through
+    ``ssd_intra``) at full width and depth counted on the 16x16 counting
+    mesh, one device's numbers printed, each record's
+    argument bytes held to its shards' bytes; (b) the kernels on DTensors:
+    nmt-deen-lstm's and gemma-2b's l2s decode steps at full width and
+    depth on a (1, 1) mesh over the card, ids bit-identical to the steps
+    without one. → launches of (b)'s paths."""
+    t0 = time.perf_counter()
+    mesh_count(torch, "gemma-2b", "decode_32k", "l2s")
+    mesh_count(torch, "mamba2-1.3b", "prefill_32k", "full")
+    paths = {"nmt-deen-lstm mesh (1, 1)": mesh_decode(torch, np,
+                                                      "nmt-deen-lstm", 5)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["gemma-2b mesh (1, 1)"] = mesh_decode(torch, np, "gemma-2b", 6)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh] took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6854,6 +7016,12 @@ def main() -> int:
         _, ctx = walled("train and l2s", phase_train_l2s, torch, np)
         walled("cost", phase_cost, torch, np, ctx)
         log(f"[done] --only cost took {time.perf_counter() - T_START:.1f} s;"
+            f" phase walls (s): {json.dumps(WALLS)}")
+        return 0
+    if sys.argv[1:] == ["--only", "mesh"]:
+        # the [mesh] phase alone; no result lines
+        walled("mesh", phase_mesh, torch, np)
+        log(f"[done] --only mesh took {time.perf_counter() - T_START:.1f} s;"
             f" phase walls (s): {json.dumps(WALLS)}")
         return 0
     if sys.argv[1:] == ["--only", "sharded"]:
@@ -6990,6 +7158,9 @@ def main() -> int:
     del l2s_ctx
     sharded_gemma, shard_rows = walled("sharded gemma-vocab",
                                        phase_sharded_gemma, torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_paths = walled("mesh", phase_mesh, torch, np)
     # each kernel's launches on the path it was ported for, and on each path
     launches = {k: (hybrid if k in BF16_KERNELS or k in ssm_err else
                     lstm)[k] for k in lstm}
@@ -7012,7 +7183,8 @@ def main() -> int:
              "gemma-2b bf16": gemma, "gemma-2b paged": gemma_paged,
              "gemma-2b spec": gemma_spec, "starcoder2-3b bf16": starcoder,
              "qwen1.5-110b bf16": qwen, **moe, "qwen2-vl-2b bf16": vlm,
-             **audio, **train_ssm, **train_attn, **cost_paths}
+             **audio, **train_ssm, **train_attn, **cost_paths,
+             **mesh_paths}
 
     replaces = {"cluster_route": ("src/repro_torch/csrc/route.cu",
                                   "src/repro/kernels/route.py:49"),

@@ -25,6 +25,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.kernels import cost
+from repro_torch.utils import shard
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -73,8 +74,11 @@ def cache_slot_update(cache: torch.Tensor, update: torch.Tensor,
                       slot: Union[int, torch.Tensor]) -> torch.Tensor:
     """cache (B, S, KV, hd) f32 or bf16, contiguous; update (B, KV, hd) of
     the same dtype; slot a Python int (every row) or a (B,) int32 tensor on
-    the cache's device. Writes in place and returns ``cache``."""
+    the cache's device. Writes in place and returns ``cache``. DTensors
+    run per device (``_per_device``)."""
     from repro_torch.kernels import ops
+    if shard.any_dtensor(cache, update, slot):
+        return _per_device(cache_slot_update, (cache,), (update,), slot)[0]
     slots, k_slot = _check(cache, update, slot)
     B, S, KV, hd = cache.shape
     with cost.suspended():
@@ -96,8 +100,12 @@ def cache_kv_update(cache_k: torch.Tensor, upd_k: torch.Tensor,
                     slot: Union[int, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cache_slot_update`` of K and of V at the same slot(s), in place:
-    both caches of one shape, dtype and device. → (cache_k, cache_v)."""
+    both caches of one shape, dtype and device. → (cache_k, cache_v).
+    DTensors run per device (``_per_device``)."""
     from repro_torch.kernels import ops
+    if shard.any_dtensor(cache_k, upd_k, cache_v, upd_v, slot):
+        return _per_device(cache_kv_update, (cache_k, cache_v),
+                           (upd_k, upd_v), slot, interleave=True)
     slots, k_slot = _check(cache_k, upd_k, slot, ("cache_k", "upd_k"))
     _check(cache_v, upd_v, slot, ("cache_v", "upd_v"))
     if cache_v.shape != cache_k.shape or cache_v.dtype != cache_k.dtype:
@@ -119,3 +127,40 @@ def cache_kv_update(cache_k: torch.Tensor, upd_k: torch.Tensor,
                           2 * (cost.tensor_bytes(upd_k) +
                                cost.tensor_bytes(upd_v)), fresh=False)
     return cache_k, cache_v
+
+
+def _per_device(fn, caches, updates, slot, interleave: bool = False):
+    """``fn`` on each device's shard of DTensor caches, in place, at the
+    caches' own placements: the updates split as their caches (batch,
+    kv-heads, head_dim; replicated where the cache splits its sequence),
+    the slots batch-split. Over a sequence-split cache a device writes
+    only the slot it holds, at its local index (else nothing: slot −1).
+    → the caches."""
+    from torch.distributed.tensor import Replicate, Shard
+    c = caches[0]
+    mesh = shard.mesh_of(*caches, *updates, slot)
+    cp = tuple(c.placements) if shard.is_dtensor(c) else \
+        shard.replicated(mesh)
+    up = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 2
+               else p if p == Shard(0) else Replicate() for p in cp)
+    seq = Shard(1) in cp
+    if seq:
+        S, S_loc = c.shape[1], c.to_local().shape[1]
+        off = shard.shard_offset_of(mesh, cp, 1, S)
+        if isinstance(slot, torch.Tensor):
+            s = slot.long().clamp(max=S - 1)
+            slot = torch.where((s >= off) & (s < off + S_loc), s - off,
+                               -1).to(torch.int32)
+        else:
+            s = min(int(slot), S - 1)
+            slot = s - off if 0 <= s - off < S_loc else -1
+    sp = shard.batch_placements(c, mesh) if isinstance(slot, torch.Tensor) \
+        else None
+    if interleave:
+        args = (caches[0], updates[0], caches[1], updates[1], slot)
+        pls = (cp, up, cp, up, sp)
+    else:
+        args = (caches[0], updates[0], slot)
+        pls = (cp, up, sp)
+    out = shard.per_device(fn, args, pls, (cp,) * len(caches), mesh=mesh)
+    return out if isinstance(out, tuple) else (out,)

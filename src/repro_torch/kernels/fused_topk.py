@@ -31,14 +31,16 @@ whose logits are the bits of ``screened_logits``' bf16 body.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import V_BLK
-from repro_torch.kernels.ref import NEG_INF, topk_desc
+from repro_torch.kernels.ref import NEG_INF, merge_shard_topk, topk_desc
 from repro_torch.kernels.screen import check_head_inputs, screened_logits_plain
 from repro_torch.kernels import cost
+from repro_torch.utils import shard
 
 
 def fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k: int,
@@ -70,8 +72,11 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
     h (B, d) of the same dtype; block_ids (B, K) int32, sentinel ≥ n_blk;
     optional noise (B, K, V_BLK) f32. → (ids (B, k) int32, vals (B, k) f32, logZ (B,) f32):
     ids/vals bit-identical to masking + stable top-k over the unfused
-    (B, K·V_BLK) row; logZ is −∞ (not NaN) for all-sentinel rows."""
+    (B, K·V_BLK) row; logZ is −∞ (not NaN) for all-sentinel rows.
+    DTensors run per device (``_per_device``)."""
     from repro_torch.kernels import ops
+    if shard.any_dtensor(W_blocks, b_blocks, h, block_ids, noise):
+        return _per_device(W_blocks, b_blocks, h, block_ids, k, noise)
     check_head_inputs(W_blocks, b_blocks, h, block_ids)
     dev = h.device
     v_blk = W_blocks.shape[1]
@@ -192,3 +197,44 @@ def _launch(W_blocks, b_blocks, h, block_ids, k: int, noise, parts: int):
                scratch.data_ptr(), _counters(dev, B).data_ptr(),
                B, K, n_blk, d, k, parts)
     return ids, vals, logz
+
+
+def _per_device(W_blocks, b_blocks, h, block_ids, k: int, noise):
+    """``fused_screened_topk`` on DTensors, per device: h, the ids, the
+    noise and the results split over the batch as h is. A head whose tiles
+    split over mesh dims (the vocab over "model") stays split: each device
+    runs the kernel over its own tiles, the row's other blocks turned
+    sentinels, and the devices' k best (word ids made global) and log Z
+    are merged — the k best of their n·k by ``merge_shard_topk``, ties to
+    the lower shard, as ``heads/sharded.py`` merges its shards; log Z the
+    log-sum-exp of theirs. Otherwise the head is gathered whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = shard.mesh_of(W_blocks, b_blocks, h, block_ids, noise)
+    hp = shard.batch_placements(h, mesh)
+    np_ = None if noise is None else hp
+    split = [i for i, p in enumerate(getattr(W_blocks, "placements", ()))
+             if p == Shard(0)]
+    if not split:
+        return shard.per_device(
+            fused_screened_topk, (W_blocks, b_blocks, h, block_ids, k, noise),
+            (None, None, hp, hp, None, np_), (hp, hp, hp), mesh=mesh)
+    n_blk = W_blocks.shape[0]
+    wp = tuple(Shard(0) if i in split else Replicate()
+               for i in range(mesh.ndim))
+    out = tuple(Shard(1) if i in split else p for i, p in enumerate(hp))
+    n_loc = n_blk // math.prod(mesh.size(i) for i in split)
+    off = shard.shard_offset_of(mesh, wp, 0, n_blk)
+
+    def local(Wl, bl, hl, il, nl):
+        mine = (il >= off) & (il < off + n_loc)
+        ids, vals, logz = fused_screened_topk(
+            Wl, bl, hl, torch.where(mine, il - off, n_loc).to(torch.int32),
+            k, nl)
+        ids = torch.where(ids < n_loc * V_BLK, ids + off * V_BLK,
+                          n_blk * V_BLK)
+        return ids, vals, logz[:, None]
+    ids, vals, logz = (shard.gathered(t) for t in shard.per_device(
+        local, (W_blocks, b_blocks, h, block_ids, noise),
+        (wp, wp, hp, hp, np_), (out, out, out), mesh=mesh))
+    ids, vals = merge_shard_topk(vals, ids, k, sentinel=n_blk * V_BLK)
+    return ids, vals, torch.logsumexp(logz, dim=1)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cost
+from repro_torch.utils import shard
 
 MAX_D = 56_320  # one row of h staged in 220 KB of one block's shared memory
 
@@ -33,8 +34,13 @@ def cluster_route_plain(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def cluster_route(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """h (B, d) f32 or bf16; v (r, d) f32 → (B,) int32 cluster ids."""
+    """h (B, d) f32 or bf16; v (r, d) f32 → (B,) int32 cluster ids.
+    DTensors run per device: h and the routes batch-sharded, v
+    replicated."""
     from repro_torch.kernels import ops
+    if shard.any_dtensor(h, v):
+        hp = shard.batch_placements(h, shard.mesh_of(h, v))
+        return shard.per_device(cluster_route, (h, v), (hp, None), (hp,))
     dev = h.device
     ops.check_tensor(h, "h", ops.FLOATS, 2, dev)
     ops.check_tensor(v, "v", torch.float32, 2, dev)

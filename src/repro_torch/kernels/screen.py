@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import V_BLK
 from repro_torch.kernels import cost
+from repro_torch.utils import shard
 
 
 def screened_logits_plain(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
@@ -64,8 +65,16 @@ def check_head_inputs(W_blocks, b_blocks, h, block_ids) -> None:
 def screened_logits(W_blocks, b_blocks, h, block_ids) -> torch.Tensor:
     """W_blocks (n_blk, V_BLK, d) f32 or bf16; b_blocks (n_blk, V_BLK) and
     h (B, d) of the same dtype; block_ids (B, K) int32 (sentinel ≥ n_blk)
-    → raw logits (B, K, V_BLK) f32, sentinel tiles NOT masked."""
+    → raw logits (B, K, V_BLK) f32, sentinel tiles NOT masked. DTensors
+    run per device: h, the ids and the logits batch-sharded, the head
+    replicated (gathered where it is sharded)."""
     from repro_torch.kernels import ops
+    if shard.any_dtensor(W_blocks, b_blocks, h, block_ids):
+        hp = shard.batch_placements(
+            h, shard.mesh_of(W_blocks, b_blocks, h, block_ids))
+        return shard.per_device(screened_logits,
+                                (W_blocks, b_blocks, h, block_ids),
+                                (None, None, hp, hp), (hp,))
     check_head_inputs(W_blocks, b_blocks, h, block_ids)
     dev = h.device
     n_blk, v_blk, d = W_blocks.shape

@@ -43,6 +43,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import cost
+from repro_torch.utils import shard
 
 NEG_INF = -1e30
 
@@ -153,8 +154,18 @@ def bwd_scratch_floats(BC: int, Q: int, H: int, P: int, N: int) -> int:
 def ssd_intra_bwd(xw, Bm, Cm, l, dy, dS) -> Tuple[torch.Tensor, ...]:
     """Gradient of ``ssd_intra`` (arguments as ``ssd_intra_bwd_plain``'s):
     on a CUDA tensor the kernel of ``csrc/ssd_bwd.cu``, on a CPU tensor
-    the plain version. → (dxw, dBm, dCm, dl) float32."""
+    the plain version. → (dxw, dBm, dCm, dl) float32. DTensors run per
+    device, split as ``ssd_intra``'s."""
     from repro_torch.kernels import ops
+    if shard.any_dtensor(xw, Bm, Cm, l, dy, dS):
+        from torch.distributed.tensor import Partial, Shard
+        px, pb, pl, py, pS = _placements(xw, Bm)
+        # where the heads split and B/C do not (G = 1), a device's dB and
+        # dC are its heads' part of the sum over the group's heads
+        pd = tuple(Partial() if isinstance(p, Shard) and q != p else q
+                   for p, q in zip(px, pb))
+        return shard.per_device(ssd_intra_bwd, (xw, Bm, Cm, l, dy, dS),
+                                (px, pb, pb, pl, py, pS), (px, pd, pd, pl))
     _check_shapes(xw, Bm, Cm, l)
     dev = xw.device
     B, nc, Q, H, P = xw.shape
@@ -215,5 +226,31 @@ def ssd_intra(xw, Bm, Cm, l) -> Tuple[torch.Tensor, torch.Tensor]:
     """xw (B, nc, Q, H, P) f32 dt-weighted inputs; Bm/Cm (B, nc, Q, G, N)
     f32; l (B, nc, Q, H) f32 cumulative log decay; G divides H.
     → (y (B, nc, Q, H, P) f32, S (B, nc, H, N, P) f32), differentiable
-    in all four inputs."""
+    in all four inputs. DTensors run per device (``_placements``), the
+    backward too."""
+    if shard.any_dtensor(xw, Bm, Cm, l):
+        px, pb, pl, py, pS = _placements(xw, Bm)
+        return shard.per_device(SSDIntraFn.apply, (xw, Bm, Cm, l),
+                                (px, pb, pb, pl), (py, pS))
     return SSDIntraFn.apply(xw, Bm, Cm, l)
+
+
+def _placements(xw, Bm):
+    """Per-device placements of ``ssd_intra``'s operands and results, as
+    GSPMD splits the reference's: the batch over the data axes where xw
+    splits it; the heads over "model" where they divide it and each
+    device's heads read its own B/C groups (G divides "model" too, or
+    G = 1). → (xw, Bm and Cm, l, y, S)."""
+    from torch.distributed.tensor import Shard
+    mesh = shard.mesh_of(xw, Bm)
+    bp = shard.batch_placements(xw, mesh)
+    H, G = xw.shape[3], Bm.shape[3]
+    names = mesh.mesh_dim_names or ()
+    m = names.index("model") if "model" in names else None
+    if m is None or H % mesh.size(m) or (G > 1 and G % mesh.size(m)):
+        return bp, bp, bp, bp, bp
+
+    def at(dim, split=True):
+        return tuple(Shard(dim) if i == m and split else p
+                     for i, p in enumerate(bp))
+    return at(3), at(3, G > 1), at(3), at(3), at(2)

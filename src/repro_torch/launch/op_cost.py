@@ -31,9 +31,20 @@ conventions hold:
   mode and are counted, as XLA counts the gradient and remat.
 * Collectives — ``heads/sharded.py``'s ``_all_gather`` / ``_pmax`` /
   ``_psum`` record one ``all-gather`` / ``all-reduce`` op each
-  (``kernels/cost.py::record_collective``), its result
-  bytes summed as ``collective_bytes`` (``roofline.py::parse_collectives``'s
-  convention), whatever device the shards sit on.
+  (``kernels/cost.py::record_collective``), whatever device the shards
+  sit on; torch's functional collectives, which DTensor runs where it
+  redistributes (``_c10d_functional.all_gather_into_tensor`` /
+  ``reduce_scatter_tensor`` / ``all_reduce`` / ``all_to_all_single``),
+  one ``all-gather`` / ``reduce-scatter`` / ``all-reduce`` /
+  ``all-to-all`` op each (``wait_tensor`` and ``_wrap_tensor_autograd``
+  count nothing). Each one's result bytes, per device, are summed as
+  ``collective_bytes`` (``roofline.py::parse_collectives``'s
+  convention).
+* DTensors — an op on DTensors (a step counted on a mesh,
+  ``launch/dryrun.py``) is left to the DTensor, whose local ops and
+  collectives come back to the counter at the shard's shapes: the count
+  is one device's. The ops DTensor runs on fake tensors to derive a
+  result's global shape are not counted.
 * Kernels — each CUDA kernel's wrapper (``kernels/*.py``) records one op
   under its kernel's name (``kernels/cost.py::record_kernel``; a
   ``pallas_call`` seen as one custom call), its bytes counted as the
@@ -66,6 +77,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -104,6 +117,23 @@ _SCATTERS = {"index_put", "index_put_", "_index_put_impl_", "scatter",
              "index_fill", "index_fill_"}
 _FREE = {"_local_scalar_dense", "sym_size", "sym_stride", "sym_numel",
          "is_same_size", "record_stream", "set_", "resize_"}
+# torch's functional collectives (DTensor's redistributions) → the
+# reference's kinds; waiting and autograd wrapping count nothing
+_C10D = {"all_gather_into_tensor": "all-gather",
+         "reduce_scatter_tensor": "reduce-scatter",
+         "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+_C10D_FREE = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _c10d_kind(name: str):
+    """The reference's kind of a functional collective op, or None for one
+    that counts nothing; raises on one the counter does not know."""
+    if name in _C10D_FREE:
+        return None
+    for op, kind in _C10D.items():
+        if name.startswith(op):         # its _out, _coalesced, in-place forms
+            return kind
+    raise ValueError(f"count_cost: no collective kind for {name}")
 
 
 @dataclass
@@ -209,6 +239,15 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            # the DTensor runs the op: its local ops and collectives come
+            # back here, each at its shard's shapes
+            return NotImplemented
+        if func is torch.ops.aten.equal.default and \
+                args[0].device.type == "meta":
+            # DTensor's vocab-parallel gather checks that a mask it reuses
+            # is the one it made; meta tensors hold no data to compare
+            return args[0].shape == args[1].shape
         if func.overloadpacket not in flop_registry:
             # a composite op (matmul, einsum, linear, ...) reaches the mode
             # whole under inference_mode: count the ops it is made of
@@ -217,7 +256,10 @@ class _Counter(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
-        if not self.paused:
+        if not self.paused and not any(
+                isinstance(t, FakeTensor) for t in tree_leaves(out)):
+            # (a DTensor derives a result's global shape by running the op
+            # on fake tensors: not work any device does)
             self._record(func, args, kwargs, out)
         return out
 
@@ -227,6 +269,11 @@ class _Counter(TorchDispatchMode):
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
         if not outs or name in _FREE:
+            return
+        if func.namespace == "_c10d_functional":
+            kind = _c10d_kind(name)
+            if kind is not None:
+                self.add_collective(kind, ins, outs[0])
             return
         if func.is_view or name in _VIEWS:
             for t in outs if ins else ():

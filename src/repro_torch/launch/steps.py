@@ -45,6 +45,7 @@ from repro_torch.models.model import Model
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                cosine_schedule)
 from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.utils import shard
 
 TOPK = 5
 
@@ -72,17 +73,29 @@ def loss_and_grads(model: Model, tcfg: TrainConfig, params,
     if m is None or m <= 1:
         loss, grads = one(batch)
     else:
-        n = next(iter(batch.values())).shape[0] // m
         loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in leaves]
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         for i in op_cost.trips(m, leaves[0]):
-            l, g = one({k: x[i * n:(i + 1) * n] for k, x in batch.items()})
+            l, g = one({k: _microbatch(x, i, m) for k, x in batch.items()})
             loss = loss + l
             grads = [a + b.float() for a, b in zip(grads, g)]
         loss = loss / m
         grads = [g / m for g in grads]
     return loss, tree_unflatten(params, grads)
+
+
+def _microbatch(x: torch.Tensor, i: int, m: int) -> torch.Tensor:
+    """Rows [i·n, (i + 1)·n) of x, n = B / m. A DTensor split over the
+    batch gives each device's i-th m-th of its own rows instead: the same
+    rows over the m microbatches, no row sent (the reference reshapes the
+    batch to (m, B / m) and lets GSPMD shard each microbatch)."""
+    if not shard.is_dtensor(x):
+        n = x.shape[0] // m
+        return x[i * n:(i + 1) * n]
+    bp = shard.batch_placements(x, x.device_mesh)
+    return shard.per_device(
+        lambda t: t[i * (t.shape[0] // m):(i + 1) * (t.shape[0] // m)],
+        (x,), (bp,), (bp,))
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, donate: bool = False):
@@ -146,11 +159,15 @@ def windowed(model: Model, window: Optional[int]) -> Model:
 
 def _head_blocks(W: torch.Tensor, b: torch.Tensor):
     """(L, d), (L,) → 128-row tiles: views where L is a multiple of V_BLK,
-    else the padded copy of ``pack_head_blocks``."""
+    else the padded copy of ``pack_head_blocks``. On a mesh a vocab split
+    the tiles cannot follow (the tiles do not divide over it, or the head
+    is padded) is gathered first."""
     L, d = W.shape
+    n_blk = L // V_BLK if L % V_BLK == 0 else 0
+    W, b = shard.gather_split(W, 0, n_blk), shard.gather_split(b, 0, n_blk)
     if L % V_BLK:
         return pack_head_blocks(W, b)
-    return W.reshape(L // V_BLK, V_BLK, d), b.reshape(L // V_BLK, V_BLK)
+    return shard.tiles(W, V_BLK), shard.tiles(b, V_BLK)
 
 
 def make_serve_step(model: Model, head: str = "full",

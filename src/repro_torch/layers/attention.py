@@ -24,6 +24,13 @@ slots (``init_cache(window=w)``): position p lives in slot p % w.
 A product of two dtypes (float32 activations against bfloat16 weights, as
 hubert-xlarge's float32 frames give in its bf16 config) is taken in the
 wider dtype, the weights widened exactly, as JAX's einsum promotes them.
+
+On a mesh (DTensors, ``launch/dryrun.py``) the projections' heads are
+pinned to split as their weights' (``_proj``, ``_proj_out``); attention
+splits the query heads where the KV grouping allows (``_grouped``,
+``_per_kv_group``), else its query rows over "model" in the chunked path
+(``_sdpa_chunked``'s sequence-parallel branch), else runs replicated over
+"model". Without a mesh none of this changes an op.
 """
 from __future__ import annotations
 
@@ -37,6 +44,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.cache_update import cache_kv_update
 from repro_torch.layers.initializers import dense_init, init_device
 from repro_torch.layers.rope import apply_mrope, apply_rope
+from repro_torch.utils.shard import (batch_placements, is_dtensor,
+                                     model_axis_size, per_device,
+                                     shard_axis, shard_batch,
+                                     shard_offset_of, split_as)
 
 NEG_INF = -1e30
 # Above this many query positions, full-sequence attention switches to the
@@ -72,9 +83,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _proj(x, w):
-    """x (B, T, d) · w (d, n, hd) → (B, T, n, hd), one matmul."""
+    """x (B, T, d) · w (d, n, hd) → (B, T, n, hd), one matmul. On a mesh
+    the product's columns are pinned to split as w's heads split (or not
+    at all): DTensor would otherwise split them wherever it is cheapest,
+    across heads that do not divide, and the reshape could not follow."""
     d, n, hd = w.shape
-    return matmul(x, w.reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
+    y = split_as(matmul(x, w.reshape(d, n * hd)), x.dim() - 1, w, 1)
+    return split_as(y.reshape(*x.shape[:-1], n, hd), x.dim() - 1, w, 1)
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
@@ -107,7 +122,7 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     B, T, H, hd = q.shape
     KV = k.shape[2]
     g = H // KV
-    qg = q.reshape(B, T, KV, g, hd)
+    qg = _grouped(q, KV).reshape(B, T, KV, g, hd)
     scores = torch.einsum("btkgh,bskh->bkgts", qg.float(),
                           k.to(q.dtype).float())
     scores = scores / math.sqrt(hd)
@@ -118,7 +133,7 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype).float(),
                        v.float())
-    return out.reshape(B, T, H, hd).to(q.dtype)
+    return _grouped(out.reshape(B, T, H, hd).to(q.dtype), KV)
 
 
 def _sdpa_chunked(q, k, v, cfg: ModelConfig, causal: bool,
@@ -130,10 +145,13 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, causal: bool,
     q's dtype first and the products accumulate in float32, as in the
     reference's ``_sdpa_chunked``.
 
-    The reference also shards each chunk's queries over a mesh's
-    ``model`` axis when the head count does not divide it
-    (``REPRO_SEQ_PARALLEL``, ``shard_axis``). That is XLA sharding; on one
-    card it means nothing, so it is left out (ROADMAP.md, item 11)."""
+    SEQUENCE-PARALLEL path, the reference's: on a mesh whose ``model``
+    axis the head count does not divide (smollm 15 heads, gemma 8,
+    starcoder2 24, qwen2-vl 12 on 16), the heads cannot split, so each
+    chunk's QUERY rows are split over ``model`` instead
+    (``utils/shard.py::shard_axis``): every device scores q_chunk / m rows
+    against the whole K/V, and the score tiles, FLOPs and bytes divide by
+    m. Without a mesh it changes nothing."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -141,27 +159,34 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, causal: bool,
     if pad:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
     nq = (T + pad) // q_chunk
-    qc = q.reshape(B, nq, q_chunk, KV, g, hd).float()
+    qc = _grouped(q, KV).reshape(B, nq, q_chunk, KV, g, hd).float()
     kf = k.to(q.dtype).float()
     vf = v.to(q.dtype)
     vff = vf.float()
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     kpos = torch.arange(S, device=q.device)
+    msize = model_axis_size()
+    split = msize > 1 and H % msize != 0 and q_chunk % msize == 0
     outs = []
     for i in range(nq):
         qpos = i * q_chunk + torch.arange(q_chunk, device=q.device)
-        scores = torch.einsum("bqkgh,bskh->bkgqs", qc[:, i], kf) * scale
+        qi = shard_axis(qc[:, i], 1, "model") if split else qc[:, i]
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qi, kf) * scale
         m = torch.ones((q_chunk, S), dtype=torch.bool, device=q.device)
         if causal:
             m &= kpos[None, :] <= qpos[:, None]
         if window is not None:
             m &= kpos[None, :] > qpos[:, None] - window
         scores = torch.where(m, scores, NEG_INF)
+        if split:
+            scores = shard_axis(scores, 3, "model")
         probs = torch.softmax(scores, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskh->bqkgh",
-                                 probs.to(vf.dtype).float(), vff))
+        out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(vf.dtype).float(),
+                           vff)
+        # the query rows gathered again (the reference's re-gather)
+        outs.append(shard_batch(out) if split else out)
     out = torch.stack(outs, dim=1).reshape(B, T + pad, H, hd)
-    return out[:, :T].to(q.dtype)
+    return _grouped(out[:, :T].to(q.dtype), KV)
 
 
 def make_mask(T: int, S: int, causal: bool, window: Optional[int] = None,
@@ -191,17 +216,60 @@ def attn_forward_kv(params, x, cfg: ModelConfig, positions,
     w = window if window is not None else cfg.sliding_window
     is_causal = causal and not cfg.is_encoder
     if T >= CHUNKED_ATTN_THRESHOLD:
-        out = _sdpa_chunked(q, k, v, cfg, is_causal, w)
+        out = _per_kv_group(lambda q, k, v: _sdpa_chunked(
+            q, k, v, cfg, is_causal, w), q, k, v)
     else:
         mask = make_mask(T, T, causal=is_causal, window=w, device=x.device)
-        out = _sdpa(q, k, v, mask, cfg)
+        out = _per_kv_group(lambda q, k, v: _sdpa(q, k, v, mask, cfg),
+                            q, k, v)
     return _proj_out(out, params["wo"]), k, v
 
 
+def _per_kv_group(fn, q, k, v):
+    """``fn(q, k, v)`` (full-sequence attention), and on a mesh whose
+    "model" axis splits the query heads but not the KV heads, and each
+    device's heads fall in one KV head's group (phi3.5 and mixtral: 32
+    heads, 8 KV, on 16), per device: its query heads against its KV head,
+    whose gradient is a partial sum over "model" (GSPMD splits the
+    grouped heads so too). Elsewhere ``_grouped`` gathers the heads."""
+    m = model_axis_size()
+    H, KV = q.shape[2], k.shape[2]
+    if not (is_dtensor(q) and m > 1 and H % m == 0 and KV > 1 and KV % m
+            and m % KV == 0):
+        return fn(q, k, v)
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    bp = batch_placements(q, mesh)
+    heads = tuple(Shard(2) if i == mi else p for i, p in enumerate(bp))
+    kv = shard_offset_of(mesh, heads, 2, H) // (H // KV)
+
+    def local(ql, kl, vl):
+        return fn(ql, kl[:, :, kv:kv + 1], vl[:, :, kv:kv + 1])
+    return per_device(local, (q, k, v), (heads, bp, bp), (heads,), mesh=mesh)
+
+
 def _proj_out(out, wo):
-    """out (B, T, H, hd) · wo (H, hd, d) → (B, T, d)."""
+    """out (B, T, H, hd) · wo (H, hd, d) → (B, T, d). On a mesh the heads
+    are pinned to split as wo's, on both sides of the reshape (value and
+    gradient), as in ``_proj``."""
     H, hd, d = wo.shape
-    return matmul(out.reshape(*out.shape[:2], H * hd), wo.reshape(H * hd, d))
+    flat = split_as(split_as(out, 2, wo, 0).reshape(*out.shape[:2], H * hd),
+                    2, wo, 0)
+    return matmul(flat, wo.reshape(H * hd, d))
+
+
+def _grouped(q, KV: int):
+    """q (B, T, H, hd), ready to be viewed as (B, T, KV, H / KV, hd): on a
+    mesh whose "model" axis splits the heads but not the KV heads (phi3.5
+    and mixtral: 32 heads, 8 KV, on 16), the heads are gathered (DTensor
+    cannot split one dim across the two the view makes; GSPMD can), and
+    attention runs replicated over "model". One KV head (gemma's MQA)
+    leaves the split on the query heads. Applied to attention's output as
+    well, so that its gradient comes back gathered too."""
+    if KV > 1 and KV % model_axis_size():
+        return split_as(q, 2, None, 0)
+    return q
 
 
 # -- KV-cache decode ---------------------------------------------------------

@@ -7,6 +7,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import matmul
 from repro_torch.layers.initializers import dense_init, init_device
+from repro_torch.utils.shard import lookup, split_as
 
 
 def embed_init(generator: torch.Generator, cfg: ModelConfig,
@@ -22,7 +23,8 @@ def embed_init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens.long()]
+    """On a mesh, a vocab-parallel lookup (``utils/shard.py::lookup``)."""
+    return lookup(params["embedding"], tokens.long())
 
 
 def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -32,5 +34,9 @@ def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
 
 def lm_logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full (unscreened) softmax logits: x = W·h + b. h: (..., d); float32
-    h against bf16 weights (hubert-xlarge's bf16 config) gives float32."""
-    return matmul(h, head_matrix(params, cfg).T) + params["lm_bias"]
+    h against bf16 weights (hubert-xlarge's bf16 config) gives float32.
+    On a mesh the logits are pinned to the batch split and W's vocab
+    split: DTensor would otherwise sum them over W's FSDP-split d and
+    gather the whole vocabulary, where GSPMD gathers W's d instead."""
+    W = head_matrix(params, cfg)
+    return split_as(matmul(h, W.T), h.dim() - 1, W, 0) + params["lm_bias"]

@@ -16,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.layers.attention import matmul
 from repro_torch.layers.initializers import dense_init
+from repro_torch.utils.shard import gathered
 
 
 def lstm_init(generator: torch.Generator, cfg: ModelConfig,
@@ -35,7 +36,9 @@ def _cell(p, x, h, c):
     # a state in another dtype than the weights (a bfloat16 decode cache
     # of a float32 model, as the dry run gives it) is promoted, as JAX
     # promotes it in the reference
-    gates = matmul(x, p["wx"]) + matmul(h, p["wh"]) + p["b"]
+    # on a mesh the gate dim is gathered once, for its split, and its
+    # gradient split again before the weights' products
+    gates = gathered(matmul(x, p["wx"]) + matmul(h, p["wh"]) + p["b"])
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

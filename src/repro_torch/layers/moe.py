@@ -19,9 +19,16 @@ of ``repro/layers/moe.py``.
 The expert products are ``torch.matmul`` over the stacked weights: the
 reference computes them as einsums outside any Pallas kernel. At decode
 (T = 1) every expert runs over its 8-slot buffer, as in the reference, so a
-step reads every expert's weights. The reference's ``shard_batch`` pins the
-dispatch buffers to a mesh's data axis; that is XLA sharding and is left
-out (ROADMAP.md, item 11).
+step reads every expert's weights.
+
+On a mesh (DTensors) the rows never meeting makes the layer a per-device
+one (``_moe_per_device``): each device routes, dispatches and combines its
+own rows; its experts are the ones "model" gives it (all of them, their ff
+slice, or E / m whole experts under expert parallelism) and its output a
+partial sum over "model" where they are split. The reference's
+``shard_batch`` pins of the dispatch buffers (``buf0``, ``out``; T > 1)
+hold each device's buffer to its own rows; the load-balance statistics
+are summed over the devices.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import topk_desc
 from repro_torch.layers.initializers import dense_init
 from repro_torch.layers.mlp import GATED
+from repro_torch.utils import shard
 
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -100,27 +108,104 @@ def moe_apply(params, x: torch.Tensor,
               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, d) → (out (B, T, d), aux loss, a 0-dim float32 tensor).
     Each batch row is one routing group."""
+    if shard.any_dtensor(x, *params.values()):
+        return _moe_per_device(params, x, cfg)
+    E = cfg.moe.num_experts
+    out, expert_idx, probs = _dispatch_combine(params, x, cfg, 0)
+    frac = torch.mean(F.one_hot(expert_idx[:, 0], E).float(), dim=0)
+    aux = (cfg.moe.aux_loss_weight * E) * torch.sum(
+        frac * torch.mean(probs, dim=0))
+    return out, aux
+
+
+def _dispatch_combine(params, x: torch.Tensor, cfg: ModelConfig,
+                      e_off: int):
+    """x's rows through the experts ``params`` holds, experts [e_off,
+    e_off + E_loc) of the E (all of them, their ff slice, or a device's
+    whole experts under expert parallelism; a slot routed to another
+    device's expert is dropped here) → (out (B, T, d), the sum over those
+    experts; each token's experts (B·T, K) and router probabilities (B·T,
+    E))."""
     B, T, d = x.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
+    E_loc = params["w_up"].shape[0]
     C = capacity(T, cfg)
     gate_vals, expert_idx, probs = _route(params, x.reshape(B * T, d), cfg)
     flat_e = expert_idx.reshape(B, T * K)
     place, keep = _slots(flat_e, E, C)
+    local_e = flat_e
+    if E_loc < E:                  # expert parallel: this device's experts
+        local_e = flat_e - e_off
+        keep = keep & (local_e >= 0) & (local_e < E_loc)
+        local_e = torch.where(keep, local_e, 0)
     flat_g = torch.where(keep, gate_vals.reshape(B, T * K), 0.0)
     safe_p = torch.where(keep, place, 0)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, T * K)
     # each token once per slot, token-major (an expand: no host sync)
     contrib = x[:, :, None].expand(B, T, K, d).reshape(B, T * K, d) * \
         keep[..., None].to(x.dtype)
-    buf = torch.zeros((B, E, C, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((rows, flat_e, safe_p), contrib, accumulate=True)
+    buf = torch.zeros((B, E_loc, C, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((rows, local_e, safe_p), contrib, accumulate=True)
     out_buf = _experts(params, buf, cfg)
-    slot_out = (out_buf[rows, flat_e, safe_p] *
+    slot_out = (out_buf[rows, local_e, safe_p] *
                 flat_g[..., None].to(x.dtype)).reshape(B, T, K, d)
     out = torch.zeros_like(x)
     for j in range(K):                     # the combine's adds, in slot order
         out = out + slot_out[:, :, j]
-    frac = torch.mean(F.one_hot(expert_idx[:, 0], E).float(), dim=0)
+    return out, expert_idx, probs
+
+
+def _moe_per_device(params, x, cfg: ModelConfig):
+    """``moe_apply`` on DTensors: each device's rows (x batch-split over
+    the data axes) through its experts, their weights gathered over the
+    data axes (FSDP) and split over "model" as placed (expert parallel,
+    ff, or not at all); the output a partial sum over "model" where it
+    splits them; every gradient a partial sum over the devices that share
+    its tensor (``shard.per_device``). The aux loss from the statistics
+    summed over the devices."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = shard.mesh_of(x, *params.values())
+    names = mesh.mesh_dim_names or ()
+    m = names.index("model") if "model" in names else None
+    bp = shard.batch_placements(x, mesh)
+    rep = shard.replicated(mesh)
+    B, T, _ = x.shape
+    E = cfg.moe.num_experts
+    w_pl, e_split, split = {}, False, False
+    for k, w in params.items():
+        p = rep
+        if m is not None and k != "w_router" and shard.is_dtensor(w) and \
+                isinstance(w.placements[m], Shard):
+            p = tuple(w.placements[m] if i == m else Replicate()
+                      for i in range(mesh.ndim))
+            split = True
+            e_split = e_split or w.placements[m].dim == 0
+        w_pl[k] = p
+    e_off = 0
+    if e_split:
+        E_loc = E // mesh.size(m)
+        e_off = mesh.get_coordinate()[m] * E_loc
+    out_pl = tuple(Partial() if split and i == m else p
+                   for i, p in enumerate(bp))
+    stat_pl = tuple(Partial() if p == Shard(0) else Replicate() for p in bp)
+    # where the experts split, the router's gradient is a partial sum over
+    # "model" (each device's gates are its experts'), so each device's
+    # probabilities count 1 / m of the aux term (m a power of two: exact)
+    prob_pl = tuple(Partial() if split and i == m else p
+                    for i, p in enumerate(stat_pl))
+    frac = 1.0 / mesh.size(m) if split else 1.0
+    keys = list(params)
+
+    def local(x, *ws):
+        out, expert_idx, probs = _dispatch_combine(dict(zip(keys, ws)), x,
+                                                   cfg, e_off)
+        counts = torch.sum(F.one_hot(expert_idx[:, 0], E).float(), dim=0)
+        return out, counts, torch.sum(probs, dim=0) * frac
+    out, counts, psum = shard.per_device(
+        local, (x, *params.values()), (bp, *(w_pl[k] for k in keys)),
+        (out_pl, stat_pl, prob_pl), mesh=mesh)
+    if T > 1:
+        out = shard.shard_batch(out)
     aux = (cfg.moe.aux_loss_weight * E) * torch.sum(
-        frac * torch.mean(probs, dim=0))
+        (counts / (B * T)) * (psum / (B * T)))
     return out, aux

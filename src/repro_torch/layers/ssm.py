@@ -15,7 +15,8 @@ differentiable end to end: ``ssd_intra``'s gradient is the backward kernel
 writing it in place, so autograd keeps each chunk's.
 
 Decode is the O(1) recurrence: h ← a·h + dt·(B ⊗ x);  y = C·h + D·x. The
-projections are ``torch.matmul``.
+projections are ``torch.matmul``. On a mesh (DTensors) the scan runs per
+device, each its rows and heads (``_ssd_per_device``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ssd_intra
 from repro_torch.layers.initializers import dense_init, init_device
+from repro_torch.utils import shard
 
 
 def _dims(cfg: ModelConfig):
@@ -93,14 +95,22 @@ def _gated_norm(y, z, scale, eps=1e-6):
     return y / torch.sqrt(var + eps) * scale.float()
 
 
-def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int):
+def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int,
+                dt_bias: Optional[torch.Tensor] = None):
     """Chunked SSD scan.
 
     x  (B, T, H, P)   inputs per head
     Bm (B, T, G, N)   input maps;  Cm same — heads grouped G-way
-    dt (B, T, H)      positive step sizes (softplus already applied)
+    dt (B, T, H)      positive step sizes (softplus already applied), or
+                      with ``dt_bias`` (H,) the raw ones: softplus(dt + bias)
     Returns y (B, T, H, P), final state (B, H, P, N).
+
+    On DTensors the scan runs per device (``_ssd_per_device``).
     """
+    if shard.any_dtensor(x, Bm, Cm, dt, A_log, D, dt_bias):
+        return _ssd_per_device(x, Bm, Cm, dt, A_log, D, chunk, dt_bias)
+    if dt_bias is not None:
+        dt = F.softplus(dt.float() + dt_bias)
     Bsz, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q = min(chunk, T)
@@ -144,6 +154,38 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int):
     return y, Hst
 
 
+def _ssd_per_device(x, Bm, Cm, dt, A_log, D, chunk: int, dt_bias=None):
+    """``ssd_chunked`` on each device's shard, as GSPMD splits the
+    reference's scan: the batch over the data axes where x splits it, the
+    heads over "model" where they divide it and each device's heads read
+    their own B/C groups (G divides it too, or G = 1). Every term of the
+    scan is per (row, head), so no device reads another's. (DTensor has
+    no sharding rule for softplus's backward: the softplus of ``dt_bias``
+    runs here too.)"""
+    from torch.distributed.tensor import Shard
+    mesh = shard.mesh_of(x, Bm, Cm, dt, A_log, D)
+    bp = shard.batch_placements(x, mesh)
+    rep = shard.replicated(mesh)
+    H, G = x.shape[2], Bm.shape[2]
+    names = mesh.mesh_dim_names or ()
+    m = names.index("model") if "model" in names else None
+    if m is None or H % mesh.size(m) or (G > 1 and G % mesh.size(m)):
+        pl = (bp, bp, bp, bp, rep, rep, rep)
+        out = (bp, bp)
+    else:
+        def at(p, dim, split=True):
+            return tuple(Shard(dim) if i == m and split else q
+                         for i, q in enumerate(p))
+        heads = at(bp, 2)
+        pl = (heads, at(bp, 2, G > 1), at(bp, 2, G > 1), heads,
+              at(rep, 0), at(rep, 0), at(rep, 0))
+        out = (heads, at(bp, 1))
+    return shard.per_device(
+        lambda x, Bm, Cm, dt, A_log, D, dt_bias: ssd_chunked(
+            x, Bm, Cm, dt, A_log, D, chunk, dt_bias),
+        (x, Bm, Cm, dt, A_log, D, dt_bias), pl, out, mesh=mesh)
+
+
 def ssm_forward(params, u, cfg: ModelConfig, conv_tail=None,
                 state=None) -> Tuple[torch.Tensor, dict]:
     """Full-sequence Mamba2 block. u: (B, T, d) → (out, cache dict)."""
@@ -156,8 +198,8 @@ def ssm_forward(params, u, cfg: ModelConfig, conv_tail=None,
     x = x.reshape(Bsz, T, H, P)
     Bm = Bm.reshape(Bsz, T, G, N)
     Cm = Cm.reshape(Bsz, T, G, N)
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    y, fin = ssd_chunked(x, Bm, Cm, dt, params["A_log"], params["D"], s.chunk)
+    y, fin = ssd_chunked(x, Bm, Cm, dt, params["A_log"], params["D"], s.chunk,
+                         dt_bias=params["dt_bias"])
     y = _gated_norm(y.reshape(Bsz, T, dinner), z, params["norm_scale"])
     out = y.to(u.dtype) @ params["out_proj"]
     return out, {"conv_tail": new_tail, "state": fin}

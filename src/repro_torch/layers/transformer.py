@@ -31,6 +31,15 @@ including a shared-block application), as the reference's
 ``jax.checkpoint`` around its scan bodies does; the stacks draw no random
 numbers, so no RNG state is stashed for the recompute.
 
+On a mesh the residual stream is pinned to the batch split
+(``utils/shard.py::shard_batch``) at each layer's entry and exit, as the
+reference pins it (its lines 109, 111 and 137), and each sublayer's
+output, in every pass, to its residual stream's placement before the add
+(``like``): where GSPMD all-reduces a row-parallel product's partial sums
+(Megatron's schedule), DTensor would otherwise pick its own layout and
+cascade it through the block. Each pin holds the gradient to the same
+placement. Without a mesh they are no-ops.
+
 ``stack_forward`` and ``stack_prefill`` take the caller's ``positions``, as
 the reference's do: (B, T) for RoPE (``arange(T)`` when None), (B, T, 3)
 for M-RoPE (``rope.py::mrope_positions``).
@@ -53,6 +62,7 @@ from repro_torch.layers.norms import norm_apply, norm_init
 from repro_torch.layers.ssm import (ssm_decode_step, ssm_forward, ssm_init,
                                     ssm_init_cache)
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.shard import by_rows, like, shard_batch
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 SSM_FAMILIES = ("ssm", "hybrid")
@@ -144,8 +154,10 @@ def _positions(x: torch.Tensor, positions=None) -> torch.Tensor:
     """The caller's positions, or (B, T) ``arange(T)``."""
     if positions is not None:
         return positions
-    B, T = x.shape[:2]
-    return torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    T = x.shape[1]
+    return by_rows(lambda B: torch.arange(T, dtype=torch.int32,
+                                          device=x.device)[None].expand(B, T),
+                   x)
 
 
 def _shared_block(sp, x, cfg: ModelConfig, positions):
@@ -153,8 +165,9 @@ def _shared_block(sp, x, cfg: ModelConfig, positions):
     a_out, k, v = attn_forward_kv(sp["attn"], norm_apply(sp["norm1"], x, cfg.norm),
                                   cfg, positions, causal=True,
                                   window=cfg.sliding_window)
-    h = x + a_out
-    return h + mlp_apply(sp["mlp"], norm_apply(sp["norm2"], h, cfg.norm), cfg), k, v
+    h = x + like(a_out, x)
+    return h + like(mlp_apply(sp["mlp"], norm_apply(sp["norm2"], h, cfg.norm),
+                              cfg), h), k, v
 
 
 def _ffn_residual(p, h, cfg: ModelConfig):
@@ -162,9 +175,9 @@ def _ffn_residual(p, h, cfg: ModelConfig):
     or None for an MLP)."""
     if cfg.family == "moe":
         y, aux = moe_apply(p["moe"], norm_apply(p["norm2"], h, cfg.norm), cfg)
-        return h + y, aux
-    return h + mlp_apply(p["mlp"], norm_apply(p["norm2"], h, cfg.norm),
-                         cfg), None
+        return h + like(y, h), aux
+    return h + like(mlp_apply(p["mlp"], norm_apply(p["norm2"], h, cfg.norm),
+                              cfg), h), None
 
 
 def _dense_layer(p, x, cfg: ModelConfig, positions, cache=None):
@@ -179,7 +192,7 @@ def _dense_layer(p, x, cfg: ModelConfig, positions, cache=None):
         n = min(x.shape[1], S)
         cache["k"][:, :n].copy_(k[:, -S:])
         cache["v"][:, :n].copy_(v[:, -S:])
-    return _ffn_residual(p, x + a_out, cfg)
+    return _ffn_residual(p, x + like(a_out, x), cfg)
 
 
 def _check_ring_prompt(cfg: ModelConfig, T: int, cache) -> None:
@@ -203,12 +216,16 @@ def _dense_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False,
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if cfg.family == "moe" else 0.0
     for li, p in enumerate(_unstack(params["blocks"], cfg.num_layers)):
+        # the reference's pins of the residual stream at the block
+        # boundaries (no-ops without a mesh)
+        x = shard_batch(x)
         if remat:
             x, a = checkpoint(_dense_layer, p, x, cfg, positions,
                               use_reentrant=False, preserve_rng_state=False)
         else:
             x, a = _dense_layer(p, x, cfg, positions, None if cache is None
                                 else _layer(cache["attn"], li))
+        x = shard_batch(x)
         if a is not None:
             aux = aux + a
     return norm_apply(params["final_norm"], x, cfg.norm), aux
@@ -217,7 +234,7 @@ def _dense_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False,
 def _ssm_layer(p, x, cfg: ModelConfig):
     """One pre-norm Mamba2 layer → (x + its output, its cache dict)."""
     y, c = ssm_forward(p["ssm"], norm_apply(p["norm"], x, cfg.norm), cfg)
-    return x + y, c
+    return x + like(y, x), c
 
 
 def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
@@ -234,11 +251,14 @@ def _ssm_stack_run(params, x, cfg: ModelConfig, cache=None, remat=False):
     def super_block(x, i):
         for j in range(period):
             li = i * period + j
+            x = shard_batch(x)
             if remat:
-                x = checkpoint(layer_out, layers[li], x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = shard_batch(checkpoint(layer_out, layers[li], x,
+                                           use_reentrant=False,
+                                           preserve_rng_state=False))
                 continue
             x, c = _ssm_layer(layers[li], x, cfg)
+            x = shard_batch(x)
             if cache is not None:
                 _copy_into(_layer(cache["ssm"], li), c)
         if cfg.family == "hybrid":
@@ -328,7 +348,7 @@ def stack_decode(params, x1, cache, pos, cfg: ModelConfig):
                                    norm_apply(p["norm1"], x1, cfg.norm),
                                    _layer(cache["attn"], li), pos, cfg,
                                    window=cfg.sliding_window)
-            x1 = _ffn_residual(p, x1 + a_out, cfg)[0]
+            x1 = _ffn_residual(p, x1 + like(a_out, x1), cfg)[0]
         return norm_apply(params["final_norm"], x1, cfg.norm), cache
     period = _period(cfg)
     for i in range(cfg.num_layers // period):
@@ -338,15 +358,17 @@ def stack_decode(params, x1, cache, pos, cfg: ModelConfig):
             c = _layer(cache["ssm"], li)
             y, new_c = ssm_decode_step(p["ssm"], norm_apply(p["norm"], x1, cfg.norm),
                                        c, cfg)
-            x1 = x1 + y
+            x1 = x1 + like(y, x1)
             _copy_into(c, new_c)
         if cfg.family == "hybrid":
             sp = params["shared"]
             a_out, _ = attn_decode(sp["attn"], norm_apply(sp["norm1"], x1, cfg.norm),
                                    _layer(cache["shared_attn"], i), pos, cfg,
                                    window=cfg.sliding_window)
-            h = x1 + a_out
-            x1 = h + mlp_apply(sp["mlp"], norm_apply(sp["norm2"], h, cfg.norm), cfg)
+            h = x1 + like(a_out, x1)
+            x1 = h + like(mlp_apply(sp["mlp"],
+                                    norm_apply(sp["norm2"], h, cfg.norm), cfg),
+                          h)
     return norm_apply(params["final_norm"], x1, cfg.norm), cache
 
 
@@ -368,5 +390,5 @@ def stack_decode_paged(params, x1, pool, page_table, pos, cfg: ModelConfig):
         a_out, _, _ = attn_decode_paged(
             p["attn"], norm_apply(p["norm1"], x1, cfg.norm), pool["k"][li],
             pool["v"][li], page_table, pos, cfg)
-        x1 = _ffn_residual(p, x1 + a_out, cfg)[0]
+        x1 = _ffn_residual(p, x1 + like(a_out, x1), cfg)[0]
     return norm_apply(params["final_norm"], x1, cfg.norm), pool

@@ -1,4 +1,9 @@
-"""Training losses for the language models. Twin of ``repro/models/lm.py``."""
+"""Training losses for the language models. Twin of ``repro/models/lm.py``.
+
+On a mesh (vocab-split logits) log Z and the gold logit are taken
+vocab-parallel (``utils/shard.py::logsumexp_last`` / ``gather_last``), as
+GSPMD takes them; without one they are ``torch.logsumexp`` and
+``torch.gather``."""
 from __future__ import annotations
 
 import math
@@ -8,14 +13,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.model import Model
+from repro_torch.utils import shard
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-level mean xent. logits (B, T, V) any float; labels (B, T) int."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse = shard.logsumexp_last(logits)
+    gold = shard.gather_last(logits, labels.long())
     nll = lse - gold
     if mask is None:
         return torch.mean(nll)
@@ -52,8 +58,8 @@ def train_loss(model: Model, params, batch: Dict[str, torch.Tensor],
 
     def chunk_nll(hi, li):
         logits = model.logits(params, hi).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+        lse = shard.logsumexp_last(logits)
+        gold = shard.gather_last(logits, li.long())
         return torch.sum(lse - gold)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -34,6 +34,7 @@ from repro_torch.layers.transformer import (STACK_FAMILIES, stack_decode,
                                             stack_forward, stack_init,
                                             stack_init_cache, stack_prefill)
 from repro_torch.tree import tree_map
+from repro_torch.utils.shard import by_rows
 
 FAMILIES = ("lstm",) + STACK_FAMILIES
 
@@ -84,8 +85,9 @@ class Model:
         tok = embed_tokens(params["embed"], batch["tokens"])
         pat = matmul(batch["patches"], params["vision_proj"])
         x = torch.cat([pat.to(tok.dtype), tok], dim=1)
-        return x, mrope_positions(x.shape[0], pat.shape[1], tok.shape[1],
-                                  device=x.device)
+        P, T = pat.shape[1], tok.shape[1]
+        return x, by_rows(lambda B: mrope_positions(B, P, T, device=x.device),
+                          x)
 
     def forward(self, params, batch: Dict[str, torch.Tensor],
                 remat: bool = False):

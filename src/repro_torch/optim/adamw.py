@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils import shard
 
 
 class AdamWState(NamedTuple):
@@ -41,16 +42,18 @@ def adamw_update(grads, state: AdamWState, params, lr,
     in place (the returned trees hold the same tensors), as a caller that
     gives them up lets XLA reuse donated buffers; else new tensors are
     made. Either way each leaf is updated in slices of ``SLICE`` elements,
-    every element's arithmetic in the order the module docstring gives."""
+    every element's arithmetic in the order the module docstring gives.
+    A DTensor leaf is updated on each device's shard, at the param's
+    placements (its gradient redistributed to them first)."""
     step = state.step + 1
     t = step.float()
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
-    new = ((lambda x: x) if donate else
-           (lambda x: torch.empty(x.shape, dtype=x.dtype, device=x.device)))
-    out_p, out_m, out_v = [], [], []
-    for g, m, v, p in zip(tree_flatten(grads), tree_flatten(state.mu),
-                          tree_flatten(state.nu), tree_flatten(params)):
+
+    def leaf(g, m, v, p, bc1, bc2, lr):
+        new = ((lambda x: x) if donate else
+               (lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                      device=x.device)))
         np_, nm, nv = new(p), new(m), new(v)
         g, m, v, p = (x.reshape(-1) for x in (g, m, v, p))
         fp, fm, fv = (x.view(-1) for x in (np_, nm, nv))
@@ -66,6 +69,18 @@ def adamw_update(grads, state: AdamWState, params, lr,
                 torch.sub(p[i], delta, out=fp[i])
             else:
                 fp[i].copy_(p[i].float() - delta)
+        return np_, nm, nv
+
+    out_p, out_m, out_v = [], [], []
+    for g, m, v, p in zip(tree_flatten(grads), tree_flatten(state.mu),
+                          tree_flatten(state.nu), tree_flatten(params)):
+        if shard.is_dtensor(p):
+            pl = tuple(p.placements)
+            np_, nm, nv = shard.per_device(
+                leaf, (g, m, v, p, bc1, bc2, lr), (pl, pl, pl, pl, None,
+                                                   None, None), (pl,) * 3)
+        else:
+            np_, nm, nv = leaf(g, m, v, p, bc1, bc2, lr)
         out_p.append(np_)
         out_m.append(nm)
         out_v.append(nv)

@@ -2088,3 +2088,64 @@ def test_cuda_count_cost_sees_the_backward_kernel(cuda):
                     if n.startswith("ssd_intra")}
     assert got["cuda"] == got["cpu"]
     assert got["cuda"]["ssd_intra_bwd"]["count"] == 1
+
+
+@pytest.mark.parametrize("name", ["nmt-deen-lstm", "gemma-2b"])
+def test_cuda_l2s_step_on_a_one_device_mesh_is_bit_identical(cuda, name):
+    """The l2s decode step at full width and depth with its params, screen,
+    cache and inputs DTensors on a (1, 1) mesh over the card: the route and
+    fused kernels launch through ``local_map``, as often as without a mesh,
+    and the ids equal the step's without one bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.launch.sharding import (NamedSharding, cache_shardings,
+                                             distribute, params_shardings)
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_map
+    from repro_torch.utils import shard
+
+    cfg = get_config(name)
+    model = Model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = model.init(gen, device=cuda)
+    dt = getattr(torch, cfg.dtype)
+    n_blk = -(-cfg.vocab_size // V_BLK)
+    B, S, r, K = 4, 64, 100, 16
+    v = torch.randn((r, cfg.d_model), generator=gen, device=cuda)
+    cand = torch.randint(0, n_blk + 1, (r, K), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    pos = torch.tensor(S // 2, dtype=torch.int32, device=cuda)
+    cache = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=cuda).to(t.dtype),
+                     model.init_cache(B, S, dtype=dt, device=cuda))
+    clone = lambda c: tree_map(lambda t: t.clone(), c)      # noqa: E731
+    step = make_serve_step(model, head="l2s")
+    with torch.no_grad():
+        ops.reset_launches()
+        ids0, vals0, _ = step(params, v, cand, clone(cache), tok, pos)
+        plain = dict(ops.LAUNCHES)
+        with CountingMesh((1, 1), ("data", "model"),
+                          device_type="cuda") as mesh:
+            rep = NamedSharding(mesh, ())
+            args = (distribute(params, params_shardings(mesh, cfg, params)),
+                    *distribute([v, cand], [rep, rep]),
+                    distribute(clone(cache),
+                               cache_shardings(mesh, cfg, cache)),
+                    *distribute([tok, pos], [rep, rep]))
+            ops.reset_launches()
+            with shard.use_mesh(mesh), implicit_replication():
+                ids1, vals1, _ = step(*args)
+            ids1, vals1 = ids1.to_local(), vals1.to_local()
+        assert not dist.is_initialized()
+    sfx = ops.BF16 if dt == torch.bfloat16 else ""
+    assert ops.LAUNCHES["cluster_route" + sfx] >= 1
+    assert ops.LAUNCHES["fused_screened_topk" + sfx] >= 1
+    assert ops.LAUNCHES == plain
+    assert torch.equal(ids0, ids1)
+    torch.testing.assert_close(vals0, vals1, rtol=1e-5, atol=1e-5)

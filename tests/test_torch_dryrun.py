@@ -22,9 +22,10 @@ CPU:
     train step;
   * the l2s serve step through the route and fused kernels, with no
     (B, K·128) f32 result;
-  * ``main``: a full-width record that does not fit one card, the
-    swa-variant, an encoder's skipped decode, the exit code, and an
-    unknown arch refused as the reference refuses it.
+  * ``main --one-card``: a full-width record that does not fit one card,
+    the swa-variant, an encoder's skipped decode, the exit code, and an
+    unknown arch refused as the reference refuses it (the mesh records:
+    ``test_torch_sharding.py``).
 """
 import json
 import os
@@ -233,12 +234,13 @@ def test_main_records_every_kind(tmp_path, capsys):
     error; the dense long context runs the swa-variant; an encoder's decode
     is skipped; the exit code is 0 with no error."""
     out = tmp_path / "dry.jsonl"
+    one = ["--one-card", "--json", str(out)]
     assert dryrun.main(["--arch", "qwen1.5-110b", "--shape", "decode_32k",
-                        "--json", str(out)]) == 0
+                        *one]) == 0
     assert dryrun.main(["--arch", "smollm-360m", "--shape", "long_500k",
-                        "--json", str(out)]) == 0
+                        *one]) == 0
     assert dryrun.main(["--arch", "hubert-xlarge", "--shape", "decode_32k",
-                        "--json", str(out)]) == 0
+                        *one]) == 0
     recs = [json.loads(ln) for ln in out.read_text().splitlines()]
     big, swa, enc = recs
     assert big["fits_one_card"] is False

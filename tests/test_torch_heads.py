@@ -244,7 +244,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted((ROOT / "tools").glob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-              ROOT / "examples" / "serve_batch_torch.py"]
+              ROOT / "examples" / "serve_batch_torch.py",
+              ROOT / "examples" / "dryrun_multipod_torch.py"]
     assert len(files) > 20 and all(p.is_file() for p in files)
     port = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
             if "repro_torch" in p.parts}
@@ -258,7 +259,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "launch/train.py", "optim/adamw.py", "launch/op_cost.py",
             "launch/dryrun.py", "launch/roofline.py", "launch/mesh.py",
             "utils/pytree.py", "serving/observe/drift.py",
-            "kernels/cost.py"} <= port
+            "kernels/cost.py", "launch/sharding.py", "utils/shard.py"} <= port
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
