@@ -63,6 +63,17 @@ through a ``RoutingPolicy`` (``serving/router.py``), groups requests by
 one batched ``generate`` over the same cached steps, so a repeated mixed
 batch adds no graph.
 
+Spans: ``engine.tracer`` (default ``NULL_TRACER``; while a torch
+profiler runs and it is not armed, ``observe.trace.PROCESS_TRACER`` on the
+profiler's clock) gets the lane ``ENGINE_TID``: ``serve_batch`` (args
+``job``, ``requests``, ``groups``) holding ``serve.route``, one
+``engine.generate`` a group (``job``, ``head``, ``rows``, ``steps`` — the
+group's ``max_new`` — and ``kept``, the tokens its requests keep: the
+padding counter) and ``serve.results``; inside ``engine.generate``:
+``engine.prefill``, ``engine.first``, one ``engine.step`` a decode step
+(``engine.capture`` where the step captures its graph) and
+``engine.readback``. Spans nest by time on that one lane.
+
 Beam search follows the paper's §4.2 protocol: log-softmax over the head's
 reduced candidate space, probability 0 (−inf log-prob) elsewhere.
 
@@ -84,6 +95,7 @@ exactly these hooks.
 from __future__ import annotations
 
 import gc
+import itertools
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -99,7 +111,7 @@ from repro_torch.heads.base import (MissingScreenError, ScreenBlockError,
                                     SoftmaxHead, adjust_logits)
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model, to_device
-from repro_torch.serving.observe.trace import NULL_TRACER
+from repro_torch.serving.observe.trace import ENGINE_TID, NULL_TRACER, active
 from repro_torch.serving.request import ServeRequest, ServeResult
 from repro_torch.serving.resilience.faults import HeadFault, guard_tokens
 from repro_torch.tree import tree_leaves
@@ -339,6 +351,10 @@ class DecodeEngine:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         self.head = self.resolve_head("exact" if head is None else head)
+        # observability: an armed tracer gets the engine's spans (lane
+        # ENGINE_TID); a call's spans share the job id drawn here
+        self.tracer = NULL_TRACER
+        self._job_ids = itertools.count()
 
     # -- head resolution ----------------------------------------------------
     def resolve_head(self, head: Optional[HeadLike]) -> SoftmaxHead:
@@ -610,7 +626,7 @@ class DecodeEngine:
         self._free_stream_slabs.setdefault(
             (slab.tok.shape[0], slab.owner), []).append(weakref.ref(slab))
 
-    def _prefill(self, prompts, max_new: int) -> tuple:
+    def _prefill(self, prompts, max_new: int, tr=None) -> tuple:
         """prompts (B, Tp) → (the slab of width B, its cache primed by the
         prompt and its position at Tp, h_last (B, d)). Raises if the dense,
         moe or hybrid family's K/V cache of ``max_len`` slots cannot hold
@@ -626,7 +642,13 @@ class DecodeEngine:
         touched: the engine's prompts are tokens only, while the vlm's
         prefill needs its patches (the reference's engine fails on the
         missing key) and the audio encoder has no decode. The model API
-        serves them (``Model.prefill`` / ``decode_step`` and a head)."""
+        serves them (``Model.prefill`` / ``decode_step`` and a head).
+        ``tr``: the calling span's tracer (else ``active(self.tracer)``),
+        which gets an ``engine.prefill`` span."""
+        if tr is None:
+            tr = active(self.tracer)
+        if tr.enabled:
+            t0 = tr.now()
         cfg = self.model.cfg
         if cfg.family in ("vlm", "audio"):
             raise ValueError(
@@ -649,7 +671,11 @@ class DecodeEngine:
                                       slab.cache)
         _write_back(slab.cache, cache)
         slab.pos.fill_(Tp)
-        return slab, h[:, -1].contiguous()
+        h_last = h[:, -1].contiguous()
+        if tr.enabled:
+            tr.span("engine.prefill", "engine", t0, tid=ENGINE_TID,
+                    args={"rows": B, "prompt": Tp})
+        return slab, h_last
 
     # -- generation (greedy or sampled, head-routed) -------------------------
     @torch.inference_mode()
@@ -671,9 +697,19 @@ class DecodeEngine:
                               temperature, top_p, seed, generator, self._run)
 
     def _generate(self, prompts, max_new, hd, temperature, top_p, seed,
-                  generator, run) -> GenerationResult:
-        """``generate``'s loop, each step through ``run(step, slab)``."""
-        slab, h_last = self._prefill(prompts, max_new)
+                  generator, run, tr=None, job=None, kept=None
+                  ) -> GenerationResult:
+        """``generate``'s loop, each step through ``run(step, slab)``.
+        ``tr``: the call's tracer (else ``active(self.tracer)``); ``job``
+        (else a new id) and ``kept`` (else every decoded token) go into
+        its ``engine.generate`` span."""
+        if tr is None:
+            tr = active(self.tracer)
+        if tr.enabled:
+            g_t0 = tr.now()
+        slab, h_last = self._prefill(prompts, max_new, tr)
+        if tr.enabled:
+            t0 = tr.now()
         B = h_last.shape[0]
         shape = None
         if temperature is None:
@@ -692,13 +728,32 @@ class DecodeEngine:
         slab.tok.copy_(first)
         out = torch.empty((B, max_new), dtype=torch.int32, device=self.device)
         out[:, 0].copy_(first)
+        if tr.enabled:
+            tr.span("engine.first", "engine", t0, tid=ENGINE_TID)
+            graphs = _graphs_of(step)
         for i in range(1, max_new):
             if shape is not None:
                 torch.rand(shape, generator=generator,
                            out=slab.uniforms(shape))
+            if tr.enabled:
+                t0 = tr.now()
+                fresh = slab.key not in graphs
             run(step, slab)
             out[:, i].copy_(slab.tok)
-        return GenerationResult(tokens=out.cpu().numpy(), steps=max_new)
+            if tr.enabled:
+                tr.span("engine.capture" if fresh and slab.key in graphs
+                        else "engine.step", "engine", t0, tid=ENGINE_TID)
+        if tr.enabled:
+            t0 = tr.now()
+        tokens = out.cpu().numpy()
+        if tr.enabled:
+            t1 = tr.now()
+            tr.span("engine.readback", "engine", t0, t1, tid=ENGINE_TID)
+            tr.span("engine.generate", "engine", g_t0, t1, tid=ENGINE_TID,
+                    args={"job": next(self._job_ids) if job is None else job,
+                          "head": hd.name, "rows": B, "steps": max_new,
+                          "kept": B * max_new if kept is None else kept})
+        return GenerationResult(tokens=tokens, steps=max_new)
 
     # -- beam search (batch of 1 prompt, beam B_w) ---------------------------
     @torch.inference_mode()
@@ -779,6 +834,10 @@ class DecodeEngine:
         requests = list(requests)
         if not requests:
             return []
+        tr, job = active(self.tracer), None
+        if tr.enabled:
+            job = next(self._job_ids)
+            t_root = t0 = tr.now()
         # policy=None serves through the engine's default head INSTANCE (a
         # custom instance may not be re-resolvable by name); the sentinel
         # groups those requests together and maps back to self.head below
@@ -792,8 +851,10 @@ class DecodeEngine:
         groups: "OrderedDict[tuple, List[int]]" = OrderedDict()
         for i, (req, name) in enumerate(zip(requests, names)):
             groups.setdefault(req.group_key(name), []).append(i)
+        if tr.enabled:
+            tr.span("serve.route", "engine", t0, tid=ENGINE_TID)
 
-        results: List[Optional[ServeResult]] = [None] * len(requests)
+        outs = []
         for key, idxs in groups.items():
             name = key[0]
             head = self.head if name == _ENGINE_DEFAULT else name
@@ -802,17 +863,32 @@ class DecodeEngine:
             max_new = max(r.max_new for r in reqs)
             proto = reqs[0]                  # sampling statics shared by key
             if proto.sampled:
-                out = self.generate(prompts, max_new, head=head,
-                                    temperature=proto.temperature,
-                                    top_p=proto.top_p, seed=proto.seed)
+                sampling = (proto.temperature, proto.top_p, proto.seed)
             else:
-                out = self.generate(prompts, max_new, head=head)
+                sampling = (None, 1.0, None)
+            with torch.inference_mode():
+                out = self._generate(
+                    prompts, max_new, self.resolve_head(head), *sampling,
+                    None, self._run, tr, job,
+                    sum(r.max_new for r in reqs) if tr.enabled else None)
+            outs.append((name, idxs, out))
+
+        if tr.enabled:
+            t0 = tr.now()
+        results: List[Optional[ServeResult]] = [None] * len(requests)
+        for name, idxs, out in outs:
             served = getattr(self.head, "name", _ENGINE_DEFAULT) \
                 if name == _ENGINE_DEFAULT else name
             for row, i in enumerate(idxs):
                 results[i] = ServeResult(
                     tokens=out.tokens[row, :requests[i].max_new],
                     head=served, request=requests[i], group_size=len(idxs))
+        if tr.enabled:
+            t1 = tr.now()
+            tr.span("serve.results", "engine", t0, t1, tid=ENGINE_TID)
+            tr.span("serve_batch", "engine", t_root, t1, tid=ENGINE_TID,
+                    args={"job": job, "requests": len(requests),
+                          "groups": len(groups)})
         return results
 
     # -- continuous batching: fixed-width streams ---------------------------
@@ -1147,6 +1223,12 @@ class DecodeStream:
     def _on_free(self, slot: int) -> None:
         """A slot retired or was evicted (the paged stream releases its
         page chain here)."""
+
+
+def _graphs_of(step) -> Dict[object, _Graph]:
+    """The graphs a step-cache entry captures into, by slab key: a host
+    head's entry captures its model step's."""
+    return step.model.graphs if isinstance(step, _HostStep) else step.graphs
 
 
 def _advance(model: Model, params, slab: _Slab) -> torch.Tensor:

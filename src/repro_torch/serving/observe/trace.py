@@ -22,8 +22,16 @@ Design constraints, in order:
 Chrome trace-event mapping: request rows use ``tid = rid`` so every
 request gets its own lane under one process; the scheduler's tick spans
 live on ``tid = SCHED_TID`` (-1 — request ids start at 0, so the
-scheduler lane must sit outside the rid space). Durations/timestamps
-are exported in microseconds as the format requires.
+scheduler lane must sit outside the rid space) and the engine's
+(``DecodeEngine.serve_batch`` / ``generate``) on ``tid = ENGINE_TID``
+(-2). Durations/timestamps are exported in microseconds as the format
+requires.
+
+The profiler's clock: ``PROCESS_TRACER`` stamps its spans with
+``wall_clock`` (``time.time_ns``, the clock of the torch profiler's
+Kineto events), and ``active(tracer)`` hands it to the engine while a
+``torch.profiler`` session runs and no tracer of the caller's is armed,
+so a profile's device events and the program's spans share one axis.
 """
 from __future__ import annotations
 
@@ -32,9 +40,13 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+import torch.autograd.profiler as _autograd_profiler
+
 # Trace lane for scheduler-level (non-request) spans. Negative so it can
 # never collide with a request id (rids count up from 0).
 SCHED_TID = -1
+# Trace lane of the decode engine's spans (serve_batch, generate, steps).
+ENGINE_TID = -2
 
 
 class Tracer:
@@ -113,7 +125,8 @@ class Tracer:
         # thread_name metadata makes Perfetto label the lanes usefully
         meta = []
         for tid in sorted(tids):
-            name = "scheduler" if tid == SCHED_TID else f"request {tid}"
+            name = {SCHED_TID: "scheduler", ENGINE_TID: "engine"}.get(
+                tid, f"request {tid}")
             meta.append({"name": "thread_name", "ph": "M", "pid": pid,
                          "tid": tid, "args": {"name": name}})
         return {
@@ -187,3 +200,29 @@ class NullTracer:
 
 #: Shared disabled tracer — the default for every instrumented surface.
 NULL_TRACER = NullTracer()
+
+
+def wall_clock() -> float:
+    """Seconds since the epoch from ``time.time_ns``, the clock the torch
+    profiler stamps its events with. A float64 near 1.8e9 s resolves
+    0.24 µs."""
+    return time.time_ns() * 1e-9
+
+
+#: The process's tracer on the profiler's clock: it records the engine's
+#: spans while a ``torch.profiler`` session runs (``active``). Readers
+#: take its events inside the profiled window and refuse a window it
+#: dropped events of (``dropped``).
+PROCESS_TRACER = Tracer(clock=wall_clock, capacity=1 << 18)
+
+
+def active(tracer) -> "Tracer | NullTracer":
+    """The tracer an instrumented call records into: ``tracer`` when it
+    is armed, else ``PROCESS_TRACER`` while a torch profiler runs, else
+    ``NULL_TRACER``. The profiler's flag is read through its module on
+    every call, since torch rebinds it at each start and stop."""
+    if tracer.enabled:
+        return tracer
+    if _autograd_profiler._is_profiler_enabled:
+        return PROCESS_TRACER
+    return NULL_TRACER
