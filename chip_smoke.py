@@ -19,6 +19,7 @@ audio families.
     python3 chip_smoke.py --only cost      # build, train and l2s, [cost]
     python3 chip_smoke.py --only mesh      # build, [mesh]
     python3 chip_smoke.py --only train-ssm # [train-ssm], its result as JSON
+    python3 chip_smoke.py --only fused-batch  # build, [fused-batch], its rows
 
 Phases, one line (or a few) each:
 
@@ -82,6 +83,21 @@ Phases, one line (or a few) each:
               timed with its bound); the three L2S kernels' bf16 bodies at
               d = 2560 (bound at 2 bytes a weight), and the bf16 fused
               kernel over all 250 of zamba2's tiles at k = 128;
+     fused-batch  the fused kernel at the benchmark's translation batch, on
+              a head, screen and 640 contexts drawn from a fixed seed at
+              the lstm-batch-screened cell's widths (d = 500, V = 25,000,
+              r = 100, K = 9): the routes' clusters by rows; group_rows
+              against its plain version (chunks equal, each tile's pairs
+              as sets); the grouped grid == the per-row grid (ids, vals,
+              logZ) and == the unfused path (ids, vals) bit for bit, and
+              == the plain version (vals and logZ within TOL, ids but at
+              near-ties), float32 and bfloat16 (496 of the 500 values),
+              k = 1, 5, 128, every row on one cluster, each on its own,
+              B = 637 with sentinel slots, P = 2 and 8, noise; then both
+              grids, the grouping alone and the whole head call (route,
+              ids, kernel) on each grid at B in CROSS_B, in turns, beside
+              the bound: the crossover that sets GROUPED_MIN_ROWS
+              (``--only fused-batch`` prints the rows as JSON last);
   5. e2e      full-width nmt-deen-lstm (random weights from a seeded
               torch.Generator) on DecodeEngine(device="cuda"), whose decode
               steps are CUDA graph replays: greedy
@@ -501,8 +517,9 @@ Phases, one line (or a few) each:
               the three L2S kernels also "at_zamba2_width"; the gather
               kernel "at_beam_shape"; the fused kernel "unfused_ms" and
               "adaptive_step" (the [heads] step times and bounds),
-              "at_gemma_vocab_shard" (one shard's launch of [sharded] (b))
-              and "sharded_heads" (its head calls); the
+              "at_gemma_vocab_shard" (one shard's launch of [sharded] (b)),
+              "sharded_heads" (its head calls) and "at_translation_batch"
+              ([fused-batch]'s rows by B); the
               cache update's times are the K and V pair's, with "single_ms"
               of one single-cache launch; the SSD backward's, at zamba2's
               chunk, with "at_mamba2_chunk"; the bf16 L2S bodies also
@@ -565,6 +582,12 @@ GAP_BF16 = 0.0625
 BF16_KERNELS = tuple(k + "_bf16" for k in L2S_KERNELS)
 # the shapes the fused kernel's merge once refused: K tiles x k
 FAULT1 = [(K_, k) for K_ in (225, 250) for k in (115, 128, 129)]
+# [fused-batch]'s head at the lstm-batch-screened cell's widths (rows,
+# clusters, blocks a cluster), its seed, and the batch widths of the fused
+# kernel's two grids' crossover
+BATCH_B, BATCH_R, BATCH_K = 640, 100, 9
+BATCH_SEED = 2_611_390_417
+CROSS_B = (4, 20, 64, 96, 128, 192, 256, 640)
 
 
 def log(*a):
@@ -680,7 +703,8 @@ KERNEL_NAMES = {"cluster_route": ("route_kernel",),
                                       "cache_slot_update_kernel"),
                 "cluster_route_bf16": ("route_bf16_kernel",),
                 "screened_logits_bf16": ("screened_logits_bf16_kernel",),
-                "fused_screened_topk_bf16": ("fused_topk_bf16_kernel",)}
+                "fused_screened_topk_bf16": ("fused_topk_bf16_kernel",),
+                "group_rows": ("group_rows_kernel",)}
 
 
 def kernel_events(kern, name):
@@ -1438,6 +1462,225 @@ def fault1_row(torch, timer, Wb, bb, B=4, k=128):
         f"ms, unfused {t['unfused_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms "
         f"({t['bound'][1]}); P={t['parts']}")
     return t
+
+
+def batch_head(torch, seed):
+    """A head, screen and contexts at the benchmark's translation batch,
+    drawn from ``seed`` at the lstm-batch-screened cell's widths (d = 500,
+    V = 25,000, r = 100 random centroids, K = 9 distinct random 128-word
+    blocks a cluster, 640 rows of h): the packed head, v, cand and h on the
+    card."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_blk = -(-V // V_BLK)
+    W = torch.randn((V, D), generator=g, device="cuda") * 0.05
+    b = torch.randn((V,), generator=g, device="cuda") * 0.1
+    Wb, bb = ops.pack_head_blocks(W, b)
+    v = torch.randn((BATCH_R, D), generator=g, device="cuda") / math.sqrt(D)
+    order = torch.rand((BATCH_R, n_blk), generator=g, device="cuda").argsort(1)
+    cand = order[:, :BATCH_K].sort(1).values.to(torch.int32).contiguous()
+    h = torch.tanh(torch.randn((BATCH_B, D), generator=g, device="cuda"))
+    return Wb, bb, v, cand, h.contiguous()
+
+
+def grids_agree(torch, tag, Wb, bb, h, cluster, ids, k, cand, noise=None,
+                parts=None):
+    """The grouped grid against the per-row grid at the same P: ids, vals
+    and logZ bit for bit; against the plain version
+    (``fused_screened_topk_plain``): ids equal but at near-ties (values
+    within 1e-5 relative), vals and logZ within TOL, logZ −∞ where the
+    plain one is; without noise, ids and vals also against the masked
+    unfused kernel logits + stable top-k, bit for bit. → the ids that
+    differ from the plain version's at near-ties."""
+    from repro_torch.kernels import fused_topk
+    from repro_torch.kernels.fused_topk import fused_screened_topk_plain
+    from repro_torch.kernels.ref import NEG_INF, topk_desc
+    from repro_torch.kernels.screen import screened_logits
+    n_blk = Wb.shape[0]
+    B, K_ = ids.shape
+    P = parts or fused_topk.fused_parts(
+        B, K_, torch.cuda.get_device_properties(0).multi_processor_count)
+    row = fused_topk._launch(Wb, bb, h, ids, k, noise, P)
+    gi, gv, gz = fused_topk._launch_grouped(Wb, bb, h, ids, k, noise, P,
+                                            cluster, cand)
+    check(all(torch.equal(a, b) for a, b in zip(row, (gi, gv, gz))),
+          f"[fused-batch] {tag}: the grouped grid's ids, vals or logZ differ "
+          f"from the per-row grid's (B={B}, K={K_}, k={k}, P={P})")
+    pi, pv, pz = fused_screened_topk_plain(Wb, bb, h, ids, k, noise)
+    torch.testing.assert_close(gv, pv, **TOL)
+    fin = torch.isfinite(pz)
+    check(torch.equal(fin, torch.isfinite(gz)) and
+          bool(torch.isneginf(gz[~fin]).all()),
+          f"[fused-batch] {tag}: logZ not finite where the plain one is, or "
+          f"not -inf elsewhere (B={B}, k={k})")
+    torch.testing.assert_close(gz[fin], pz[fin], **TOL)
+    diff = gi != pi
+    if bool(diff.any()):
+        rel = (gv[diff] - pv[diff]).abs() / pv[diff].abs().clamp_min(1e-30)
+        check(bool((rel < 1e-5).all()),
+              f"[fused-batch] {tag}: grouped ids differ from the plain "
+              f"version's beyond near-ties (B={B}, k={k})")
+    if noise is None:
+        raw = screened_logits(Wb, bb, h, ids)
+        valid = ((ids >= 0) & (ids < n_blk))[..., None]
+        lane = torch.arange(V_BLK, device="cuda", dtype=torch.int32)
+        word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                           n_blk * V_BLK).reshape(B, -1)
+        uv, upos = topk_desc(torch.where(valid, raw, NEG_INF).reshape(B, -1),
+                             k)
+        check(torch.equal(gv, uv) and
+              torch.equal(gi, torch.gather(word, 1, upos)),
+              f"[fused-batch] {tag}: grouped != unfused (B={B}, k={k})")
+    return int(diff.sum())
+
+
+def phase_fused_batch(torch, np):
+    """The fused kernel at a translation batch, at the benchmark cell's
+    widths (``batch_head``): the routes' rows a cluster; the grouping
+    kernel == its plain version; the grouped grid == the per-row grid at
+    equal P (ids, vals, logZ bit for bit), == the plain version (vals and
+    logZ within TOL) and == the unfused path (ids, vals) in
+    float32 and bfloat16, k = 1, 5, 128, with noise, every row on one
+    cluster, every row on its own, a cluster of more than G rows, B not a
+    multiple of G and sentinel slots; then both grids' times and the bound
+    at the cell's shape (B = 640, K = 9, d = 500, k = 1, float32) and at
+    B in CROSS_B (the crossover that sets GROUPED_MIN_ROWS); and the
+    grouped-launch counter after a 640-row and a 4-row head call.
+    → the timing rows."""
+    from repro_torch.kernels import fused_topk, ops
+    from repro_torch.kernels.route import cluster_route
+    G = fused_topk.GROUP_PAIRS
+    Wb, bb, v, cand, h = batch_head(torch, BATCH_SEED)
+    n_blk, _, d = Wb.shape
+    r, Kc = cand.shape
+    B = h.shape[0]
+    cluster = cluster_route(h, v)
+    ids = cand[cluster.long()].contiguous()
+    hist = torch.bincount(cluster.long(), minlength=r).cpu()
+    live = hist[hist > 0]
+    sizes = torch.bincount(live)
+    got = [a.cpu() for a in fused_topk.group_rows(cluster, cand, n_blk)]
+    want = fused_topk.group_rows_plain(cluster.cpu(), cand.cpu(), n_blk)
+    n_real = int((want[1][:, 0] > 0).sum())
+    by_tile = {}                                # each tile's pairs, both sides
+    for q, (m, tile) in enumerate(want[1][:n_real].tolist()):
+        a, z = by_tile.setdefault(tile, ([], []))
+        a += got[0][q * G:q * G + m].tolist()
+        z += want[0][q * G:q * G + m].tolist()
+    check(torch.equal(got[1], want[1]) and
+          all(sorted(a) == sorted(z) for a, z in by_tile.values()),
+          "[fused-batch] group_rows != group_rows_plain (chunks; each "
+          "tile's pairs as sets)")
+    log(f"[fused-batch] seed {BATCH_SEED}, the lstm-batch-screened cell's "
+        f"widths: {B} rows route to {live.numel()} of {r} clusters, rows a "
+        f"cluster mean {B / live.numel():.2f}, max {int(live.max())}; their "
+        f"{B * Kc} (row, slot) pairs need "
+        f"{int(torch.unique(ids).numel())} tiles, {n_real} chunks of up to "
+        f"{G} pairs ({int((-(-live // G)).sum()) * Kc} chunks by cluster); "
+        f"clusters by rows: " + json.dumps({int(n): int(c) for n, c in
+                                            enumerate(sizes) if c}))
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    noise = ops.gumbel_noise((B, Kc, V_BLK), gen, "cuda")
+    odd = B - 3                                 # not a multiple of G
+    one = torch.zeros(B, dtype=torch.int32, device="cuda")
+    own = torch.arange(r, dtype=torch.int32, device="cuda")
+    holed = cand.clone()
+    holed[:, Kc // 2] = n_blk                   # sentinel slots, both kinds
+    holed[::3, 1] = -1
+    holed[5] = n_blk                            # an all-sentinel cluster
+    mixed = torch.where(torch.arange(B, device="cuda") % 9 == 0, 5,
+                        cluster).to(torch.int32)
+    cases = near = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        # bfloat16 rows of 500 values are no whole number of 16-byte
+        # chunks: the grouped grid takes 496 of them
+        dd = d if dtype == torch.float32 else 496
+        W_ = Wb[..., :dd].contiguous().to(dtype)
+        b_, h_ = bb.to(dtype), h[:, :dd].contiguous().to(dtype)
+        for k in (1, 5, 128):
+            near += grids_agree(torch, f"{dtype} routes", W_, b_, h_,
+                                cluster, ids, k, cand)
+            near += grids_agree(torch, f"{dtype} one cluster", W_, b_, h_,
+                                one, cand[one.long()].contiguous(), k, cand)
+            near += grids_agree(torch, f"{dtype} own clusters", W_, b_,
+                                h_[:r], own, cand[own.long()].contiguous(),
+                                k, cand)
+            near += grids_agree(torch, f"{dtype} B={odd}, sentinels", W_, b_,
+                                h_[:odd].contiguous(),
+                                mixed[:odd].contiguous(),
+                                holed[mixed[:odd].long()].contiguous(), k,
+                                holed)
+            cases += 4
+        for P in (2, 8):
+            near += grids_agree(torch, f"{dtype} P={P}", W_, b_, h_,
+                                cluster, ids, 5, cand, parts=P)
+            cases += 1
+        near += grids_agree(torch, f"{dtype} noise", W_, b_, h_, cluster,
+                            ids, 1, cand, noise=noise)
+        cases += 1
+    log(f"[parity] fused_screened_topk grouped grid == per-row grid (ids, "
+        f"vals, logZ) and == unfused (ids, vals), bit for bit, and == the "
+        f"plain version (vals, logZ within TOL; ids but {near} at near-ties "
+        f"< 1e-5): {cases} cases")
+
+    ops.reset_launches()
+    ops.screened_fused_topk(Wb, bb, v, cand, h, k=1)
+    wide = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    ops.screened_fused_topk(Wb, bb, v, cand, h[:4].contiguous(), k=1)
+    narrow = dict(ops.LAUNCHES)
+    check(wide["fused_screened_topk_grouped"] == 1 == wide["group_rows"] and
+          narrow["fused_screened_topk_grouped"] == 0 == narrow["group_rows"],
+          f"[fused-batch] grouped launches: {wide} at B = {B}, {narrow} at 4")
+
+    timer = Timer(torch)
+    tile = V_BLK * (d + 1) * 4
+    rows = {}
+    for b_ in sorted(set(CROSS_B) | {B}):
+        hb, cb, ib = h[:b_].contiguous(), cluster[:b_], ids[:b_]
+        P = fused_topk.fused_parts(b_, Kc, timer.n_sm)
+        def head(grouped, hb=hb, P=P):
+            """The head call on one grid: the route, the ids, the kernel."""
+            c = cluster_route(hb, v)
+            i = cand[c.long()].contiguous()
+            if grouped:
+                return fused_topk._launch_grouped(Wb, bb, hb, i, 1, None, P, c,
+                                                  cand)
+            return fused_topk._launch(Wb, bb, hb, i, 1, None, P)
+
+        t = timer.turns({
+            "per_row_ms": lambda: fused_topk._launch(Wb, bb, hb, ib, 1, None,
+                                                     P),
+            "grouped_ms": lambda: fused_topk._launch_grouped(
+                Wb, bb, hb, ib, 1, None, P, cb, cand),
+            "head_per_row_ms": lambda: head(False),
+            "head_grouped_ms": lambda: head(True)})
+        t["group_rows_ms"] = timer(lambda: fused_topk.group_rows(cb, cand,
+                                                                 n_blk))
+        tiles = int(torch.unique(ib).numel())
+        t["bound"] = bound_ms(tiles * tile + 4 * b_ * d + 4 * b_ * Kc +
+                              4 * 3 * b_, 2 * b_ * Kc * V_BLK * d)
+        chunks = int((fused_topk.group_rows(cb, cand, n_blk)[1][:, 0] > 0)
+                     .sum())
+        t.update(B=b_, K=Kc, d=d, k=1, P=P, tiles=tiles, chunks=chunks,
+                 clusters=int(torch.unique(cb).numel()))
+        rows[str(b_)] = t
+        log(f"[timing] fused_screened_topk B={b_} K={Kc} d={d} k=1 P={P} "
+            f"({t['clusters']} clusters, {chunks} chunks, {tiles} tiles): "
+            f"per-row grid {t['per_row_ms']:.5f} ms, grouped grid "
+            f"{t['grouped_ms']:.5f} ms (group_rows alone "
+            f"{t['group_rows_ms']:.5f}); the head call (route, ids, kernel) "
+            f"per-row {t['head_per_row_ms']:.5f} / grouped "
+            f"{t['head_grouped_ms']:.5f} ms (the wrapper takes the "
+            f"{'grouped' if b_ >= fused_topk.GROUPED_MIN_ROWS else 'per-row'}"
+            f" grid); bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
+    cross = [int(b_) for b_, t in rows.items()
+             if t["head_grouped_ms"] < t["head_per_row_ms"]]
+    log(f"[timing] fused_screened_topk: the grouped head call is the faster "
+        f"from B = {min(cross) if cross else None} of {sorted(map(int, rows))}"
+        f" (GROUPED_MIN_ROWS = {fused_topk.GROUPED_MIN_ROWS})")
+    return rows
 
 
 def phase_e2e(torch, np):
@@ -7024,6 +7267,15 @@ def main() -> int:
         log(f"[done] --only mesh took {time.perf_counter() - T_START:.1f} s;"
             f" phase walls (s): {json.dumps(WALLS)}")
         return 0
+    if sys.argv[1:] == ["--only", "fused-batch"]:
+        # [fused-batch] alone; its rows as the last line
+        rows = walled("fused batch", phase_fused_batch, torch, np)
+        log(f"[done] --only fused-batch took "
+            f"{time.perf_counter() - T_START:.1f} s; phase walls (s): "
+            f"{json.dumps(WALLS)}")
+        print(json.dumps({"fused_screened_topk_at_translation_batch": rows}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "sharded"]:
         # the [sharded] phases alone, after the training that (a) decodes
         # with; no result lines
@@ -7040,6 +7292,7 @@ def main() -> int:
         "screen grid", phase_screen_grid, torch, np))
     err.update(walled("parity bf16", phase_parity_bf16, torch, np))
     times, wide, beam = walled("timing", phase_timing, torch, np)
+    batch_rows = walled("fused batch", phase_fused_batch, torch, np)
     times.update({name: wide[name] for name in BF16_KERNELS})
     register_unfused()
     lstm, ctx = walled("e2e", phase_e2e, torch, np)
@@ -7246,6 +7499,7 @@ def main() -> int:
                                         "library_ms")},
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
             kernels[-1]["sharded_heads"] = shard_rows["heads"]
+            kernels[-1]["at_translation_batch"] = batch_rows
             kernels[-1]["adaptive_step"] = {
                 str(d_): {"B": 4, **{f"{n}_ms": t_[0] for n, t_ in st.items()},
                           **{f"{n}_bound_ms": t_[1][0]

@@ -5,9 +5,14 @@ Twin of ``repro/heads/pallas.py``. Default (``fused=True``): the
 (``kernels/fused_topk.py``). Each query row's candidate logits are reduced on
 chip, so device memory sees only (B, k) ids/vals and (B,) logZ instead of the
 (B, K·V_BLK) candidate-logit tile. Top-k ids/vals are bit-identical to the
-unfused path. Sampling uses the same kernel with temperature-scaled Gumbel
-noise (Gumbel-max ≡ categorical); nucleus sampling (top_p < 1) needs the
-whole candidate distribution and takes the unfused path.
+unfused path. The routes go to the kernel with the ids: below
+``GROUPED_MIN_ROWS`` = 128 rows it runs a block per (row, slot, part of a
+tile); from there (a translation batch, a wide scheduler step) the grouped
+grid, where the rows' (row, slot) pairs are grouped by tile through their
+clusters and each tile part is loaded once for up to 16 pairs. Same bits.
+Sampling uses the same kernel with temperature-scaled Gumbel noise
+(Gumbel-max ≡ categorical); nucleus sampling (top_p < 1) needs the whole
+candidate distribution and takes the unfused path.
 
 ``fused=False`` is the escape hatch: the ``screened_logits`` gather-matmul
 kernel → (B, K·V_BLK) logits in device memory → masking + stable top-k in

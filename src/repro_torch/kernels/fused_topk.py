@@ -8,13 +8,29 @@ lane-minor) position — ``jax.lax.top_k``'s order over the unfused row — and
 an online log Z over the valid slots. With ``noise`` (B, K, V_BLK) the noise
 is added to the valid logits after log Z (Gumbel-max sampling).
 
-On a CUDA tensor ``fused_screened_topk`` launches ``csrc/fused_topk.cu``:
-one block per (row, slot, part of the tile) writes its part's sorted top list
-and (max, sum-exp) to scratch, and the last block of each row to finish
-merges the row in the same launch, holding each list's head in shared
-memory and reading the lists from the scratch in L2, so every k is
-served. On a CPU tensor it runs ``fused_screened_topk_plain``; on a meta
-tensor it returns empty results (the dry run). Under
+On a CUDA tensor ``fused_screened_topk`` launches ``csrc/fused_topk.cu``
+on one of two grids, one algorithm (``PERF.md``'s kernel table, rows 3j–3k):
+
+* the per-row grid: one block per (row, slot, part of the tile) writes its
+  part's sorted top list and (max, sum-exp) to scratch, and the last block
+  of each row to finish merges the row in the same launch, holding each
+  list's head in shared memory and reading the lists from the scratch in
+  L2, so every k is served;
+* the grouped grid, when the call brings the routes the block ids came from
+  (``cluster``, ``cand_blocks``: ``ops.screened_fused_topk`` and
+  ``screened_fused_sample`` do) and B ≥ ``GROUPED_MIN_ROWS`` = 128, the
+  crossover measured on the H100: ``group_rows`` groups the (row, slot)
+  pairs by tile through the rows' clusters and their candidate blocks;
+  one block per (chunk of up to ``GROUP_PAIRS`` pairs of one tile,
+  part) loads the tile's part once for all its pairs and writes each
+  pair's list and pair to the same scratch, merged the same way. At the
+  benchmark's 640 rows it reads 449 tile parts where the per-row grid reads
+  5,760. The adaptive head's tiers and a shard's call bring no routes and
+  keep the per-row grid.
+
+At equal P (``fused_parts``) both give the same bits. On a CPU tensor it
+runs ``fused_screened_topk_plain``; on a meta tensor it returns empty
+results (the dry run). Under
 ``launch/op_cost.count_cost`` it records one ``fused_screened_topk`` op
 (``kernels/cost.py``), whose results are (ids, vals, logZ) alone: no
 (B, K·V_BLK) logit tile; its products are those of the valid slots, as the
@@ -66,20 +82,32 @@ def fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids, k: int,
 
 
 def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
-                        noise: Optional[torch.Tensor] = None
+                        noise: Optional[torch.Tensor] = None,
+                        cluster: Optional[torch.Tensor] = None,
+                        cand_blocks: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """W_blocks (n_blk, V_BLK, d) f32 or bf16; b_blocks (n_blk, V_BLK) and
     h (B, d) of the same dtype; block_ids (B, K) int32, sentinel ≥ n_blk;
     optional noise (B, K, V_BLK) f32. → (ids (B, k) int32, vals (B, k) f32, logZ (B,) f32):
     ids/vals bit-identical to masking + stable top-k over the unfused
     (B, K·V_BLK) row; logZ is −∞ (not NaN) for all-sentinel rows.
-    DTensors run per device (``_per_device``)."""
+
+    ``cluster`` (B,) int32 with ``cand_blocks`` (r, K) int32: the routes
+    the block ids came from (``block_ids[i]`` = ``cand_blocks[cluster[i]]``).
+    With them, on the card, a batch of ``GROUPED_MIN_ROWS`` rows or more
+    takes the grouped grid (``takes_grouped``): the (row, slot) pairs are
+    grouped by their tile through the clusters (``group_rows``), and each
+    tile is loaded once per chunk of up to ``GROUP_PAIRS`` pairs, not once
+    per row. Without them, or below that width, the per-row grid runs.
+    Both give the same bits at equal P (``fused_parts``).
+    DTensors run per device (``_per_device``, the per-row grid)."""
     from repro_torch.kernels import ops
-    if shard.any_dtensor(W_blocks, b_blocks, h, block_ids, noise):
+    if shard.any_dtensor(W_blocks, b_blocks, h, block_ids, noise, cluster,
+                         cand_blocks):
         return _per_device(W_blocks, b_blocks, h, block_ids, k, noise)
     check_head_inputs(W_blocks, b_blocks, h, block_ids)
     dev = h.device
-    v_blk = W_blocks.shape[1]
+    n_blk, v_blk, d = W_blocks.shape
     B, K = block_ids.shape
     if not 1 <= k <= K * v_blk:
         raise ValueError(f"k={k} must lie in [1, K·{v_blk} = {K * v_blk}]")
@@ -88,6 +116,15 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
         if tuple(noise.shape) != (B, K, v_blk):
             raise ValueError(f"noise must be {(B, K, v_blk)}, got "
                              f"{tuple(noise.shape)}")
+    if (cluster is None) != (cand_blocks is None):
+        raise ValueError("cluster and cand_blocks come together")
+    if cluster is not None:
+        ops.check_tensor(cluster, "cluster", torch.int32, 1, dev)
+        ops.check_tensor(cand_blocks, "cand_blocks", torch.int32, 2, dev)
+        if cluster.shape[0] != B or cand_blocks.shape[1] != K:
+            raise ValueError(f"cluster {tuple(cluster.shape)} and cand_blocks "
+                             f"{tuple(cand_blocks.shape)} do not match "
+                             f"block_ids {(B, K)}")
     with cost.suspended():
         if dev.type == "cpu":
             out = fused_screened_topk_plain(W_blocks, b_blocks, h, block_ids,
@@ -97,13 +134,19 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
                    torch.empty((B, k), dtype=torch.float32, device=dev),
                    torch.empty((B,), dtype=torch.float32, device=dev))
         else:
-            out = _launch(W_blocks, b_blocks, h, block_ids, k, noise,
-                          fused_parts(B, K, _sm_count(dev)))
+            parts = fused_parts(B, K, _sm_count(dev))
+            if cluster is not None and takes_grouped(
+                    B, K, parts, d, cand_blocks.shape[0], n_blk,
+                    W_blocks.element_size()):
+                out = _launch_grouped(W_blocks, b_blocks, h, block_ids, k,
+                                      noise, parts, cluster, cand_blocks)
+            else:
+                out = _launch(W_blocks, b_blocks, h, block_ids, k, noise,
+                              parts)
     if cost.counting():
         # the valid distinct tiles read once and the valid slots' products
         # (a sentinel slot reads and computes nothing), h, the ids and the
         # noise; only (ids, vals, logZ) written
-        n_blk, _, d = W_blocks.shape
         esz = W_blocks.element_size()
         tiles = cost.distinct_tiles(block_ids, n_blk)
         cost.record_kernel(
@@ -118,6 +161,13 @@ def fused_screened_topk(W_blocks, b_blocks, h, block_ids, k: int,
 # the H100's shared memory for one block (opt-in): the launch refuses more
 # (``FT_SMEM_OPTIN`` in ``csrc/fused_topk.cu``, raised by ``ops.launch``)
 SMEM_LIMIT = 227 * 1024
+# (row, slot) pairs of one tile a block of the grouped grid serves
+# (``FT_GROUP``)
+GROUP_PAIRS = 16
+# the batch from which a call with known clusters takes the grouped grid:
+# the crossover of the two grids' times on the H100 (``chip_smoke.py
+# --only fused-batch``, ``PERF.md``'s kernel table)
+GROUPED_MIN_ROWS = 128
 
 
 def merge_smem_bytes(K: int, parts: int, d: int) -> int:
@@ -127,6 +177,40 @@ def merge_smem_bytes(K: int, parts: int, d: int) -> int:
     stay in L2)."""
     rows = V_BLK // parts
     return 4 * max(((d + 3) & ~3) + rows, 5 * K * parts)
+
+
+def grouped_smem_bytes(K: int, parts: int, d: int) -> int:
+    """Shared memory a launch of the grouped grid asks for: phase A holds
+    the h rows of ``GROUP_PAIRS`` pairs, their logits and the warps' rings of
+    weight chunks (``FT_RING_WORDS``: 8 warps x 4 steps x 4 rows x 32 lanes
+    x 16 bytes); phase B 5 words a list for as many rows at once (up to 4)
+    as fit in phase A's memory, one at least
+    (``fused_topk_grouped_launch``)."""
+    words_a = (GROUP_PAIRS * (((d + 3) & ~3) + V_BLK // parts)
+               + 8 * 4 * 4 * 32 * 4)
+    words_row = 5 * K * parts
+    rows = min(max(words_a // words_row, 1), 4)
+    return 4 * max(words_a, rows * words_row)
+
+
+def group_chunks(B: int, K: int, n_blk: int) -> int:
+    """Chunks the grouped grid has room for: ceil(B·K / G) + min(n_blk + 1,
+    B·K), the most that the B·K (row, slot) pairs over n_blk tiles and the
+    sentinel, cut into runs of up to G = ``GROUP_PAIRS`` pairs a tile, need."""
+    return -(-B * K // GROUP_PAIRS) + min(n_blk + 1, B * K)
+
+
+def takes_grouped(B: int, K: int, parts: int, d: int, r: int, n_blk: int,
+                  esz: int = 4) -> bool:
+    """Whether a call whose rows' clusters are known takes the grouped grid:
+    B reaches the crossover ``GROUPED_MIN_ROWS`` and the launch fits (rows
+    of ``esz``-byte weights in 16-byte chunks; its shared memory, d up to
+    2,048; the grouping's (1 + K)·r + 2·(n_blk + 1) + 2·B counters; the
+    grid's height)."""
+    return (B >= GROUPED_MIN_ROWS and (d * esz) % 16 == 0
+            and grouped_smem_bytes(K, parts, d) <= SMEM_LIMIT
+            and 4 * ((1 + K) * r + 2 * (n_blk + 1) + 2 * B) <= SMEM_LIMIT
+            and group_chunks(B, K, n_blk) <= 65_535)
 
 
 def fused_parts(B: int, K: int, n_sm: int) -> int:
@@ -196,6 +280,108 @@ def _launch(W_blocks, b_blocks, h, block_ids, k: int, noise, parts: int):
                ids.data_ptr(), vals.data_ptr(), logz.data_ptr(),
                scratch.data_ptr(), _counters(dev, B).data_ptr(),
                B, K, n_blk, d, k, parts)
+    return ids, vals, logz
+
+
+def group_rows_plain(cluster: torch.Tensor, cand_blocks: torch.Tensor,
+                     n_blk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the grouping (``group_rows_kernel``):
+    cluster (B,) int32 and cand_blocks (r, K) int32 (sentinel outside
+    [0, n_blk)) → (pairs (``group_chunks(B, K, n_blk)``·G,) int32 and
+    chunks (``group_chunks(B, K, n_blk)``, 2) int32: the (row, slot) pairs,
+    row·K + slot, by the slot's tile (the sentinel n_blk last), each tile's
+    cut into runs of up to G = ``GROUP_PAIRS``; chunk c = (pairs, tile),
+    its pairs at pairs[c·G:c·G + pairs]; zero chunks past the last, −1 in
+    the unused places). Within a tile the pairs go by cluster, slot and row.
+    The kernel writes the same chunks, and each tile's pairs in another
+    order (their places are taken by atomics; nothing downstream depends on
+    it). A cluster id outside [0, r) counts as the nearest of 0 and r − 1."""
+    dev = cluster.device
+    B = cluster.shape[0]
+    r, K = cand_blocks.shape
+    c = cluster.long().clamp(0, r - 1)
+    cand = cand_blocks.long()
+    tile = torch.where((cand >= 0) & (cand < n_blk), cand, n_blk)[c]  # (B, K)
+    row = torch.arange(B, device=dev)[:, None]
+    slot = torch.arange(K, device=dev)
+    key = ((tile * r + c[:, None]) * K + slot) * B + row
+    by_tile = torch.argsort(key.flatten())
+    pair = (row * K + slot).flatten()[by_tile]
+    tile = tile.flatten()[by_tile]
+    per_tile = torch.bincount(tile, minlength=n_blk + 1)
+    per = -(-per_tile // GROUP_PAIRS)                  # chunks a tile
+    first = torch.cumsum(per, 0) - per
+    at = first[tile] * GROUP_PAIRS + (torch.arange(B * K, device=dev)
+                                     - (torch.cumsum(per_tile, 0)
+                                        - per_tile)[tile])
+    n_chunks = group_chunks(B, K, n_blk)
+    pairs = torch.full((n_chunks * GROUP_PAIRS,), -1, dtype=torch.int32,
+                       device=dev)
+    pairs[at] = pair.int()
+    owner = torch.repeat_interleave(torch.arange(n_blk + 1, device=dev), per)
+    q = torch.arange(owner.numel(), device=dev) - first[owner]
+    chunks = torch.zeros((n_chunks, 2), dtype=torch.int32, device=dev)
+    chunks[:owner.numel(), 0] = torch.clamp(
+        per_tile[owner] - q * GROUP_PAIRS, max=GROUP_PAIRS).int()
+    chunks[:owner.numel(), 1] = owner.int()
+    return pairs, chunks
+
+
+def group_rows(cluster: torch.Tensor, cand_blocks: torch.Tensor,
+               n_blk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``group_rows_plain``'s (pairs, chunks): on a CUDA tensor one launch
+    of ``group_rows_kernel`` (``csrc/fused_topk.cu``, one block; the unused
+    places of pairs are left as they were), on a CPU tensor the plain
+    version, on a meta tensor empty results of the same shapes. It runs
+    inside ``fused_screened_topk``'s grouped call, whose cost record stands
+    for both launches."""
+    from repro_torch.kernels import ops
+    dev = cluster.device
+    ops.check_tensor(cluster, "cluster", torch.int32, 1, dev)
+    ops.check_tensor(cand_blocks, "cand_blocks", torch.int32, 2, dev)
+    B = cluster.shape[0]
+    r, K = cand_blocks.shape
+    if dev.type == "cpu":
+        return group_rows_plain(cluster, cand_blocks, n_blk)
+    n_chunks = group_chunks(B, K, n_blk)
+    pairs = torch.empty((n_chunks * GROUP_PAIRS,), dtype=torch.int32,
+                        device=dev)
+    chunks = torch.empty((n_chunks, 2), dtype=torch.int32, device=dev)
+    if dev.type == "cuda":
+        ops.launch("group_rows", "fused_topk", "l2s_group_rows", dev,
+                   cluster.data_ptr(), cand_blocks.data_ptr(),
+                   pairs.data_ptr(), chunks.data_ptr(), B, r, K, n_blk,
+                   n_chunks)
+    return pairs, chunks
+
+
+def _launch_grouped(W_blocks, b_blocks, h, block_ids, k: int, noise,
+                    parts: int, cluster, cand_blocks):
+    """The grouping, then one launch of the grouped grid with each tile cut
+    into ``parts`` parts; counted under ``fused_screened_topk_grouped``
+    too."""
+    from repro_torch.kernels import ops
+    dev = h.device
+    n_blk, v_blk, d = W_blocks.shape
+    B, K = block_ids.shape
+    pairs, chunks = group_rows(cluster, cand_blocks, n_blk)
+    kk = min(k, v_blk // parts)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    logz = torch.empty((B,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B * K * parts * (2 * kk + 2),), dtype=torch.float32,
+                          device=dev)
+    sfx = ops.BF16 if W_blocks.dtype == torch.bfloat16 else ""
+    ops.launch("fused_screened_topk" + sfx, "fused_topk",
+               "l2s_fused_screened_topk_grouped" + sfx, dev,
+               W_blocks.data_ptr(), b_blocks.data_ptr(), h.data_ptr(),
+               block_ids.data_ptr(),
+               None if noise is None else noise.data_ptr(),
+               pairs.data_ptr(), chunks.data_ptr(),
+               ids.data_ptr(), vals.data_ptr(), logz.data_ptr(),
+               scratch.data_ptr(), _counters(dev, B).data_ptr(),
+               B, K, n_blk, d, k, parts, chunks.shape[0])
+    ops.LAUNCHES["fused_screened_topk_grouped"] += 1
     return ids, vals, logz
 
 

@@ -17,8 +17,10 @@ Two decode hot paths, twins of ``repro/kernels/ops.py``:
 
 ``screened_fused_topk`` — the FUSED pipeline: route → one launch reduces
   each row's candidates on chip (``fused_screened_topk``: blocks per (row,
-  slot, part of the tile), merged by the row's last block); only short
-  per-part lists, (B, k) ids/vals and (B,) logZ reach device memory.
+  slot, part of the tile), merged by the row's last block; from
+  ``GROUPED_MIN_ROWS`` rows, blocks per (chunk of (row, slot) pairs of one
+  tile, part), the pairs grouped by tile through the routes first); only
+  short per-part lists, (B, k) ids/vals and (B,) logZ reach device memory.
   ids/vals are bit-identical to the unfused path. ``screened_fused_sample`` rides the same kernel with
   temperature-scaled Gumbel noise (Gumbel-max ≡ categorical sampling).
 
@@ -44,7 +46,10 @@ logits float32); its launches count under the kernel's name + ``"_bf16"``.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
 it with ``reset_launches`` and reads it to show that the path it drove went
-through the kernels. A wrapper called while a CUDA graph captures launches
+through the kernels. A fused launch on the grouped grid counts under its
+kernel's name as any other, after one ``group_rows`` launch, and once more
+under ``fused_screened_topk_grouped``, which shows that a path engaged that
+grid. A wrapper called while a CUDA graph captures launches
 nothing: the serving engine takes the capture's count back out and adds it
 again at every replay of the graph (``serving/engine.py::_Graph``).
 """
@@ -81,7 +86,12 @@ _SIGNATURES = {
     "fused_topk": {"l2s_fused_screened_topk":
                    ([_P] * 10 + [_I] * 6 + [_P], _I),
                    "l2s_fused_screened_topk_bf16":
-                   ([_P] * 10 + [_I] * 6 + [_P], _I)},
+                   ([_P] * 10 + [_I] * 6 + [_P], _I),
+                   "l2s_fused_screened_topk_grouped":
+                   ([_P] * 12 + [_I] * 7 + [_P], _I),
+                   "l2s_fused_screened_topk_grouped_bf16":
+                   ([_P] * 12 + [_I] * 7 + [_P], _I),
+                   "l2s_group_rows": ([_P] * 4 + [_I] * 5 + [_P], _I)},
     "ssd": {"l2s_ssd_intra": ([_P] * 6 + [_I] * 6 + [_P], _I)},
     "ssd_bwd": {"l2s_ssd_intra_bwd": ([_P] * 11 + [_I] * 6 + [_P], _I)},
     "cache_update": {"l2s_cache_slot_update": ([_P] * 3 + [_I] * 4 + [_P], _I),
@@ -93,7 +103,8 @@ LAUNCHES: Dict[str, int] = {"cluster_route": 0, "screened_logits": 0,
                             "ssd_intra_bwd": 0, "cache_slot_update": 0,
                             "cluster_route_bf16": 0,
                             "screened_logits_bf16": 0,
-                            "fused_screened_topk_bf16": 0}
+                            "fused_screened_topk_bf16": 0, "group_rows": 0,
+                            "fused_screened_topk_grouped": 0}
 # the bfloat16 kernel bodies of the three L2S kernels, counted apart
 BF16 = "_bf16"
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -238,10 +249,11 @@ def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
-def _route_block_ids(v, cand_blocks, h) -> torch.Tensor:
-    """Routing through the kernel → per-row candidate block ids (B, K)."""
+def _route(v, cand_blocks, h) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routing through the kernel → (clusters (B,) int32, per-row candidate
+    block ids (B, K) int32)."""
     cluster = cluster_route(h, v)                                    # (B,)
-    return cand_blocks[cluster.long()].to(torch.int32).contiguous()
+    return cluster, cand_blocks[cluster.long()].to(torch.int32).contiguous()
 
 
 def screened_candidate_logits(W_blocks, b_blocks, v, cand_blocks, h
@@ -254,7 +266,7 @@ def screened_candidate_logits(W_blocks, b_blocks, v, cand_blocks, h
     word ids (B, K·V_BLK) int32 with sentinel n_blk·V_BLK)."""
     n_blk, v_blk, _ = W_blocks.shape
     B = h.shape[0]
-    block_ids = _route_block_ids(v, cand_blocks, h)                  # (B, K)
+    _, block_ids = _route(v, cand_blocks, h)                         # (B, K)
     raw = screened_logits(W_blocks, b_blocks, h, block_ids)          # (B, K, V)
     valid = ((block_ids >= 0) & (block_ids < n_blk))[..., None]
     logits = torch.where(valid, raw, NEG_INF).reshape(B, -1)
@@ -278,9 +290,12 @@ def screened_fused_topk(W_blocks, b_blocks, v, cand_blocks, h, k: int = 5):
     """Fused L2S prediction: route → on-chip subset softmax + top-k.
     → (word ids (B, k) int32, logits (B, k) f32, logZ (B,) f32); ids/vals
     bit-identical to ``screened_topk``, logZ −∞ (never NaN) for
-    all-sentinel rows."""
-    block_ids = _route_block_ids(v, cand_blocks, h)
-    return fused_screened_topk(W_blocks, b_blocks, h, block_ids, k=k)
+    all-sentinel rows. The routes go with the ids, so that a wide batch
+    takes the kernel's grouped grid."""
+    cluster, block_ids = _route(v, cand_blocks, h)
+    cand = cand_blocks.to(torch.int32).contiguous()
+    return fused_screened_topk(W_blocks, b_blocks, h, block_ids, k=k,
+                               cluster=cluster, cand_blocks=cand)
 
 
 def screened_fused_sample(W_blocks, b_blocks, v, cand_blocks, h,
@@ -292,12 +307,14 @@ def screened_fused_sample(W_blocks, b_blocks, v, cand_blocks, h,
     argmax(logits + T·G) over the routed candidates. ``gumbel`` (B, K, V_BLK)
     supplies G, else it is drawn from ``generator``.
     → (B,) int32 word ids (sentinel n_blk·V_BLK on all-sentinel rows)."""
-    block_ids = _route_block_ids(v, cand_blocks, h)
+    cluster, block_ids = _route(v, cand_blocks, h)
     B, K = block_ids.shape
     if gumbel is None:
         gumbel = gumbel_noise((B, K, W_blocks.shape[1]), generator, h.device)
+    cand = cand_blocks.to(torch.int32).contiguous()
     ids, _, _ = fused_screened_topk(W_blocks, b_blocks, h, block_ids, k=1,
-                                    noise=(temperature * gumbel).contiguous())
+                                    noise=(temperature * gumbel).contiguous(),
+                                    cluster=cluster, cand_blocks=cand)
     return ids[:, 0]
 
 

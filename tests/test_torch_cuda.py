@@ -197,6 +197,204 @@ def test_cuda_fused_noise_and_determinism(cuda, K):
     assert all(int(c.abs().sum()) == 0 for c in fused_topk._COUNTERS.values())
 
 
+# -- the grouped grid: a batch's rows grouped by cluster ----------------------
+def _grouped_case(cuda, routes, d, dtype, B=43, r=12, K=5, seed=3):
+    """A head over 12 tiles, r clusters of K candidate blocks (sentinel
+    slots of both kinds in some, cluster 4 all sentinel), h (B, d) and the
+    rows' clusters: "one" every row on cluster 0 (more than G rows a
+    cluster); "own" row i on cluster i (B = r); "mixed" random, with every
+    other row on cluster 7. B = 43 is no multiple of G.
+    → (Wb, bb, h, cluster, ids, cand)."""
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn((1500, d), generator=g) * 0.05
+    b = torch.randn((1500,), generator=g) * 0.1
+    Wb, bb = ops.pack_head_blocks(W.to(cuda, dtype), b.to(cuda, dtype))
+    n_blk = Wb.shape[0]
+    cand = torch.randint(0, n_blk, (r, K), generator=g, dtype=torch.int32)
+    cand[::3, 1] = -1
+    cand[1::3, K // 2] = n_blk
+    cand[4] = n_blk
+    if routes == "own":
+        B, cluster = r, torch.arange(r)
+    elif routes == "one":
+        cluster = torch.zeros(B, dtype=torch.long)
+    else:
+        cluster = torch.randint(0, r, (B,), generator=g)
+        cluster[::2] = 7
+    h = torch.randn((B, d), generator=g).to(cuda, dtype)
+    ids = cand[cluster].contiguous().to(cuda)
+    return Wb, bb, h, cluster.to(cuda, torch.int32), ids, cand.to(cuda)
+
+
+def _grids(Wb, bb, h, cluster, ids, k, cand, noise=None):
+    """Both grids at the wrapper's P: (per-row results, grouped results)."""
+    from repro_torch.kernels import fused_topk
+    B, K = ids.shape
+    P = fused_topk.fused_parts(B, K, fused_topk._sm_count(h.device))
+    return (fused_topk._launch(Wb, bb, h, ids, k, noise, P),
+            fused_topk._launch_grouped(Wb, bb, h, ids, k, noise, P, cluster,
+                                       cand))
+
+
+# d: rows of 24, 34 and 126 16-byte chunks in float32 (12, 17, 63 in
+# bfloat16): fewer chunks than lanes, a ragged second step, the LSTM's width
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 136, 504])
+@pytest.mark.parametrize("routes", ["one", "own", "mixed"])
+@pytest.mark.parametrize("k", [1, 5, 128])
+def test_cuda_fused_grouped_grid_bit_identical(cuda, k, routes, d, dtype):
+    """The grouped grid (rows of one cluster share each tile's load) gives
+    the per-row grid's ids, vals and logZ bit for bit at the same P, and the
+    unfused path's ids and vals: masked gather-kernel logits + stable
+    top-k. One grouping and two fused launches counted, one of them
+    grouped."""
+    Wb, bb, h, cluster, ids, cand = _grouped_case(cuda, routes, d, dtype)
+    n_blk = Wb.shape[0]
+    B, K = ids.shape
+    sfx = ops.BF16 if dtype == torch.bfloat16 else ""
+    ops.reset_launches()
+    row, grp = _grids(Wb, bb, h, cluster, ids, k, cand)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "fused_screened_topk" + sfx: 2, "group_rows": 1,
+        "fused_screened_topk_grouped": 1}
+    for a, b in zip(row, grp):
+        assert torch.equal(a, b)
+    raw = screened_logits(Wb, bb, h, ids)
+    valid = ((ids >= 0) & (ids < n_blk))[..., None]
+    lane = torch.arange(V_BLK, device=cuda, dtype=torch.int32)
+    word = torch.where(valid, ids[..., None] * V_BLK + lane,
+                       n_blk * V_BLK).reshape(B, -1)
+    uv, upos = topk_desc(torch.where(valid, raw, NEG_INF).reshape(B, -1), k)
+    assert torch.equal(grp[1], uv)
+    assert torch.equal(grp[0], torch.gather(word, 1, upos))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_grouped_grid_with_noise(cuda, dtype):
+    """With Gumbel noise, read at each row's own index, the grouped grid
+    gives the per-row grid's bits, and the plain version's ids."""
+    Wb, bb, h, cluster, ids, cand = _grouped_case(cuda, "mixed", 96, dtype)
+    B, K = ids.shape
+    noise = ops.gumbel_noise((B, K, V_BLK),
+                             torch.Generator(device=cuda).manual_seed(1), cuda)
+    for k in (1, 5):
+        row, grp = _grids(Wb, bb, h, cluster, ids, k, cand, noise)
+        for a, b in zip(row, grp):
+            assert torch.equal(a, b)
+        pi, pv, _ = fused_screened_topk_plain(Wb, bb, h, ids, k, noise)
+        assert torch.equal(grp[0], pi)
+        torch.testing.assert_close(grp[1], pv, **TOL)
+
+
+def test_cuda_fused_grouped_grid_refuses_ragged_rows(cuda):
+    """The grouped grid streams weights in 16-byte chunks: a row of 30
+    floats is refused at the launch, and the wrapper keeps such a head on
+    the per-row grid at any width."""
+    from repro_torch.kernels import fused_topk
+    Wb, bb, h, cluster, ids, cand = _grouped_case(cuda, "mixed", 30,
+                                                  torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        _grids(Wb, bb, h, cluster, ids, 5, cand)
+    ops.reset_launches()
+    got = fused_screened_topk(Wb, bb, h, ids, 5, cluster=cluster,
+                              cand_blocks=cand)
+    assert ops.LAUNCHES["fused_screened_topk_grouped"] == 0
+    for a, b in zip(got, fused_topk._launch(
+            Wb, bb, h, ids, 5, None,
+            fused_topk.fused_parts(*ids.shape, fused_topk._sm_count(cuda)))):
+        assert torch.equal(a, b)
+
+
+def test_cuda_fused_wrapper_takes_the_grouped_grid_by_width(cuda):
+    """``screened_fused_topk`` hands the routes to the kernel: from
+    GROUPED_MIN_ROWS rows it runs the grouping and the grouped grid, below
+    them the per-row grid; the same bits either way. Without routes
+    (``tier_fused_topk``) the per-row grid runs at any width."""
+    from repro_torch.kernels.fused_topk import GROUPED_MIN_ROWS
+    Wb, bb, h, _, _, cand = _grouped_case(cuda, "mixed", 96, torch.float32,
+                                          B=2 * GROUPED_MIN_ROWS)
+    r = cand.shape[0]                   # its screen, with sentinel slots
+    v = torch.randn((r, 96), generator=torch.Generator().manual_seed(9))
+    v = v.to(cuda)
+    for B, grouped in ((GROUPED_MIN_ROWS - 1, 0), (GROUPED_MIN_ROWS, 1),
+                       (2 * GROUPED_MIN_ROWS, 1)):
+        hb = h[:B].contiguous()
+        ops.reset_launches()
+        got = ops.screened_fused_topk(Wb, bb, v, cand, hb, k=5)
+        assert ops.LAUNCHES["fused_screened_topk_grouped"] == grouped
+        assert ops.LAUNCHES["group_rows"] == grouped
+        want = ops.screened_topk(Wb, bb, v, cand, hb, k=5)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ops.reset_launches()
+        ids = cand[cluster_route(hb, v).long()].contiguous()
+        tier = ops.tier_fused_topk(Wb, bb, hb, ids, k=5)
+        assert ops.LAUNCHES["fused_screened_topk_grouped"] == 0
+        for a, b in zip(tier, got):
+            assert torch.equal(a, b)
+
+
+def test_cuda_fused_grouped_graph_replays_new_routes(cuda):
+    """A CUDA graph of ``screened_fused_topk`` captured at one routing of
+    64 rows, replayed after h changes: its routes, chunks and live blocks
+    change with it, and each replay gives the eager call's bits."""
+    from repro_torch.kernels.fused_topk import GROUPED_MIN_ROWS
+    B = max(64, GROUPED_MIN_ROWS)
+    Wb, bb, h, _, _, cand = _grouped_case(cuda, "mixed", 96, torch.float32,
+                                          B=B)
+    r = cand.shape[0]
+    v = torch.randn((r, 96), generator=torch.Generator().manual_seed(11))
+    v = v.to(cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.screened_fused_topk(Wb, bb, v, cand, h, k=5)  # counters, outside
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    ops.reset_launches()
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.screened_fused_topk(Wb, bb, v, cand, h, k=5)
+    assert ops.LAUNCHES["fused_screened_topk_grouped"] == 1
+    routes = []
+    for seed in (1, 2, 3):
+        h.copy_(torch.randn(h.shape, generator=torch.Generator()
+                            .manual_seed(seed)).to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.screened_fused_topk(Wb, bb, v, cand, h.clone(), k=5)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+        routes.append(cluster_route(h, v).cpu())
+    assert not torch.equal(routes[0], routes[1])
+
+
+def test_cuda_grouped_launches_counted_by_generate_width(cuda):
+    """A screened-cuda generate over 640 rows engages the grouped grid (its
+    graph's replays count it), one over 4 rows does not."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.screening import candidates_to_padded
+    from repro_torch.interop import screen_from_numpy
+    from repro_torch.models import Model
+    from repro_torch.serving import DecodeEngine
+
+    cfg = replace(get_config("nmt-deen-lstm").reduced(), vocab_size=600)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    rng = np.random.default_rng(0)
+    idx, lens = candidates_to_padded(rng.random((4, 5)) < 0.6, 600,
+                                     block=V_BLK)
+    screen = screen_from_numpy(rng.standard_normal((4, 128)), idx, lens, 600,
+                               V_BLK)
+    eng = DecodeEngine(model, params, screen=screen, head="screened-cuda",
+                       device=cuda)
+    for B, engaged in ((640, True), (4, False)):
+        ops.reset_launches()
+        eng.generate(rng.integers(0, 600, (B, 5)), 4)
+        assert (ops.LAUNCHES["fused_screened_topk_grouped"] > 0) == engaged
+        assert ops.LAUNCHES["fused_screened_topk"] > 0
+
+
 def _check_screen(Wb, bb, h, ids):
     """The gather kernel against its plain version (1e-5), bit for bit
     against the fused kernel's masked logits (k = K·128: every logit), the

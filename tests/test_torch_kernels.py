@@ -328,6 +328,90 @@ def test_fused_parts_fill_the_card():
     assert fused_parts(1, 200, 132) == 2
 
 
+@pytest.mark.parametrize("routes", ["skewed", "own", "outside"])
+def test_group_rows_plain_groups_pairs_by_tile(routes):
+    """The grouping's plain version: ``pairs`` holds every (row, slot) once,
+    sorted by the slot's tile (sentinel slots, both kinds, last) and within
+    a tile stably by cluster, slot and row; the chunks cut each tile's pairs
+    into runs of up to G, one tile a chunk, and fill the table's head, zeros
+    after. Ids outside [0, r) count as the nearest end."""
+    from repro_torch.kernels.fused_topk import (GROUP_PAIRS as G,
+                                                group_chunks, group_rows,
+                                                group_rows_plain)
+    r, B, K, n_blk = 7, 45, 3, 6
+    g = torch.Generator().manual_seed(5)
+    cluster = {"skewed": torch.where(torch.rand(B, generator=g) < 0.6, 2,
+                                     torch.randint(0, r, (B,), generator=g)),
+               "own": torch.arange(B) % r,
+               "outside": torch.randint(-2, r + 2, (B,), generator=g)}[routes]
+    cluster = cluster.to(torch.int32)
+    cand = torch.randint(0, n_blk, (r, K), generator=g, dtype=torch.int32)
+    cand[1, 0], cand[4, 2] = n_blk, -1
+    got = group_rows(cluster, cand, n_blk)              # the plain version
+    for a, b in zip(got, group_rows_plain(cluster, cand, n_blk)):
+        assert torch.equal(a, b)
+    pairs, chunks = got
+    c = cluster.long().clamp(0, r - 1)
+    assert chunks.shape == (group_chunks(B, K, n_blk), 2)
+    assert pairs.shape == (chunks.shape[0] * G,)
+    n = int((chunks[:, 0] > 0).sum())
+    assert bool((chunks[n:] == 0).all()) and bool((chunks[:n, 0] <= G).all())
+    held = torch.cat([pairs[q * G:q * G + m] for q, (m, _) in
+                      enumerate(chunks[:n].tolist())]).long()
+    assert sorted(held.tolist()) == list(range(B * K))
+    tiles = cand.long()[c[held // K], held % K]
+    tiles = torch.where((tiles < 0) | (tiles >= n_blk), n_blk, tiles)
+    keys = list(zip(tiles.tolist(), c[held // K].tolist(), (held % K).tolist(),
+                    (held // K).tolist()))
+    assert keys == sorted(keys)            # tile (sentinel last), cluster, slot, row
+    for q, (m, tile) in enumerate(chunks[:n].tolist()):      # one tile a chunk
+        p = pairs[q * G:q * G + m].long()
+        t = cand.long()[c[p // K], p % K]
+        assert set(torch.where((t < 0) | (t >= n_blk), n_blk, t).tolist()) == {tile}
+
+
+def test_fused_wrapper_takes_routes_with_their_blocks():
+    """The routes come as a pair (cluster, cand_blocks) matching the block
+    ids; on the CPU they leave the plain version's results as they are."""
+    fx = _fixture(1, 300, 16, 4, 3, 6)
+    _, (tw, tb) = _packed(fx)
+    h = _t(fx["h"])
+    cand = _t(fx["cand"])
+    cluster = cluster_route(h, _t(fx["v"]))
+    ids = cand[cluster.long()].contiguous()
+    with pytest.raises(ValueError, match="come together"):
+        fused_screened_topk(tw, tb, h, ids, k=2, cluster=cluster)
+    with pytest.raises(ValueError, match="do not match"):
+        fused_screened_topk(tw, tb, h, ids, k=2, cluster=cluster[:-1].clone(),
+                            cand_blocks=cand)
+    got = fused_screened_topk(tw, tb, h, ids, k=2, cluster=cluster,
+                              cand_blocks=cand)
+    for a, b in zip(got, fused_screened_topk(tw, tb, h, ids, k=2)):
+        assert torch.equal(a, b)
+
+
+def test_grouped_grid_rule():
+    """The grouped grid from GROUPED_MIN_ROWS rows on, when it fits: at the
+    benchmark's translation batch (B = 640, K = 9, d = 500, r = 100, 196
+    tiles) yes, at the decode step (B = 4) no; nor where a weight row is no
+    whole number of 16-byte chunks, where the h rows of G pairs pass the
+    shared memory (zamba2-2.7b's d = 2560) or where the grouping's counters
+    do."""
+    from repro_torch.kernels.fused_topk import (GROUPED_MIN_ROWS, SMEM_LIMIT,
+                                                grouped_smem_bytes,
+                                                takes_grouped)
+    assert takes_grouped(640, 9, fused_parts(640, 9, 132), 500, 100, 196)
+    assert not takes_grouped(4, 9, fused_parts(4, 9, 132), 500, 100, 196)
+    assert takes_grouped(GROUPED_MIN_ROWS, 9, 1, 500, 100, 196)
+    assert not takes_grouped(GROUPED_MIN_ROWS - 1, 9, 1, 500, 100, 196)
+    assert takes_grouped(640, 16, 1, 2048, 100, 2000, esz=2)
+    assert not takes_grouped(640, 16, 1, 500, 100, 196, esz=2)  # 1,000 bytes
+    assert not takes_grouped(640, 16, 1, 30, 100, 196)
+    assert grouped_smem_bytes(16, 1, 2560) > SMEM_LIMIT
+    assert not takes_grouped(640, 16, 1, 2560, 100, 250, esz=2)
+    assert not takes_grouped(640, 9, 1, 500, 40_000, 196)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("slot", [0, 255, 261, -1],
                          ids=["0", "S-1", "S+5", "neg"])
